@@ -1,0 +1,19 @@
+"""mdgrad_tpu_torch: the PyTorch/CUDA port of mdgrad_tpu.
+
+It imports torch, numpy and the standard library only -- never JAX, flax,
+optax or the ``mdgrad_tpu`` package -- and keeps the JAX package's module
+names so that each counterpart is easy to find.  Its entry points take a
+``device`` that defaults to ``"cuda"`` and raise when no card is present;
+tests pass ``device="cpu"``.  Hand-written CUDA kernels live in ``csrc/``
+and are built at their first launch (``ops/_build.py``).
+"""
+
+from . import observables, potentials, topology, units
+from .interface import GNNPotentials, PairPotentials, Stack
+from .md import NoseHooverChain, Simulation
+from .nn import SchNet
+from .system import System
+
+__all__ = ["GNNPotentials", "NoseHooverChain", "PairPotentials", "SchNet",
+           "Simulation", "Stack", "System", "observables", "potentials",
+           "topology", "units"]

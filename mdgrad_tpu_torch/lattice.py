@@ -1,0 +1,38 @@
+"""Cubic crystal lattices (port of ``cubic_lattice`` from
+``mdgrad_tpu/lattice.py``).
+
+``cubic_lattice`` returns ``(positions (N, 3) float64, cell (3, 3)
+float64)`` with the same atom order as the JAX package, so that systems
+built from the same arguments agree bit for bit.
+"""
+
+import numpy as np
+
+_BASES = {
+    "sc": np.array([[0.0, 0.0, 0.0]]),
+    "bcc": np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.5]]),
+    "fcc": np.array([
+        [0.0, 0.0, 0.0], [0.0, 0.5, 0.5], [0.5, 0.0, 0.5], [0.5, 0.5, 0.0],
+    ]),
+}
+_BASES["diamond"] = np.concatenate(
+    [_BASES["fcc"], _BASES["fcc"] + 0.25], axis=0
+)
+
+
+def cubic_lattice(kind, size, latticeconstant):
+    """Replicate a conventional cubic unit cell ``size`` times per axis.
+
+    kind: 'sc' | 'bcc' | 'fcc' (4 atoms/cell) | 'diamond' (8 atoms/cell).
+    """
+    if isinstance(size, int):
+        size = (size, size, size)
+    basis = _BASES[kind]
+    cells = np.stack(np.meshgrid(
+        np.arange(size[0]), np.arange(size[1]), np.arange(size[2]),
+        indexing="ij"), axis=-1).reshape(-1, 3)
+    frac = (cells[:, None, :] + basis[None, :, :]).reshape(-1, 3)
+    positions = frac * latticeconstant
+    cell = np.diag(np.asarray(size, dtype=np.float64) * latticeconstant)
+    return positions, cell
+

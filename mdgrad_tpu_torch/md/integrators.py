@@ -1,0 +1,132 @@
+"""Nose-Hoover chain NVT integration with a cached force.
+
+Port of ``mdgrad_tpu/md/integrators.py``: the ``_MDIntegrator`` force
+dispatch, ``prime_state`` and the cached symplectic step, and
+``NoseHooverChain``.  Forces are ``-dU/dq`` from ``torch.autograd.grad``
+with ``create_graph=False``: this is the forward-only sampling path (the
+replay adjoint comes with the training slice).
+
+The end-of-step force equals the next step's start force, so each step
+evaluates the potential once; ``prime_state`` fills the cache at epoch
+entry.  ``fv`` (force valid) is a Python bool here, so checking it never
+waits for the device.
+"""
+
+import typing
+
+import torch
+
+from .. import units
+from .._device import resolve_device
+from ..system import check_system
+
+
+class NVTStateF(typing.NamedTuple):
+    v: torch.Tensor
+    q: torch.Tensor
+    pv: torch.Tensor   # Nose-Hoover chain bath momenta
+    f: torch.Tensor    # cached force at q
+    fv: bool           # the cached force is valid
+
+
+class _MDIntegrator:
+    """Force evaluation and the cached velocity-Verlet-family step."""
+
+    def __init__(self, potentials, system, topology_update_freq=1,
+                 device="cuda", dtype=torch.float32):
+        check_system(system)
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.model = potentials
+        self.system = system
+        self.masses = torch.as_tensor(system.get_masses(), dtype=dtype,
+                                      device=self.device)[:, None]
+        self.n_dof = system.get_number_of_atoms() * system.dim
+        self.topology_update_freq = topology_update_freq
+
+    def aux_init(self, q):
+        return self.model.aux_init(q)
+
+    def aux_update(self, q, aux):
+        return self.model.aux_update(q, aux)
+
+    def default_ctrl(self):
+        return {}
+
+    def force(self, q, aux):
+        """-dU/dq at ``q`` (a new leaf; no graph is kept)."""
+        with torch.enable_grad():
+            q = q.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(self.model.energy(q, aux), q)
+        return -g
+
+    def prime_state(self, state, aux):
+        """Refresh ``aux`` at ``state.q`` and fill the force cache; returns
+        ``(state, aux)``."""
+        aux = self.model.aux_update(state.q, aux)
+        return state._replace(f=self.force(state.q, aux), fv=True), aux
+
+    def step(self, state, aux, ctrl, dt):
+        """One step with ONE potential evaluation: the start-of-step force
+        is the cached end-of-step force of the previous step."""
+        f0 = state.f if state.fv else self.force(state.q, aux)
+        dv0, dbath0 = self.derivs_from_force(state, ctrl, f0)
+        v_half = state.v + 0.5 * dt * dv0
+        q_new = state.q + v_half * dt
+        mid = state._replace(v=v_half, q=q_new,
+                             pv=state.pv + 0.5 * dt * dbath0)
+        f1 = self.force(q_new, aux)
+        dv1, dbath1 = self.derivs_from_force(mid, ctrl, f1)
+        return mid._replace(v=v_half + 0.5 * dt * dv1, f=f1, fv=True,
+                            pv=mid.pv + 0.5 * dt * dbath1)
+
+
+class NoseHooverChain(_MDIntegrator):
+    """NVT through a Nose-Hoover chain; T in Kelvin, bath masses
+    [Q, Q/N, ..., Q/N], or the Martyna-Tuckerman-Klein masses from ``tau``.
+    """
+
+    state_keys = ["velocities", "positions", "baths"]
+
+    def __init__(self, potentials, system, T, num_chains=2, Q=1.0,
+                 topology_update_freq=1, tau=None, device="cuda",
+                 dtype=torch.float32):
+        super().__init__(potentials, system, topology_update_freq,
+                         device=device, dtype=dtype)
+        if num_chains < 2:
+            raise ValueError("NoseHooverChain needs num_chains >= 2")
+        self.T = T
+        self.num_chains = num_chains
+        n = system.get_number_of_atoms()
+        if tau is not None:
+            kT0 = T * units.kB
+            q = [self.n_dof * kT0 * tau ** 2] + [kT0 * tau ** 2] * (
+                num_chains - 1)
+        else:
+            q = [Q] + [Q / n] * (num_chains - 1)
+        self.Q = torch.tensor(q, dtype=dtype, device=self.device)
+
+    def default_ctrl(self):
+        return {"kT": torch.tensor(self.T * units.kB, dtype=self.dtype,
+                                   device=self.device)}
+
+    def initial_state(self, wrap=True):
+        kw = {"dtype": self.dtype, "device": self.device}
+        q = torch.as_tensor(self.system.get_positions(wrap=wrap), **kw)
+        return NVTStateF(
+            v=torch.as_tensor(self.system.get_velocities(), **kw), q=q,
+            pv=torch.zeros(self.num_chains, **kw), f=torch.zeros_like(q),
+            fv=False)
+
+    def derivs_from_force(self, state, ctrl, f):
+        """Chain equations of motion given the force: (dv/dt, dpv/dt)."""
+        kT = ctrl["kT"]
+        v, pv, m, Q = state.v, state.pv, self.masses, self.Q
+        p = v * m
+        sys_ke = 0.5 * (p ** 2 / m).sum()
+        dvdt = (f - pv[0] * p / Q[0]) / m
+        dpv0 = 2 * (sys_ke - kT * self.n_dof * 0.5) - pv[0] * pv[1] / Q[1]
+        dpv_mid = ((pv[:-2] ** 2 / Q[:-2] - kT)
+                   - pv[2:] * pv[1:-1] / Q[2:])
+        dpv_last = pv[-2] ** 2 / Q[-2] - kT
+        return dvdt, torch.cat([dpv0[None], dpv_mid, dpv_last[None]])

@@ -1,0 +1,113 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by ONE ``nvcc`` call into one shared
+library with a plain C interface, loaded with ``ctypes`` -- no PyTorch
+headers, so the build takes seconds, not the minutes that
+``torch.utils.cpp_extension`` needs.  The library lands in
+``mdgrad_tpu_torch/_build/`` (ignored by git) under a name that hashes the
+sources and flags, so an edited source is rebuilt at its first use and an
+unchanged one is loaded as it is.  Nothing is built when a module is
+imported: :func:`library` builds on the first kernel launch.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points and their argument types; pointers and the stream go as
+# c_void_p, or ctypes would pass them as 32-bit ints
+SIGNATURES = {
+    "mdg_gather_mul_reduce": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mdg_table_gather": (_P, _P, _P, _I, _I, _I, _P),
+    "mdg_table_scatter": (_P, _P, _P, _P, _I, _I, _P),
+    "mdg_rdf_tile": (),
+    "mdg_rdf_counts": (_P, _I, _I, _F, _F, _F, _F, _P, _P, _I, _P, _P, _P),
+}
+
+build_seconds = None   # wall time of the last build in this process
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for root in filter(None, (home, "/usr/local/cuda")):
+        cand = pathlib.Path(root) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found: put the CUDA toolkit's bin on PATH "
+                       "or set CUDA_HOME")
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path():
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libmdgrad_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build(path):
+    """Compile every source into ``path`` with one nvcc call; the compiler's
+    output (``-Xptxas -v``: registers, shared memory, spills per kernel)
+    goes to ``build.log`` beside it."""
+    global build_seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    (BUILD_DIR / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, path)   # atomic: a concurrent loader sees all or nothing
+
+
+@functools.cache
+def library():
+    """The loaded kernel library, built first if its sources changed."""
+    path = library_path()
+    if not path.exists():
+        build(path)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.mdg_error_string.argtypes = [ctypes.c_int]
+    lib.mdg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code, name):
+    """Raise if a launch returned a CUDA error code."""
+    if code != 0:
+        msg = library().mdg_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def stream_of(tensor):
+    import torch
+    return torch.cuda.current_stream(tensor.device).cuda_stream

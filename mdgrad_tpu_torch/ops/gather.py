@@ -1,0 +1,262 @@
+"""Neighbor-table gather, scatter and fused gather-multiply-reduce.
+
+Port of ``mdgrad_tpu/ops/pallas_gather.py``.  Three CUDA kernels
+(``csrc/gather.cu``), each beside its plain PyTorch version:
+
+* :func:`gather_mul_reduce` (K1) -- ``out[i] = sum_k values[idx[iK+k]] *
+  w[iK+k]``, the SchNet table aggregation; replaces ``gather_mul_reduce``
+  (``_gmr_kernel``).
+* :func:`table_gather` (K2a) -- ``out[e] = values[idx[e]]``, zero at the
+  sentinel; replaces ``table_gather`` (``_gather_kernel``).
+* :func:`table_scatter` (K2b) -- ``out[i] = sum_{idx[e]=i} g[e]``,
+  out-of-range indices dropped; replaces ``table_scatter``
+  (``_scatter_kernel``).
+
+What bounds them on an H100: bytes.  At the 512-site water shapes the
+edge tensor has 20480 slots of 128 f32 (10.5 MB), of which ~70% are real
+edges.  K2a writes every slot; K1 and K2b read only the real edges' rows
+(~7.3 MB), plus the (512, 128) node tables: ~2.3-3.2 us at 3.35 TB/s,
+with 2 flops per edge element at most.  K2b's CSR inverse is plain torch
+work on top of that, once per TableIndex.  The TPU kernels turn the gather into a one-hot matmul for the MXU;
+here the gather is a direct indexed load in exact f32, threads over the
+feature axis so every warp reads whole 128-byte rows, and the K-sum of K1
+stays in registers so the gathered (E, F) tensor never reaches memory.
+The scatter reads a CSR inverse of the index (:class:`TableIndex`) and
+sums each output row in ascending edge order: deterministic, with no
+float atomics.
+
+Autograd is wired as the JAX ``custom_vjp``s are: the gather's backward
+is the scatter and the scatter's is the gather, and K1's backward is
+``d_values = scatter(w * repeat(ct))``, ``d_w = gather(values) *
+repeat(ct)``, so every grad order stays inside the pair.
+
+A wrapper launches its kernel for CUDA tensors (f32, contiguous) or
+raises; it takes the plain version only for CPU tensors.  ``launches``
+and ``plain_calls`` count the two paths.
+"""
+
+import torch
+
+from . import _build
+
+launches = {"gather_mul_reduce": 0, "table_gather": 0, "table_scatter": 0}
+plain_calls = {"gather_mul_reduce": 0, "table_gather": 0,
+               "table_scatter": 0}
+
+
+class TableIndex:
+    """Flat edge index ``idx`` (E,) into ``n`` node rows, plus its CSR
+    inverse for the scatter.
+
+    An entry outside ``[0, n)`` is the padding sentinel.  The CSR inverse
+    (a stable argsort of the sentinel-mapped index and row pointers) is
+    built on first use with plain torch and then shared by every scatter
+    on this index -- once per neighbor-table refresh on the MD path.
+    """
+
+    def __init__(self, idx, n):
+        if idx.dim() != 1:
+            raise ValueError(f"idx must be 1-D, got shape {tuple(idx.shape)}")
+        self.idx = idx.to(torch.int32).contiguous()
+        self.n = int(n)
+        self._csr = None
+
+    def key(self):
+        """int64 index with every sentinel mapped to ``n``."""
+        idx = self.idx.long()
+        return torch.where((idx >= 0) & (idx < self.n), idx, self.n)
+
+    def csr(self):
+        """(order (E,) int32, rowptr (n + 1,) int32): the edges that land
+        on row ``i`` are ``order[rowptr[i]:rowptr[i + 1]]``, ascending."""
+        if self._csr is None:
+            key = self.key()
+            order = torch.argsort(key, stable=True)
+            # row pointers by binary search in the sorted keys: unlike
+            # bincount this never waits for the device
+            rowptr = torch.searchsorted(
+                key[order], torch.arange(self.n + 1, device=key.device))
+            self._csr = (order.to(torch.int32), rowptr.to(torch.int32))
+        return self._csr
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path; the reference the kernels are held to)
+# ---------------------------------------------------------------------------
+
+def _gather_rows(values, idx):
+    n = values.shape[0]
+    idx = idx.long()
+    key = torch.where((idx >= 0) & (idx < n), idx, n)
+    ext = torch.cat([values, values.new_zeros(1, values.shape[1])])
+    return ext[key]
+
+
+def table_gather_plain(values, idx):
+    """``values[idx]`` with a zero row for sentinel indices."""
+    plain_calls["table_gather"] += 1
+    return _gather_rows(values, idx)
+
+
+def table_scatter_plain(g, idx, n):
+    """``out[i] = sum over e with idx[e] == i of g[e]``; sentinels dropped."""
+    plain_calls["table_scatter"] += 1
+    idx = idx.long()
+    key = torch.where((idx >= 0) & (idx < n), idx, n)
+    return g.new_zeros(n + 1, g.shape[1]).index_add(0, key, g)[:n]
+
+
+def gather_mul_reduce_plain(values, w, idx, k):
+    """``(values[idx] * w).reshape(-1, k, F).sum(1)``, sentinel rows zero."""
+    plain_calls["gather_mul_reduce"] += 1
+    return (_gather_rows(values, idx) * w).reshape(-1, k, w.shape[1]).sum(1)
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+def _check(t, name, device, dtype, ndim):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_gather_mul_reduce(values, w, idx, k):
+    dev = values.device
+    _check(values, "values", dev, torch.float32, 2)
+    _check(w, "w", dev, torch.float32, 2)
+    _check(idx, "idx", dev, torch.int32, 1)
+    n, f = values.shape
+    e = idx.shape[0]
+    if k < 1 or e % k or w.shape != (e, f):
+        raise ValueError(f"gather_mul_reduce: w {tuple(w.shape)}, idx ({e},)"
+                         f" and k={k} do not fit values ({n}, {f})")
+    out = torch.empty(e // k, f, device=dev, dtype=torch.float32)
+    code = _build.library().mdg_gather_mul_reduce(
+        values.data_ptr(), w.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        n, e // k, k, f, _build.stream_of(values))
+    _build.check(code, "gather_mul_reduce")
+    launches["gather_mul_reduce"] += 1
+    return out
+
+
+def _launch_table_gather(values, idx):
+    dev = values.device
+    _check(values, "values", dev, torch.float32, 2)
+    _check(idx, "idx", dev, torch.int32, 1)
+    n, f = values.shape
+    out = torch.empty(idx.shape[0], f, device=dev, dtype=torch.float32)
+    code = _build.library().mdg_table_gather(
+        values.data_ptr(), idx.data_ptr(), out.data_ptr(), n, idx.shape[0],
+        f, _build.stream_of(values))
+    _build.check(code, "table_gather")
+    launches["table_gather"] += 1
+    return out
+
+
+def _launch_table_scatter(g, index):
+    dev = g.device
+    _check(g, "g", dev, torch.float32, 2)
+    order, rowptr = index.csr()
+    _check(order, "order", dev, torch.int32, 1)
+    if g.shape[0] != order.shape[0]:
+        raise ValueError(f"table_scatter: g has {g.shape[0]} rows, the "
+                         f"index {order.shape[0]} edges")
+    out = torch.empty(index.n, g.shape[1], device=dev, dtype=torch.float32)
+    code = _build.library().mdg_table_scatter(
+        g.data_ptr(), order.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
+        index.n, g.shape[1], _build.stream_of(g))
+    _build.check(code, "table_scatter")
+    launches["table_scatter"] += 1
+    return out
+
+
+def _on_cuda(t):
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions (the JAX custom_vjp pairs)
+# ---------------------------------------------------------------------------
+
+class _TableGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, index):
+        if index.n != values.shape[0]:
+            raise ValueError(f"index is over {index.n} rows, values has "
+                             f"{values.shape[0]}")
+        ctx.index = index
+        if _on_cuda(values):
+            return _launch_table_gather(values.contiguous(), index.idx)
+        return table_gather_plain(values, index.idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        return table_scatter(g, ctx.index), None
+
+
+class _TableScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, index):
+        ctx.index = index
+        if _on_cuda(g):
+            return _launch_table_scatter(g.contiguous(), index)
+        return table_scatter_plain(g, index.idx, index.n)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return table_gather(ct, ctx.index), None
+
+
+class _GatherMulReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, w, index, k):
+        if index.n != values.shape[0]:
+            raise ValueError(f"index is over {index.n} rows, values has "
+                             f"{values.shape[0]}")
+        ctx.save_for_backward(values, w)
+        ctx.index, ctx.k = index, k
+        if _on_cuda(values):
+            return _launch_gather_mul_reduce(values.contiguous(),
+                                             w.contiguous(), index.idx, k)
+        return gather_mul_reduce_plain(values, w, index.idx, k)
+
+    @staticmethod
+    def backward(ctx, ct):
+        values, w = ctx.saved_tensors
+        ct_e = ct.repeat_interleave(ctx.k, dim=0)
+        d_values = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_values = table_scatter(w * ct_e, ctx.index)
+        if ctx.needs_input_grad[1]:
+            d_w = table_gather(values, ctx.index) * ct_e
+        return d_values, d_w, None, None
+
+
+def table_gather(values, index):
+    """(E, F) rows ``values[index.idx]``, zero at sentinels; differentiable,
+    its backward is :func:`table_scatter`."""
+    return _TableGather.apply(values, index)
+
+
+def table_scatter(g, index):
+    """(index.n, F) sums of the rows of ``g`` per target; differentiable,
+    its backward is :func:`table_gather`."""
+    return _TableScatter.apply(g, index)
+
+
+def gather_mul_reduce(values, w, index, k):
+    """(E // k, F): ``sum_k values[idx[i*k + s]] * w[i*k + s]`` over an
+    atom-major (E // k, k) table; differentiable in ``values`` and ``w``
+    to any order."""
+    return _GatherMulReduce.apply(values, w, index, k)

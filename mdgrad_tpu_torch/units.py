@@ -1,0 +1,22 @@
+"""Physical units and constants in the (Angstrom, eV, amu) system.
+
+Port of ``mdgrad_tpu/units.py``: the same ASE-compatible CODATA 2014
+constants, kept as a copy so that this package never imports the JAX one.
+The induced time unit is ``Angstrom * sqrt(amu / eV)`` ~ 10.18 fs.
+"""
+
+import math
+
+_e = 1.6021766208e-19        # elementary charge, C
+_amu = 1.66053904e-27        # atomic mass unit, kg
+_k = 1.38064852e-23          # Boltzmann constant, J/K
+
+Ang = Angstrom = 1.0
+eV = 1.0
+amu = 1.0
+
+second = 1e10 * math.sqrt(_e / _amu)
+fs = 1e-15 * second          # ~0.09822694788464063
+ps = 1e-12 * second
+
+kB = _k / _e                 # Boltzmann constant in eV/K (~8.6173303e-5)

@@ -1,0 +1,133 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Every test here is marked ``cuda`` and skips without a card.  The file
+imports no JAX, so it also runs where JAX is absent:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py
+
+(``--noconftest`` skips tests/conftest.py, which configures JAX.)  Inputs
+are small and made from a numpy seed; sentinel indices are included.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import mdgrad_tpu_torch as mt
+from mdgrad_tpu_torch import ops
+from mdgrad_tpu_torch.data.registry import get_unit_len
+from mdgrad_tpu_torch.ops import gather as tg
+from mdgrad_tpu_torch.ops import rdf as trdf
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def test_gather_kernels_match_plain(cuda):
+    rng = np.random.default_rng(0)
+    n, f, k, n_out = 37, 40, 12, 29
+    idx = torch.tensor(rng.integers(-1, n + 2, size=n_out * k),
+                       dtype=torch.int32, device=cuda)
+    index = tg.TableIndex(idx, n)
+    v = torch.tensor(rng.normal(size=(n, f)), dtype=torch.float32,
+                     device=cuda)
+    w = torch.tensor(rng.normal(size=(n_out * k, f)), dtype=torch.float32,
+                     device=cuda)
+    # f32 sums of at most k products in another order: ~1e-6 relative
+    torch.testing.assert_close(
+        tg._launch_gather_mul_reduce(v, w, index.idx, k),
+        tg.gather_mul_reduce_plain(v, w, index.idx, k), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(tg._launch_table_gather(v, index.idx),
+                               tg.table_gather_plain(v, index.idx),
+                               atol=0, rtol=0)
+    torch.testing.assert_close(tg._launch_table_scatter(w, index),
+                               tg.table_scatter_plain(w, index.idx, n),
+                               atol=1e-5, rtol=1e-5)
+    with pytest.raises(TypeError):
+        tg._launch_table_gather(v.double(), index.idx)
+    with pytest.raises(ValueError):
+        tg._launch_gather_mul_reduce(v, w[:-1], index.idx, k)
+
+
+def test_gather_autograd_runs_the_kernels(cuda):
+    """Forward and backward of the wrappers on CUDA tensors launch the
+    kernels and match autograd through the plain version."""
+    rng = np.random.default_rng(1)
+    n, f, k = 20, 16, 6
+    idx = torch.tensor(rng.integers(0, n + 1, size=n * k), dtype=torch.int32,
+                       device=cuda)
+    index = tg.TableIndex(idx, n)
+    v = torch.tensor(rng.normal(size=(n, f)), dtype=torch.float32,
+                     device=cuda, requires_grad=True)
+    w = torch.tensor(rng.normal(size=(n * k, f)), dtype=torch.float32,
+                     device=cuda, requires_grad=True)
+    ct = torch.tensor(rng.normal(size=(n, f)), dtype=torch.float32,
+                      device=cuda)
+    mt.ops.reset_counts()
+    grads = torch.autograd.grad(
+        (tg.gather_mul_reduce(v, w, index, k) * ct).sum(), (v, w))
+    launches = mt.ops.counts()["launches"]
+    assert launches["gather_mul_reduce"] == 1
+    assert launches["table_gather"] == 1 and launches["table_scatter"] == 1
+    ref = torch.autograd.grad(
+        (tg.gather_mul_reduce_plain(v, w, idx, k) * ct).sum(), (v, w))
+    for a, b in zip(grads, ref):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+def test_rdf_kernel_matches_plain(cuda):
+    system = mt.System.from_lattice("fcc", 3, 1.679)
+    rng = np.random.default_rng(1)
+    frames = torch.tensor(
+        np.stack([system.positions + rng.normal(0, 0.05, (108, 3))
+                  for _ in range(3)]), dtype=torch.float32, device=cuda)
+    obs = mt.observables.rdf(system, 48, (0.75, 2.0), backend="pallas",
+                             device=cuda)
+    op = obs._counts
+    # f32 sums of thousands of exponentials in another order
+    for xs in (frames[:1], frames):
+        torch.testing.assert_close(
+            trdf._launch(xs.contiguous(), op.cell_len, op.mu, op.coeff,
+                         op.cutoff),
+            trdf.rdf_counts_plain(xs, op.cell_len, op.mu, op.coeff,
+                                  op.cutoff), rtol=1e-5, atol=1e-3)
+
+
+def test_schnet_force_through_kernels_matches_plain_gather(cuda):
+    """64 water sites, narrow widths: the force through K1/K2a/K2b against
+    the plain gather path, same seeded weights (f32 through two
+    convolutions in another order)."""
+    L = get_unit_len(0.99749, 18.01528, 8)
+    system = mt.System.from_lattice("diamond", 2, L, symbol="O")
+    rng = np.random.default_rng(5)
+    xyz = system.positions + 0.1 * rng.standard_normal((64, 3))
+    widths = {"n_atom_basis": 16, "n_filters": 16, "n_gaussians": 8,
+              "n_convolutions": 2, "cutoff": 6.0}
+    forces = {}
+    for mode in ("pallas", "gather"):
+        inter = mt.GNNPotentials(system, mt.SchNet(
+            {**widths, "gather_mode": mode}, seed=0), cutoff=6.0,
+            capacity_slack=1.25, device=cuda)
+        x = torch.tensor(xyz, dtype=torch.float32, device=cuda,
+                         requires_grad=True)
+        ops.reset_counts()
+        (g,) = torch.autograd.grad(inter.energy(x, inter.aux_init(x)), x)
+        forces[mode] = -g
+        # 'pallas' launches K1 per convolution and K2a/K2b in its backward;
+        # 'gather' runs K1's plain version and launches nothing
+        launched = ops.counts()["launches"]
+        if mode == "gather":
+            assert sum(launched.values()) == 0
+        else:
+            assert launched["gather_mul_reduce"] == 2
+            assert launched["table_gather"] == 2
+            assert launched["table_scatter"] == 2
+    scale = forces["gather"].abs().max().item()
+    torch.testing.assert_close(forces["pallas"], forces["gather"],
+                               atol=1e-4 * scale, rtol=0)
