@@ -1,1 +1,1 @@
-"""Data helpers of the port (only what the sampling slice needs)."""
+"""Data helpers of the port: lattice constants and the water RDF targets."""

@@ -39,14 +39,24 @@ class Interaction(nn.Module):
     def energy(self, xyz, aux):
         raise NotImplementedError
 
+    def _register_cell(self, name, system):
+        """Register the cell as (3,) lengths when diagonal (the elementwise
+        minimum image, no host check per call), else the 3x3 matrix: buffer
+        ``name`` in float32, as the JAX package rounds it, and
+        ``name + "_f64"`` exact, for float64 runs (``.double()`` would only
+        widen the rounded one)."""
+        cell = np.asarray(system.get_cell(), dtype=np.float64)
+        if topology._is_diagonal(cell):
+            cell = np.diag(cell)
+        for suffix, dtype in (("", torch.float32), ("_f64", torch.float64)):
+            self.register_buffer(name + suffix,
+                                 torch.tensor(cell, dtype=dtype),
+                                 persistent=False)
 
-def _cell_buffer(system):
-    """The cell as (3,) lengths when diagonal (the elementwise minimum
-    image, no host check per call), else the 3x3 matrix."""
-    cell = np.asarray(system.get_cell(), dtype=np.float64)
-    if topology._is_diagonal(cell):
-        cell = np.diag(cell)
-    return torch.tensor(cell, dtype=torch.float32)
+    def _cell(self, name, xyz):
+        """Buffer ``name`` for ``xyz``'s dtype, with no cast per call."""
+        return getattr(self, name + "_f64" if xyz.dtype == torch.float64
+                       else name)
 
 
 class PairPotentials(Interaction):
@@ -77,14 +87,14 @@ class PairPotentials(Interaction):
             raise NotImplementedError(f"PairPotentials mode {mode!r}: only "
                                       "'dense' is ported so far")
         self.mode = mode
-        self.register_buffer("cell", _cell_buffer(system), persistent=False)
+        self._register_cell("cell", system)
         self.register_buffer(
             "select_mask", topology.pair_index_mask(n, index_tuple, ex_pairs),
             persistent=False)
         self.to(device)
 
     def energy(self, xyz, aux):
-        dist, valid = topology.distance_matrix(xyz, self.cell)
+        dist, valid = topology.distance_matrix(xyz, self._cell("cell", xyz))
         mask = valid & torch.triu(torch.ones_like(valid), diagonal=1)
         mask = mask & (dist < self.cutoff)
         if self.select_mask is not None:
@@ -112,15 +122,14 @@ class GNNPotentials(Interaction):
         if nbr_mode != "table":
             raise NotImplementedError(f"nbr_mode {nbr_mode!r}: only 'table' "
                                       "is ported so far")
-        cell = _cell_buffer(system)
-        if cell.dim() != 1:
+        self._register_cell("cell_len", system)
+        if self.cell_len.dim() != 1:
             raise NotImplementedError("GNNPotentials needs a diagonal cell "
                                       "in this port")
         self.gnn = gnn
         self.cutoff = cutoff
         self.nbr_mode = nbr_mode
         n = system.get_number_of_atoms()
-        self.register_buffer("cell_len", cell, persistent=False)
         self.register_buffer(
             "z", torch.as_tensor(system.get_atomic_numbers(),
                                  dtype=torch.long), persistent=False)
@@ -130,21 +139,23 @@ class GNNPotentials(Interaction):
         if k_max is None:
             xyz0 = torch.as_tensor(system.get_positions(),
                                    dtype=torch.float32)
-            k0 = topology.max_neighbors(xyz0, cutoff, cell, self.select_mask)
+            k0 = topology.max_neighbors(xyz0, cutoff, self.cell_len,
+                                        self.select_mask)
             k_max = int(np.ceil(max(k0, 1) * capacity_slack / 8) * 8)
         self.k_max = min(k_max, n)
         self.to(device)
 
     def aux_init(self, xyz):
         return topology.generate_neighbor_table(
-            xyz, self.cutoff, self.cell_len, self.k_max, self.select_mask)
+            xyz, self.cutoff, self._cell("cell_len", xyz), self.k_max,
+            self.select_mask)
 
     def aux_update(self, xyz, aux):
         return self.aux_init(xyz)
 
     def energy(self, xyz, aux):
         return self.gnn.energy(self.z, xyz, aux.table, aux.mask,
-                               self.cell_len)
+                               self._cell("cell_len", xyz))
 
 
 class Stack(Interaction):

@@ -2,9 +2,12 @@
 
 Port of ``mdgrad_tpu/md/integrators.py``: the ``_MDIntegrator`` force
 dispatch, ``prime_state`` and the cached symplectic step, and
-``NoseHooverChain``.  Forces are ``-dU/dq`` from ``torch.autograd.grad``
-with ``create_graph=False``: this is the forward-only sampling path (the
-replay adjoint comes with the training slice).
+``NoseHooverChain``.  Forces are ``-dU/dq`` from ``torch.autograd.grad``:
+with ``create_graph=False`` on the sampling path (a new leaf, no graph
+kept), and with ``create_graph=True`` where a loss differentiates through
+the trajectory -- the force then stays on the graph to ``q`` and to the
+potential's parameters, differentiable to any order, as ``-jax.grad`` of
+the energy is in the JAX package.
 
 The end-of-step force equals the next step's start force, so each step
 evaluates the potential once; ``prime_state`` fills the cache at epoch
@@ -32,8 +35,8 @@ class NVTStateF(typing.NamedTuple):
 class _MDIntegrator:
     """Force evaluation and the cached velocity-Verlet-family step."""
 
-    def __init__(self, potentials, system, topology_update_freq=1,
-                 device="cuda", dtype=torch.float32):
+    def __init__(self, potentials, system, adjoint=True,
+                 topology_update_freq=1, device="cuda", dtype=torch.float32):
         check_system(system)
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -42,6 +45,10 @@ class _MDIntegrator:
         self.masses = torch.as_tensor(system.get_masses(), dtype=dtype,
                                       device=self.device)[:, None]
         self.n_dof = system.get_number_of_atoms() * system.dim
+        # True: epochs differentiate through the replay adjoint (per-step
+        # states stored, steps re-run in reverse); False: plain autograd
+        # through the step loop (see md/adjoint.py)
+        self.adjoint = adjoint
         self.topology_update_freq = topology_update_freq
 
     def aux_init(self, q):
@@ -53,29 +60,34 @@ class _MDIntegrator:
     def default_ctrl(self):
         return {}
 
-    def force(self, q, aux):
-        """-dU/dq at ``q`` (a new leaf; no graph is kept)."""
+    def force(self, q, aux, create_graph=False):
+        """-dU/dq at ``q``.  ``create_graph=False``: a new leaf, no graph
+        kept.  ``create_graph=True``: on the graph to ``q`` (when ``q``
+        requires grad) and to the potential's parameters."""
         with torch.enable_grad():
-            q = q.detach().requires_grad_(True)
-            (g,) = torch.autograd.grad(self.model.energy(q, aux), q)
+            if not (create_graph and q.requires_grad):
+                q = q.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(self.model.energy(q, aux), q,
+                                       create_graph=create_graph)
         return -g
 
-    def prime_state(self, state, aux):
+    def prime_state(self, state, aux, create_graph=False):
         """Refresh ``aux`` at ``state.q`` and fill the force cache; returns
         ``(state, aux)``."""
-        aux = self.model.aux_update(state.q, aux)
-        return state._replace(f=self.force(state.q, aux), fv=True), aux
+        aux = self.model.aux_update(state.q.detach(), aux)
+        f = self.force(state.q, aux, create_graph)
+        return state._replace(f=f, fv=True), aux
 
-    def step(self, state, aux, ctrl, dt):
+    def step(self, state, aux, ctrl, dt, create_graph=False):
         """One step with ONE potential evaluation: the start-of-step force
         is the cached end-of-step force of the previous step."""
-        f0 = state.f if state.fv else self.force(state.q, aux)
+        f0 = state.f if state.fv else self.force(state.q, aux, create_graph)
         dv0, dbath0 = self.derivs_from_force(state, ctrl, f0)
         v_half = state.v + 0.5 * dt * dv0
         q_new = state.q + v_half * dt
         mid = state._replace(v=v_half, q=q_new,
                              pv=state.pv + 0.5 * dt * dbath0)
-        f1 = self.force(q_new, aux)
+        f1 = self.force(q_new, aux, create_graph)
         dv1, dbath1 = self.derivs_from_force(mid, ctrl, f1)
         return mid._replace(v=v_half + 0.5 * dt * dv1, f=f1, fv=True,
                             pv=mid.pv + 0.5 * dt * dbath1)
@@ -89,9 +101,9 @@ class NoseHooverChain(_MDIntegrator):
     state_keys = ["velocities", "positions", "baths"]
 
     def __init__(self, potentials, system, T, num_chains=2, Q=1.0,
-                 topology_update_freq=1, tau=None, device="cuda",
-                 dtype=torch.float32):
-        super().__init__(potentials, system, topology_update_freq,
+                 adjoint=True, topology_update_freq=1, tau=None,
+                 device="cuda", dtype=torch.float32):
+        super().__init__(potentials, system, adjoint, topology_update_freq,
                          device=device, dtype=dtype)
         if num_chains < 2:
             raise ValueError("NoseHooverChain needs num_chains >= 2")

@@ -1,14 +1,19 @@
-"""Epoch-chunked MD driver (port of ``mdgrad_tpu/md/simulation.py``,
-forward only).
+"""Epoch-chunked MD runner (port of ``mdgrad_tpu/md/simulation.py``).
 
-``simulate(steps, dt, frequency)`` runs ``steps // frequency`` epochs of
-``frequency - 1`` steps each, as the JAX package does: each epoch wraps
-positions, primes the force cache, then per step wraps, refreshes the
-neighbor state and steps; it logs the last frame and restarts from it,
-wrapped.  The epoch is a Python loop over launches (the JAX package
-compiles it into one ``lax.scan``).  Neighbor overflow and drift flags
-are ORed on the device over every refresh of an epoch and read once at
-its end, so the loop never waits for the device mid-epoch.
+:meth:`Simulation.epoch_fn` builds ``ode(state, aux, ctrl) -> (traj,
+final_aux)``, one epoch of ``frequency - 1`` steps through
+:func:`~mdgrad_tpu_torch.md.adjoint.make_odeint`: it wraps positions,
+refreshes the neighbor state and primes the force cache at entry, then
+per step wraps, refreshes and steps.  With grad enabled the epoch is
+differentiable -- through the replay adjoint, or through plain autograd
+when the integrator has ``adjoint=False`` -- and the entry force stays on
+the graph.  ``simulate(steps, dt, frequency)`` runs ``steps // frequency``
+such epochs under ``torch.no_grad()``, logs the last frame of each and
+restarts from it, wrapped, as the JAX package does.  The epoch is a Python
+loop over launches (the JAX package compiles it into one ``lax.scan``).
+Neighbor overflow and drift flags are ORed on the device over every
+refresh and read once per epoch (:meth:`Simulation.check_flags`), so the
+loop never waits for the device mid-epoch.
 """
 
 import warnings
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import topology, units
+from .adjoint import make_odeint
 
 
 def _wrap_shift(q, cell):
@@ -29,7 +35,10 @@ def _wrap_shift(q, cell):
 
 
 def wrap_state(state, cell):
-    return state._replace(q=state.q + _wrap_shift(state.q, cell))
+    """Periodic wrap of ``state.q``, gradient-safe: the lattice shift is
+    computed from ``q.detach()``, so the Jacobian is the identity
+    (``wrap_state_grad_safe`` in the JAX package)."""
+    return state._replace(q=state.q + _wrap_shift(state.q.detach(), cell))
 
 
 def _or(acc, flag):
@@ -56,6 +65,7 @@ class Simulation:
         self.aux = None
         self.overflowed = False
         self.drifted = False
+        self._flags = [None, None]      # (overflow, drift) device ORs
         cell = np.asarray(system.get_cell(), dtype=np.float64)
         if topology._is_diagonal(cell):
             cell = np.diag(cell)
@@ -66,37 +76,54 @@ class Simulation:
         state = self.integrator.initial_state(self.wrap)
         return state, self.integrator.aux_init(state.q)
 
-    def epoch(self, state, aux, ctrl, dt, frequency):
-        """One epoch of ``frequency - 1`` steps.
+    def _note_flags(self, aux):
+        """OR ``aux``'s overflow and drift flags into this epoch's (on the
+        device, no sync); returns ``aux``."""
+        self._flags = [_or(acc, topology.aux_flag(aux, field))
+                       for acc, field in zip(self._flags,
+                                             ("overflow", "drift"))]
+        return aux
 
-        Returns ``(traj, aux, overflow, drift)``: ``traj`` stacks the
-        ``frequency`` frames (frame 0 is the primed entry state) field by
-        field, and the two flags are device bools ORed over every neighbor
-        refresh of the epoch (None when the interaction has none).
+    def epoch_fn(self, dt, frequency):
+        """``ode(state, aux, ctrl) -> (traj, final_aux)``: one epoch of
+        ``frequency - 1`` steps; ``traj`` stacks the ``frequency`` frames
+        (frame 0 is the primed entry state) field by field.
+
+        With grad enabled, gradients flow from ``traj`` to the potential's
+        parameters that require grad, to ``state`` and to ``ctrl``: through
+        the replay adjoint when ``integrator.adjoint`` is True, else
+        through plain autograd; the entry force is primed on the graph.
         """
         integ = self.integrator
-        freq = integ.topology_update_freq
+        wrap = None
         if self.wrap:
-            state = wrap_state(state, self.cell)
-        state, aux = integ.prime_state(state, aux)
-        overflow = topology.aux_flag(aux, "overflow")
-        drift = topology.aux_flag(aux, "drift")
-        frames = [state]
-        for i in range(max(int(frequency) - 1, 1)):
-            # the entry refresh above is step 0's when the table is not
-            # rebuilt every step
-            if freq == 1 or (i > 0 and i % freq == 0):
-                if self.wrap:
-                    state = wrap_state(state, self.cell)
-                aux = integ.aux_update(state.q, aux)
-                overflow = _or(overflow, topology.aux_flag(aux, "overflow"))
-                drift = _or(drift, topology.aux_flag(aux, "drift"))
-            state = integ.step(state, aux, ctrl, dt)
-            frames.append(state)
-        traj = state._replace(**{
-            k: torch.stack([getattr(s, k) for s in frames])
-            for k in state._fields if torch.is_tensor(getattr(state, k))})
-        return traj, aux, overflow, drift
+            def wrap(state):
+                return wrap_state(state, self.cell)
+
+        def step_fn(state, aux, ctrl, i, create_graph):
+            return integ.step(state, aux, ctrl, dt, create_graph)
+
+        def aux_update(state, aux):
+            return self._note_flags(integ.aux_update(state.q.detach(), aux))
+
+        # the entry prime refreshes aux at the wrapped entry state, so the
+        # step-0 table is that same build (skip_first_refresh)
+        odeint = make_odeint(step_fn, aux_update,
+                             max(int(frequency) - 1, 1),
+                             update_freq=integ.topology_update_freq,
+                             adjoint=integ.adjoint, skip_first_refresh=True,
+                             wrap_fn=wrap)
+
+        def ode(state, aux, ctrl):
+            if wrap is not None:
+                state = wrap(state)
+            state, aux = integ.prime_state(
+                state, aux, create_graph=torch.is_grad_enabled())
+            self._note_flags(aux)
+            params = [p for p in integ.model.parameters() if p.requires_grad]
+            return odeint(params, state, aux, ctrl)
+
+        return ode
 
     def update_log(self, traj):
         for key, field in zip(self.keys, traj):
@@ -112,7 +139,11 @@ class Simulation:
         """Restart state: the last frame, wrapped if ``wrap``."""
         return wrap_state(self.state, self.cell) if self.wrap else self.state
 
-    def _check_flags(self, overflow, drift):
+    def check_flags(self):
+        """Read (one host sync) and reset the flags ORed since the last
+        call; sets ``overflowed`` / ``drifted`` and warns once each."""
+        overflow, drift = self._flags
+        self._flags = [None, None]
         if overflow is not None and bool(overflow):
             if not self.overflowed:
                 warnings.warn(
@@ -137,16 +168,17 @@ class Simulation:
         else:
             self.state = self.get_check_point()
         ctrl = self.integrator.default_ctrl() if ctrl is None else ctrl
+        ode = self.epoch_fn(dt, frequency)
         traj = None
-        for _ in range(max(int(steps // frequency), 1)):
-            traj, self.aux, overflow, drift = self.epoch(
-                self.state, self.aux, ctrl, dt, frequency)
-            self._check_flags(overflow, drift)
-            self.state = traj._replace(**{
-                k: getattr(traj, k)[-1] for k in traj._fields
-                if torch.is_tensor(getattr(traj, k))})
-            self.update_log(traj)
-            self.update_states()
-            self.state = self.get_check_point()
+        with torch.no_grad():
+            for _ in range(max(int(steps // frequency), 1)):
+                traj, self.aux = ode(self.state, self.aux, ctrl)
+                self.check_flags()
+                self.state = traj._replace(**{
+                    k: getattr(traj, k)[-1] for k in traj._fields
+                    if torch.is_tensor(getattr(traj, k))})
+                self.update_log(traj)
+                self.update_states()
+                self.state = self.get_check_point()
         return traj
 

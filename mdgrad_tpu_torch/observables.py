@@ -2,9 +2,9 @@
 ``generate_vol_bins`` and ``rdf``).
 
 ``backend='pallas'`` counts pairs with the K3/K4 kernel of ``ops/rdf.py``
-(its plain version for CPU tensors); ``backend='xla'`` is the JAX
-package's dense (N, N, G) evaluation in plain PyTorch.  Only the
-forward is ported: the RDF backward comes with the training slice.
+and differentiates through its K3b/K4b backward kernel (their plain
+versions for CPU tensors); ``backend='xla'`` is the JAX package's dense
+(N, N, G) evaluation in plain PyTorch, differentiated by autograd.
 """
 
 import numpy as np
@@ -45,9 +45,11 @@ class rdf:
         start, end = r_range
         self.V, vol_bins, bins = generate_vol_bins(start, end, nbins,
                                                    dim=system.dim)
-        # the JAX package keeps these as float32 arrays
+        # float32, as the JAX package keeps them, and exact for float64 runs
         self.vol_bins = torch.tensor(vol_bins, dtype=torch.float32,
                                      device=device)
+        self.vol_bins_f64 = torch.tensor(vol_bins, dtype=torch.float64,
+                                         device=device)
         self.bins = torch.tensor(bins, dtype=torch.float32, device=device)
         self.smear = GaussianSmearing(start=start,
                                       stop=float(self.bins[-1]),
@@ -59,6 +61,7 @@ class rdf:
         if topology._is_diagonal(cell):
             cell = np.diag(cell)
         self.cell = torch.tensor(cell, dtype=torch.float32, device=device)
+        self.cell_f64 = torch.tensor(cell, dtype=torch.float64, device=device)
         mask = topology.pair_index_mask(system.get_number_of_atoms(),
                                         index_tuple, None)
         self.select_mask = None if mask is None else mask.to(device)
@@ -75,7 +78,8 @@ class rdf:
                 self.cutoff_boundary, device)
 
     def _frame_counts(self, xyz):
-        dist, valid = topology.distance_matrix(xyz, self.cell.to(xyz.dtype))
+        cell = self.cell_f64 if xyz.dtype == torch.float64 else self.cell
+        dist, valid = topology.distance_matrix(xyz, cell)
         mask = valid & torch.triu(torch.ones_like(valid), diagonal=1)
         mask = mask & (dist < self.cutoff_boundary)
         if self.select_mask is not None:
@@ -92,5 +96,7 @@ class rdf:
         else:
             count = sum(self._frame_counts(x) for x in xyz)
         count = count / count.sum()
-        g_r = count / (self.vol_bins.to(count.dtype) / self.V)
+        vol_bins = (self.vol_bins_f64 if count.dtype == torch.float64
+                    else self.vol_bins)
+        g_r = count / (vol_bins / self.V)
         return count, self.bins, g_r

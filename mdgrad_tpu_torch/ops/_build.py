@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ONE ``nvcc`` call into one shared
-library with a plain C interface, loaded with ``ctypes`` -- no PyTorch
-headers, so the build takes seconds, not the minutes that
-``torch.utils.cpp_extension`` needs.  The library lands in
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with
+a plain C interface, loaded with ``ctypes`` -- no PyTorch headers, so the
+build takes seconds, not the minutes that ``torch.utils.cpp_extension``
+needs.  The library lands in
 ``mdgrad_tpu_torch/_build/`` (ignored by git) under a name that hashes the
 sources and flags, so an edited source is rebuilt at its first use and an
 unchanged one is loaded as it is.  Nothing is built when a module is
@@ -23,7 +24,7 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +37,8 @@ SIGNATURES = {
     "mdg_table_scatter": (_P, _P, _P, _P, _I, _I, _P),
     "mdg_rdf_tile": (),
     "mdg_rdf_counts": (_P, _I, _I, _F, _F, _F, _F, _P, _P, _I, _P, _P, _P),
+    "mdg_rdf_counts_bwd": (_P, _I, _I, _F, _F, _F, _F, _P, _P, _P, _I, _P,
+                           _P, _P),
 }
 
 build_seconds = None   # wall time of the last build in this process
@@ -67,21 +70,38 @@ def library_path():
 
 
 def build(path):
-    """Compile every source into ``path`` with one nvcc call; the compiler's
-    output (``-Xptxas -v``: registers, shared memory, spills per kernel)
-    goes to ``build.log`` beside it."""
+    """Compile every source into ``path``: one nvcc process per source, run
+    in parallel, then one link.  The compilers' output (``-Xptxas -v``:
+    registers, shared memory, spills per kernel) goes to ``build.log``
+    beside it."""
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outputs = [(cmd, proc.communicate()[0], proc.returncode)
+               for cmd, proc in zip(cmds, procs)]
+    if all(code == 0 for _, _, code in outputs):
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        outputs.append((cmd, proc.stdout, proc.returncode))
     build_seconds = time.perf_counter() - t0
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "".join(" ".join(cmd) + "\n" + out for cmd, out, _ in outputs)
+    (BUILD_DIR / "build.log").write_text(log)
+    failed = [(cmd, out, code) for cmd, out, code in outputs if code != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        cmd, out, code = failed[0]
+        raise RuntimeError(f"{' '.join(cmd)} failed ({code}):\n{out}")
     os.replace(tmp, path)   # atomic: a concurrent loader sees all or nothing
 
 
@@ -106,6 +126,17 @@ def check(code, name):
     if code != 0:
         msg = library().mdg_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def on_cuda(tensor):
+    """True for a CUDA tensor (the wrapper launches its kernel), False for
+    a CPU tensor (the plain version); any other device raises."""
+    if tensor.is_cuda:
+        return True
+    if tensor.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device "
+                     f"{tensor.device}")
 
 
 def stream_of(tensor):

@@ -177,14 +177,6 @@ def _launch_table_scatter(g, index):
     return out
 
 
-def _on_cuda(t):
-    if t.is_cuda:
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel or plain version for device {t.device}")
-
-
 # ---------------------------------------------------------------------------
 # autograd Functions (the JAX custom_vjp pairs)
 # ---------------------------------------------------------------------------
@@ -196,7 +188,7 @@ class _TableGather(torch.autograd.Function):
             raise ValueError(f"index is over {index.n} rows, values has "
                              f"{values.shape[0]}")
         ctx.index = index
-        if _on_cuda(values):
+        if _build.on_cuda(values):
             return _launch_table_gather(values.contiguous(), index.idx)
         return table_gather_plain(values, index.idx)
 
@@ -209,7 +201,7 @@ class _TableScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, g, index):
         ctx.index = index
-        if _on_cuda(g):
+        if _build.on_cuda(g):
             return _launch_table_scatter(g.contiguous(), index)
         return table_scatter_plain(g, index.idx, index.n)
 
@@ -226,7 +218,7 @@ class _GatherMulReduce(torch.autograd.Function):
                              f"{values.shape[0]}")
         ctx.save_for_backward(values, w)
         ctx.index, ctx.k = index, k
-        if _on_cuda(values):
+        if _build.on_cuda(values):
             return _launch_gather_mul_reduce(values.contiguous(),
                                              w.contiguous(), index.idx, k)
         return gather_mul_reduce_plain(values, w, index.idx, k)

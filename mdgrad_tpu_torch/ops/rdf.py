@@ -1,39 +1,43 @@
-"""Soft-histogram RDF counts over one frame or many.
+"""Soft-histogram RDF counts over one frame or many, and their gradient.
 
-Port of ``mdgrad_tpu/ops/pallas_rdf.py`` (forward only).  One CUDA kernel
-(``csrc/rdf.cu``, with its tile-reduction pass) replaces both the
-single-frame ``counts`` (``_fwd_kernel``, K3) and the frame-batched
-``counts.frames`` (``_fwd_kernel_frames``, K4): it takes a frame axis
-F >= 1 and returns the counts summed over frames,
+Port of ``mdgrad_tpu/ops/pallas_rdf.py``.  Two CUDA kernels
+(``csrc/rdf.cu``, each with its fixed-order reduction pass), each with a
+frame axis F >= 1:
 
-    counts[g] = sum_f sum_{i<j, r_ij < cutoff} exp(coeff_g (r_ij - mu_g)^2)
+* the forward replaces the single-frame ``counts`` (``_fwd_kernel``, K3)
+  and the frame-batched ``counts.frames`` (``_fwd_kernel_frames``, K4) and
+  returns the counts summed over frames,
 
-with the diagonal-cell minimum image ``d - round(d / L) L``.
+      counts[g] = sum_f sum_{i<j, r_ij < cutoff} exp(coeff_g (r_ij - mu_g)^2)
 
-What bounds it on an H100: the exponentials, one per (pair inside the
-cutoff, bin); bytes are negligible.  The kernel compacts the pairs inside
-the cutoff of each 64 x 64 tile before the bin loop, so no exponential is
-spent outside the cutoff, keeps one bin per thread in a register, and
-sums the per-tile partials in a fixed order: no (N, N, G) tensor, no
-atomics, deterministic.
+* the backward replaces ``counts_bwd`` (``_bwd_kernel``, K3b) and
+  ``counts_frames_bwd`` (``_bwd_kernel_frames``, K4b): given the cotangent
+  ``ct`` (G,) it returns per frame
 
-The backward kernels (``_bwd_kernel``, ``_bwd_kernel_frames``) come with
-the training slice: until then the autograd Function raises in backward,
-on every device, rather than fall back to a plain version.
+      dxyz[f, i] = sum_{j != i, r_ij < cutoff} w(r_ij) d_ij / r_ij
+      w(r) = sum_g ct_g 2 coeff_g (r - mu_g) exp(coeff_g (r - mu_g)^2)
+
+both with the diagonal-cell minimum image ``d - round(d / L) L``.
+
+What bounds them on an H100: the exponentials, one per (i < j pair inside
+the cutoff, bin) in both, since w(r_ij) = w(r_ji); bytes are negligible.
+The backward kernel spends one per ordered pair, twice its bound.  Both
+kernels compact the pairs inside the cutoff of each 64 x 64 tile before
+the bin loop, so no exponential is spent outside the cutoff, and sum
+every partial in a fixed order: no (N, N, G) tensor, no atomics,
+deterministic.
+
+The backward is first-order only, as the JAX ``custom_vjp`` is.
 """
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
-launches = {"rdf_counts": 0}
-plain_calls = {"rdf_counts": 0}
-
-_BACKWARD_MSG = (
-    "rdf counts backward is not ported yet: the RDF backward kernels "
-    "(pallas_rdf _bwd_kernel / _bwd_kernel_frames) come with the training "
-    "slice (replay adjoint, force grad-of-grad, RDF backward)")
+launches = {"rdf_counts": 0, "rdf_counts_bwd": 0}
+plain_calls = {"rdf_counts": 0, "rdf_counts_bwd": 0}
 
 
 def rdf_counts_plain(xyz, cell_len, mu, coeff, cutoff):
@@ -56,19 +60,51 @@ def rdf_counts_plain(xyz, cell_len, mu, coeff, cutoff):
     return out
 
 
-def _launch(xyz, cell_len, mu, coeff, cutoff):
+def rdf_counts_bwd_plain(xyz, cell_len, mu, coeff, cutoff, ct):
+    """Plain version of the backward: ``d(ct . counts) / d xyz`` in the
+    shape of ``xyz`` ((N, 3) or (F, N, 3)), the same formula as the kernel,
+    dense over ordered pairs, one frame at a time."""
+    plain_calls["rdf_counts_bwd"] += 1
+    frames = xyz if xyz.dim() == 3 else xyz[None]
+    n = frames.shape[1]
+    L = torch.as_tensor(cell_len, dtype=frames.dtype, device=frames.device)
+    cut_sq = torch.tensor(cutoff, dtype=frames.dtype) ** 2
+    off_diag = ~torch.eye(n, dtype=torch.bool, device=frames.device)
+    out = []
+    for x in frames:
+        d = x[:, None] - x[None, :]
+        d = d - torch.round(d / L) * L
+        r_sq = (d * d).sum(-1)
+        ii, jj = torch.nonzero((r_sq < cut_sq.to(frames.device)) & off_diag,
+                               as_tuple=True)
+        r = torch.sqrt(r_sq[ii, jj])
+        diff = r[:, None] - mu
+        w = (ct * 2 * coeff * diff * torch.exp(coeff * (diff * diff))).sum(1)
+        out.append(torch.zeros_like(x).index_add(
+            0, ii, (w / r)[:, None] * d[ii, jj]))
+    return torch.stack(out).reshape(xyz.shape)
+
+
+def _check_inputs(name, xyz, *params):
     dev = xyz.device
-    for t, name, dt in ((xyz, "xyz", torch.float32), (mu, "mu", torch.float32),
-                        (coeff, "coeff", torch.float32)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"rdf_counts: {name} must be contiguous {dt} "
+    for t in (xyz, *params):
+        if t.device != dev or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous float32 "
                              f"on {dev}, got {t.dtype} on {t.device}")
     if xyz.dim() != 3 or xyz.shape[2] != 3:
-        raise ValueError(f"rdf_counts: xyz must be (F, N, 3), got "
+        raise ValueError(f"{name}: xyz must be (F, N, 3), got "
                          f"{tuple(xyz.shape)}")
+    if any(p.shape != params[0].shape or p.dim() != 1 for p in params):
+        raise ValueError(f"{name}: bin parameters must share one (G,) shape")
+
+
+def _launch(xyz, cell_len, mu, coeff, cutoff):
+    _check_inputs("rdf_counts", xyz, mu, coeff)
+    dev = xyz.device
     f, n, _ = xyz.shape
     g = mu.shape[0]
-    if not 1 <= g <= 1024 or coeff.shape != mu.shape:
+    if not 1 <= g <= 1024:
         raise ValueError(f"rdf_counts: {g} bins (1..1024 supported)")
     lib = _build.library()
     tiles = -(-n // lib.mdg_rdf_tile())
@@ -85,20 +121,48 @@ def _launch(xyz, cell_len, mu, coeff, cutoff):
     return out
 
 
+def _launch_bwd(xyz, cell_len, mu, coeff, cutoff, ct):
+    """(F, N, 3) gradient of ``ct . counts`` from the K3b/K4b kernel."""
+    _check_inputs("rdf_counts_bwd", xyz, mu, coeff, ct)
+    dev = xyz.device
+    f, n, _ = xyz.shape
+    lib = _build.library()
+    tiles = -(-n // lib.mdg_rdf_tile())
+    partial = torch.empty(f * tiles * n * 3, device=dev, dtype=torch.float32)
+    out = torch.empty_like(xyz)
+    lx, ly, lz = (float(c) for c in cell_len)
+    code = lib.mdg_rdf_counts_bwd(
+        xyz.data_ptr(), f, n, lx, ly, lz, float(cutoff), mu.data_ptr(),
+        coeff.data_ptr(), ct.data_ptr(), mu.shape[0], partial.data_ptr(),
+        out.data_ptr(), _build.stream_of(xyz))
+    _build.check(code, "rdf_counts_bwd")
+    launches["rdf_counts_bwd"] += 1
+    return out
+
+
 class _RDFCounts(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xyz, op):
-        if xyz.is_cuda:
+        ctx.save_for_backward(xyz)
+        ctx.op = op
+        if _build.on_cuda(xyz):
             frames = xyz if xyz.dim() == 3 else xyz[None]
             return _launch(frames.contiguous(), op.cell_len, op.mu, op.coeff,
                            op.cutoff)
-        if xyz.device.type != "cpu":
-            raise ValueError(f"no kernel or plain version for {xyz.device}")
         return rdf_counts_plain(xyz, op.cell_len, op.mu, op.coeff, op.cutoff)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, ct):
-        raise NotImplementedError(_BACKWARD_MSG)
+        (xyz,) = ctx.saved_tensors
+        op = ctx.op
+        if _build.on_cuda(xyz):
+            frames = xyz if xyz.dim() == 3 else xyz[None]
+            dxyz = _launch_bwd(frames.contiguous(), op.cell_len, op.mu,
+                               op.coeff, op.cutoff, ct.contiguous())
+            return dxyz.reshape(xyz.shape), None
+        return rdf_counts_bwd_plain(xyz, op.cell_len, op.mu, op.coeff,
+                                    op.cutoff, ct), None
 
 
 def _f32(a):

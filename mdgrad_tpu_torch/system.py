@@ -68,6 +68,9 @@ class System:
     def get_cell(self):
         return self.cell
 
+    def get_volume(self):
+        return float(abs(np.linalg.det(self.cell)))
+
     def get_masses(self):
         return self.masses
 

@@ -99,6 +99,80 @@ def test_rdf_kernel_matches_plain(cuda):
                                   op.cutoff), rtol=1e-5, atol=1e-3)
 
 
+def test_rdf_backward_kernel_matches_plain(cuda):
+    """K3b/K4b against the plain backward at F = 1 and 3, and autograd
+    through the counts launching it.  f32 sums of ~1e3 terms per site in
+    another order: ~1e-6 of the largest entry; the bound is 1e-4 of it."""
+    system = mt.System.from_lattice("fcc", 3, 1.679)
+    rng = np.random.default_rng(2)
+    frames = torch.tensor(
+        np.stack([system.positions + rng.normal(0, 0.05, (108, 3))
+                  for _ in range(3)]), dtype=torch.float32, device=cuda)
+    obs = mt.observables.rdf(system, 48, (0.75, 2.0), backend="pallas",
+                             device=cuda)
+    op = obs._counts
+    ct = torch.tensor(rng.normal(size=48), dtype=torch.float32, device=cuda)
+    for xs in (frames[:1], frames):
+        ref = trdf.rdf_counts_bwd_plain(xs, op.cell_len, op.mu, op.coeff,
+                                        op.cutoff, ct)
+        got = trdf._launch_bwd(xs.contiguous(), op.cell_len, op.mu,
+                               op.coeff, op.cutoff, ct)
+        assert got.shape == xs.shape
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-4 * ref.abs().max().item())
+    x = frames.clone().requires_grad_(True)
+    ops.reset_counts()
+    (g,) = torch.autograd.grad(op.frames(x), x, ct)
+    counts = ops.counts()
+    assert counts["launches"]["rdf_counts_bwd"] == 1
+    assert counts["plain_calls"]["rdf_counts_bwd"] == 0
+    torch.testing.assert_close(g, ref, rtol=0,
+                               atol=1e-4 * ref.abs().max().item())
+
+
+def test_force_grad_of_grad_through_kernels_matches_plain_gather(cuda):
+    """The vector-Jacobian product of the SchNet force with respect to the
+    positions and the parameters (the replay adjoint's inner product) through
+    K1/K2a/K2b against the plain gather path, same seeded weights; f32
+    through two convolutions' second derivatives in another order."""
+    L = get_unit_len(0.99749, 18.01528, 8)
+    system = mt.System.from_lattice("diamond", 2, L, symbol="O")
+    rng = np.random.default_rng(5)
+    xyz = system.positions + 0.1 * rng.standard_normal((64, 3))
+    u = torch.tensor(rng.standard_normal((64, 3)), dtype=torch.float32,
+                     device=cuda)
+    widths = {"n_atom_basis": 16, "n_filters": 16, "n_gaussians": 8,
+              "n_convolutions": 2, "cutoff": 6.0}
+    vjps = {}
+    for mode in ("pallas", "gather"):
+        inter = mt.GNNPotentials(system, mt.SchNet(
+            {**widths, "gather_mode": mode}, seed=0), cutoff=6.0,
+            capacity_slack=1.25, device=cuda)
+        integ = mt.NoseHooverChain(inter, system, T=298.0, device=cuda)
+        x = torch.tensor(xyz, dtype=torch.float32, device=cuda,
+                         requires_grad=True)
+        params = [p for p in inter.parameters() if p.requires_grad]
+        f = integ.force(x, inter.aux_init(x.detach()), create_graph=True)
+        ops.reset_counts()
+        grads = torch.autograd.grad((f * u).sum(), [x, *params],
+                                    allow_unused=True, materialize_grads=True)
+        vjps[mode] = torch.cat([g.reshape(-1) for g in grads])
+        counts = ops.counts()
+        assert sum(counts["plain_calls"].values()) == 0
+        if mode == "gather":
+            assert sum(counts["launches"].values()) == 0
+        else:
+            # over the two convolutions: the backwards of the force's K2a
+            # and K2b nodes and of the K1 nodes whose inputs need a
+            # gradient (the same counts as the plain versions' on the CPU)
+            assert counts["launches"]["table_gather"] == 3
+            assert counts["launches"]["table_scatter"] == 4
+    scale = vjps["gather"].abs().max().item()
+    assert scale > 0
+    torch.testing.assert_close(vjps["pallas"], vjps["gather"], rtol=0,
+                               atol=1e-4 * scale)
+
+
 def test_schnet_force_through_kernels_matches_plain_gather(cuda):
     """64 water sites, narrow widths: the force through K1/K2a/K2b against
     the plain gather path, same seeded weights (f32 through two

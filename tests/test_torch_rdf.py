@@ -1,10 +1,11 @@
 """Soft-histogram RDF of the port (mdgrad_tpu_torch/ops/rdf.py and
-observables.rdf) against the JAX package's Pallas RDF kernels
-(mdgrad_tpu/ops/pallas_rdf.py, interpret mode on the CPU) and its dense
-XLA path.  The CUDA kernel itself is held to the plain version on the card
-by tests/test_torch_cuda.py."""
+observables.rdf), forward and backward, against the JAX package's Pallas
+RDF kernels and their vjps (mdgrad_tpu/ops/pallas_rdf.py, interpret mode
+on the CPU) and its dense XLA path.  The CUDA kernels themselves are held
+to the plain versions on the card by tests/test_torch_cuda.py."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -13,7 +14,7 @@ from mdgrad_tpu.observables import generate_vol_bins as generate_vol_bins_j
 from mdgrad_tpu.observables import rdf as rdf_j
 from mdgrad_tpu.ops.pallas_rdf import make_pallas_rdf
 from mdgrad_tpu.system import System as SystemJ
-from mdgrad_tpu_torch import observables
+from mdgrad_tpu_torch import observables, ops
 from mdgrad_tpu_torch.ops import rdf as trdf
 from mdgrad_tpu_torch.system import System
 
@@ -91,7 +92,56 @@ def test_generate_vol_bins_matches_jax():
 
 
 def test_counts_backward_names_the_training_slice(frames):
+    """The RDF backward of the training slice runs on the CPU through its
+    plain version, once per backward, and is first-order only (as the JAX
+    ``custom_vjp``)."""
     _, port = _ops(frames)
     x = torch.tensor(frames[0], requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port(x).sum().backward()
+    ops.reset_counts()
+    (g,) = torch.autograd.grad(port(x).sum(), x)
+    assert g.shape == x.shape and bool(torch.isfinite(g).all())
+    assert ops.counts()["plain_calls"]["rdf_counts_bwd"] == 1
+    ct = torch.ones(port.mu.shape[0], requires_grad=True)
+    (g2,) = torch.autograd.grad(port(x), x, ct, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        g2.sum().backward()
+
+
+def _ct(n_bins):
+    return np.random.default_rng(4).normal(size=n_bins).astype(np.float32)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_counts_backward_matches_jax_vjp(frames, batched):
+    """K3b (one frame) and K4b (F = 3): the port's backward against the
+    Pallas vjp.  f32 sums of ~1e3-1e4 terms per site in another order:
+    ~1e-6 of the largest entry; the bound is 1e-4 of it."""
+    jax_counts, port = _ops(frames)
+    xs = frames if batched else frames[0]
+    ct = _ct(port.mu.shape[0])
+    fn = jax_counts.frames if batched else jax_counts
+    _, vjp = jax.vjp(fn, jnp.asarray(xs))
+    (ref,) = vjp(jnp.asarray(ct))
+    ref = np.asarray(ref)
+    x = torch.tensor(xs, requires_grad=True)
+    out = port.frames(x) if batched else port(x)
+    (got,) = torch.autograd.grad(out, x, torch.tensor(ct))
+    assert got.shape == xs.shape
+    np.testing.assert_allclose(got.numpy(), ref,
+                               atol=1e-4 * np.abs(ref).max(), rtol=0)
+
+
+def test_counts_backward_plain_matches_autograd_f64(frames):
+    """The plain backward against autograd through the plain forward, in
+    float64 over F = 3 frames: the same formula, so roundoff only."""
+    _, port = _ops(frames)
+    x = torch.tensor(frames, dtype=torch.float64, requires_grad=True)
+    ct = torch.tensor(_ct(port.mu.shape[0]), dtype=torch.float64)
+    counts = trdf.rdf_counts_plain(x, port.cell_len, port.mu, port.coeff,
+                                   port.cutoff)
+    (ref,) = torch.autograd.grad(counts, x, ct)
+    got = trdf.rdf_counts_bwd_plain(x.detach(), port.cell_len, port.mu,
+                                    port.coeff, port.cutoff, ct)
+    scale = ref.abs().max().item()
+    assert scale > 0
+    torch.testing.assert_close(got, ref, atol=1e-10 * scale, rtol=0)

@@ -89,11 +89,13 @@ def test_sampling_slice_matches_jax():
                            device="cpu")(frames)[2]
     calls = ops.counts()["plain_calls"]
     # per step one force: 2 convolutions, each one K1 forward and one K2a +
-    # one K2b in its backward; plus one force per epoch entry
+    # one K2b in its backward; plus one force per epoch entry; sampling
+    # takes no RDF gradient
     n_forces = STEPS // FREQUENCY * FREQUENCY
     assert calls == {"gather_mul_reduce": 2 * n_forces,
                      "table_gather": 2 * n_forces,
-                     "table_scatter": 2 * n_forces, "rdf_counts": 1}
+                     "table_scatter": 2 * n_forces, "rdf_counts": 1,
+                     "rdf_counts_bwd": 0}
     assert not sim.overflowed and not sim.drifted
     # float32 on both sides, the JAX aggregation through the bf16 hi/lo
     # split (~1.5e-5 relative per feature): positions after 20 steps agree
