@@ -3,33 +3,45 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``mdgrad_tpu_torch/csrc`` and runs five
-phases, printing one line as each ends:
+Builds the port's CUDA kernels from ``mdgrad_tpu_torch/csrc`` and runs
+its phases, printing one line as each check ends:
 
 1. build   -- one nvcc process per source, in parallel, and one link into
    one shared library; its wall time.
 2. kernels -- each kernel against its plain PyTorch version on the card at
    the shapes of the main paths (sentinel indices included), the SchNet
    force through the kernels against the plain gather path, and the force's
-   vector-Jacobian product (its grad-of-grad) likewise.
+   vector-Jacobian product (its grad-of-grad) likewise; then the LJ pair
+   kernels (K5 energy and forces, K6 force, K6b its vjp, K7 force and
+   parameter sums) on perturbed FCC boxes of 108, 100 (the bounds mask),
+   1372 and 4000 atoms, powers (12, 6), (9, 6) and (12, 0).
 3. main    -- the water SchNet NVT sampling path at full width: 512 O sites
    on a diamond lattice at 0.99749 g/cm^3, Stack{SchNet(128/128/40, 2 convs,
    cutoff 6.0, (N, K) table), ExcludedVolume prior}, Nose-Hoover chain at
    298 K (Q=50, 5 chains), dt = 0.5 fs, 1000 steps with a frame every 20,
    then the 109-bin RDF over (1.8, 7.5) A on those frames.  Weights come
    from a seeded init.
+3b. lj sampling -- large-N LJ NVE through ``PallasLJPair``: 4000 atoms
+   (FCC 10^3 at a = 1.679), T = 1.2, sigma 0.9, eps 1.0, cutoff 2.5, dt
+   0.002, 50 epochs of frequency 20 (950 steps, 1000 forces); the energy
+   drift from K5 plus the kinetic energy.
 4. train   -- the water SchNet RDF fit on the same model: first, at tau =
    11, the replay adjoint's parameter gradient against direct backprop;
    then 3 optimizer steps at tau = 52 (51 MD steps, the RDF of frames 0, 20
    and 40, compute_D against the H20_0.997_298K target, the replay adjoint
    into the SchNet parameters, clip_by_global_norm(10), Adam(1.839e-4)),
    each epoch restarting from the last state.
+4b. lj fit -- d/d(sigma, eps) of an RDF loss through one NVE epoch
+   (1372 atoms, frequency 50, dt 0.002) and the replay adjoint, K6 and K6b
+   in every step, against the dense LennardJones path and against direct
+   backprop, with the RDF kernels held against their plain versions on
+   that epoch's frames; then 3 clipped-Adam steps on (sigma, eps).
 5. times   -- each kernel, its plain version and its library yardstick with
-   CUDA events, MD and training steps/s, and the card's name and power
-   limit.
+   CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms), MD and
+   training steps/s, and the card's name and power limit.
 
-Launch counts are zeroed just before phases 3 and 4 and read just after
-each.  The line before the last is a JSON object with one record per
+Launch counts are zeroed just before phases 3, 3b, 4 and 4b and read just
+after each.  The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits non-zero.  Without a CUDA device it exits
 1 and prints no result.
@@ -46,6 +58,8 @@ FP32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, f32 outside tensor cores
 SEED = 0
 TARGET = "H20_0.997_298K"     # the fit's experimental O-O RDF
 LR, GRAD_CLIP = 1.839e-4, 10.0
+LJ_KERNELS = ("lj_energy_forces", "lj_force", "lj_force_vjp",
+              "lj_force_param")       # K5, K6, K6b, K7
 
 
 def line(msg):
@@ -233,6 +247,9 @@ def train_phase(mt, torch, dev, records):
     require(not sim.drifted, "no minimum-image drift in training")
     require(bool(torch.isfinite(state.q).all()), "positions are finite")
     for name, c in counts["launches"].items():
+        if name in LJ_KERNELS:
+            require(c == 0, f"the water fit launches no {name}")
+            continue
         require(c > 0, f"kernel {name} launched in the train phase")
         records.setdefault(name, {})["launches"] = c
         records[name]["launches_per_train_step"] = c / n_epochs
@@ -240,6 +257,363 @@ def train_phase(mt, torch, dev, records):
         require(c == 0, f"plain version of {name} not used in training")
     return {"steps_per_s": steps_per_s, "wall": wall, "peak": peak,
             "fwd_s": fwd}
+
+
+# ---- the LJ slice --------------------------------------------------------
+# FCC at a = 1.679 in reduced units (the LJ liquid's density, 0.845), the
+# shapes of benchmarks/bench_pair_kernel.py and bench_large_n.py
+LJ_A, LJ_CUTOFF = 1.679, 2.5
+LJ_LR = 1e-3
+# operations the function needs per i < j pair (u depends on r_ij only, so
+# each pair is counted once): 15 for every pair -- 3 subtractions, 3 x
+# (division, rint, fma) minimum image, 3 for r^2 -- plus, per pair inside
+# the cutoff: 1/r^2, (s/r)^2 = sigma^2 / r^2, its 3rd and 6th powers (5);
+# g = u'/r (4); +-g d to both sites (9) -- that is K6's 18; K5 adds u and
+# its sum (3); K7 adds the dU/dsigma and U/eps terms and their sums (7);
+# K6b takes the powers and g (9), then h (4), W_j - W_i (3), (W_j - W_i) .
+# d (3), h (W.d) (1), h (W.d) d + g W (6), +- it to both sites (6),
+# dg/dsigma (4) and the two scalar sums (2), as d(W.F)/dsigma sums
+# dg/dsigma ((W_j - W_i) . d) over i < j: 38
+LJ_OPS_PER_PAIR = 15
+LJ_OPS_INSIDE = {"lj_energy_forces": 21, "lj_force": 18,
+                 "lj_force_vjp": 38, "lj_force_param": 25}
+
+
+def lj_system(mt, n_cells, temperature, seed):
+    """FCC LJ box of 4 n_cells^3 atoms, Maxwell-Boltzmann velocities at
+    ``temperature`` (energy units) and positions perturbed by 0.05, both
+    from ``seed``, as benchmarks/bench_large_n.py builds it."""
+    import numpy as np
+    from mdgrad_tpu_torch import units
+    system = mt.System.from_lattice("fcc", n_cells, LJ_A)
+    rng = np.random.default_rng(seed)
+    system.set_temperature(temperature / units.kB, rng=rng)
+    system.positions = system.positions + 0.05 * rng.standard_normal(
+        system.positions.shape)
+    return system
+
+
+def lj_pairs_inside(torch, xyz, cell, cutoff, chunk=1024):
+    """i < j pairs with r^2 < cutoff^2 under the minimum image."""
+    n = xyz.shape[0]
+    cut_sq = torch.tensor(cutoff, dtype=torch.float32) ** 2
+    cols = torch.arange(n, device=xyz.device)
+    total = 0
+    for i0 in range(0, n, chunk):
+        rows = torch.arange(i0, min(i0 + chunk, n), device=xyz.device)
+        d = xyz[rows][:, None, :] - xyz[None, :, :]
+        d = d - torch.round(d / cell) * cell
+        inside = ((d * d).sum(-1) < cut_sq.item()) & (cols > rows[:, None])
+        total += int(inside.sum())
+    return total
+
+
+def lj_kernel_phase(mt, torch, dev, gen, compare, compare_scalar):
+    """K5, K6, K6b and K7 against their plain versions on the card: FCC at
+    N = 108 (less than one 128 tile), 100 of them (the bounds mask), 1372
+    (not a multiple of the tile) and 4000, powers (12, 6), plus (9, 6) and
+    (12, 0) at 108; a seeded cotangent W for K6b."""
+    import numpy as np
+    from mdgrad_tpu_torch.ops import _build, pair
+    require(_build.library().mdg_pair_tile() == pair.PAIR_TILE,
+            "ops/pair.py's PAIR_TILE is csrc/pair.cu's tile")
+    sigma = torch.tensor(0.95, device=dev)
+    eps = torch.tensor(1.1, device=dev)
+    cases = [(3, None, 12, 6), (3, 100, 12, 6), (3, None, 9, 6),
+             (3, None, 12, 0), (7, None, 12, 6), (10, None, 12, 6)]
+    for n_cells, n_take, rep, attr in cases:
+        system = lj_system(mt, n_cells, 1.2, SEED + n_cells)
+        cell = tuple(np.diag(system.cell))
+        xyz = torch.tensor(system.positions, dtype=torch.float32,
+                           device=dev)[:n_take].contiguous()
+        w = torch.randn(xyz.shape, device=dev, generator=gen)
+        args = (cell, LJ_CUTOFF, sigma, eps, rep, attr)
+        line(f"  lj kernels: N={xyz.shape[0]} powers ({rep}, {attr})")
+        # f32 sums of ~10^2-10^4 pair terms per row and of ~10^4-10^5 per
+        # scalar, in another order: ~1e-6 relative
+        e, f = pair._launch_energy_forces(xyz, *args)
+        e_ref, f_ref = pair.lj_energy_forces_plain(xyz, *args)
+        compare("lj_energy_forces", f, f_ref, 1e-5)
+        compare_scalar("lj_energy_forces", "energy", e, e_ref, 1e-4)
+        f6 = pair._launch_force(xyz, *args)
+        compare("lj_force", f6, f_ref, 1e-5)
+        require(torch.equal(f6, pair._launch_force(xyz, *args)),
+                "K6 gives the same bits on every call (the replay needs it)")
+        got = pair._launch_force_vjp(xyz, w, *args)
+        ref = pair.lj_force_vjp_plain(xyz, w, *args)
+        compare("lj_force_vjp", got[0], ref[0], 1e-5)
+        compare_scalar("lj_force_vjp", "d(W.F)/dsigma", got[1], ref[1], 1e-4)
+        compare_scalar("lj_force_vjp", "d(W.F)/deps", got[2], ref[2], 1e-4)
+        got = pair._launch_force_param(xyz, *args)
+        ref = pair.lj_force_param_plain(xyz, *args)
+        compare("lj_force_param", got[0], ref[0], 1e-5)
+        compare_scalar("lj_force_param", "dU/dsigma", got[1], ref[1], 1e-4)
+        compare_scalar("lj_force_param", "U/eps", got[2], ref[2], 1e-4)
+    try:
+        pair._launch_force(xyz.double(), cell, LJ_CUTOFF, sigma.double(),
+                           eps.double())
+        raised = False
+    except TypeError:
+        raised = True
+    require(raised, "a float64 tensor on the card raises TypeError")
+    torch.cuda.synchronize()
+
+
+def lj_sampling_phase(mt, torch, dev, records):
+    """Large-N LJ NVE sampling (benchmarks/bench_large_n.py's run): N =
+    4000, T = 1.2, PallasLJPair(sigma 0.9, eps 1.0, cutoff 2.5), dt 0.002,
+    50 epochs of frequency 20 (19 steps each, so 950 steps and 1000
+    forces); the total energy from K5 plus the kinetic energy at both
+    ends."""
+    from mdgrad_tpu_torch import ops
+    system = lj_system(mt, 10, 1.2, SEED)
+    inter = mt.ops.PallasLJPair(system, LJ_CUTOFF, sigma=0.9, epsilon=1.0,
+                                device=dev)
+    integ = mt.NVE(inter, system, adjoint=False, device=dev)
+    sim = mt.Simulation(system, integ)
+
+    def total_energy(q, v):
+        with torch.no_grad():
+            return (inter.energy(q, ()) + 0.5 * (integ.masses * v * v).sum())
+
+    n_epochs, frequency = 50, 20
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    state, _ = sim.initial_state()
+    e0 = total_energy(state.q, state.v)
+    traj = sim.simulate(steps=n_epochs * frequency, dt=0.002,
+                        frequency=frequency)
+    e1 = total_energy(traj.q[-1], traj.v[-1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.counts()
+    n_steps = n_epochs * (frequency - 1)
+    e0, e1 = e0.item(), e1.item()
+    drift = abs(e1 - e0) / abs(e0)
+    line(f"lj sampling: N={system.get_number_of_atoms()} NVE, {n_steps} steps ({n_epochs} epochs of "
+         f"{frequency - 1}) in {wall:.3f} s: {n_steps / wall:.2f} steps/s; "
+         f"E_0 {e0:.6f}  E_end {e1:.6f}  |dE|/|E_0| {drift:.3e} (tol 1e-2)")
+    line(f"lj sampling: launches {counts['launches']}  plain_calls "
+         f"{counts['plain_calls']}")
+    require(bool(torch.isfinite(traj.q).all())
+            and bool(torch.isfinite(traj.v).all()), "LJ trajectory finite")
+    require(drift < 1e-2, "LJ NVE conserves energy to 1e-2")
+    expected = {"lj_force": n_epochs * frequency, "lj_energy_forces": 2}
+    for name, c in counts["launches"].items():
+        require(c == expected.get(name, 0),
+                f"LJ sampling launches {name} {expected.get(name, 0)} times "
+                f"(got {c})")
+    require(sum(counts["plain_calls"].values()) == 0,
+            "no plain version in LJ sampling")
+    for name in LJ_KERNELS:
+        records.setdefault(name, {})["launches_lj_sampling"] = \
+            counts["launches"][name]
+    return {"steps_per_s": n_steps / wall, "drift": drift}
+
+
+def lj_fit_phase(mt, torch, dev, gen, compare, records):
+    """The sigma/epsilon fit chain at N = 1372: one NVE epoch of frequency
+    50 (dt 0.002) through the replay adjoint, the loss ((g(r) - 1)^2).mean()
+    over every 5th frame with the pallas RDF (100 bins over 0.75-2.5), as
+    the README quickstart does.  The RDF kernels K3/K4 and K3b/K4b against
+    their plain versions on that epoch's frames (N = 1372 is not a multiple
+    of their 64-row tile); d/d(sigma, eps) through the kernels against the
+    dense LennardJones path and against direct backprop; then 3
+    clipped-Adam steps on (sigma, eps)."""
+    import numpy as np
+    from mdgrad_tpu_torch import ops, potentials
+    from mdgrad_tpu_torch.ops import rdf as rdf_ops
+    from mdgrad_tpu_torch.train import fit_rdf
+    system = lj_system(mt, 7, 1.0, SEED)
+    obs = mt.observables.rdf(system, 100, (0.75, 2.5), backend="pallas",
+                             device=dev)
+    dt, frequency = 0.002, 50
+
+    def rdf_loss(traj):
+        return ((obs(traj.q[::5])[2] - 1.0) ** 2).mean()
+
+    def epoch_grads(inter, params, adjoint):
+        sim = mt.Simulation(system, mt.NVE(inter, system, adjoint=adjoint,
+                                           device=dev))
+        state, aux = sim.initial_state()
+        traj, _ = sim.epoch_fn(dt, frequency)(state, aux, {})
+        loss = rdf_loss(traj)
+        grads = torch.stack(torch.autograd.grad(loss, params))
+        return loss.item(), grads, traj.q[::5].detach()
+
+    inter = mt.ops.PallasLJPair(system, LJ_CUTOFF, sigma=0.95, epsilon=1.0,
+                                device=dev)
+    params = [inter.sigma, inter.epsilon]
+    dense = mt.PairPotentials(system, potentials.LennardJones(0.95, 1.0),
+                              LJ_CUTOFF, mode="dense", device=dev)
+    loss_k, g_k, frames = epoch_grads(inter, params, True)
+    loss_d, g_d, _ = epoch_grads(dense, [dense.model.sigma,
+                                         dense.model.epsilon], True)
+    loss_x, g_x, _ = epoch_grads(inter, params, False)
+
+    # K3/K4 and K3b/K4b at the fit's shapes: the epoch's 10 frames of 1372
+    # atoms, 100 bins; tolerances as at the water shapes (1e-4 of the
+    # largest bin, of the largest |dxyz| for a seeded cotangent)
+    op = obs._counts
+    x = frames.contiguous()
+    line(f"  rdf_counts lj fit F={x.shape[0]} N={x.shape[1]} "
+         f"bins={op.mu.shape[0]}:")
+    compare("rdf_counts",
+            rdf_ops._launch(x, op.cell_len, op.mu, op.coeff, op.cutoff),
+            rdf_ops.rdf_counts_plain(x, op.cell_len, op.mu, op.coeff,
+                                     op.cutoff), 1e-4)
+    ct_bins = torch.randn(op.mu.shape[0], device=dev, generator=gen)
+    line(f"  rdf_counts_bwd lj fit F={x.shape[0]} N={x.shape[1]}:")
+    compare("rdf_counts_bwd",
+            rdf_ops._launch_bwd(x, op.cell_len, op.mu, op.coeff, op.cutoff,
+                                ct_bins),
+            rdf_ops.rdf_counts_bwd_plain(x, op.cell_len, op.mu, op.coeff,
+                                         op.cutoff, ct_bins), 1e-4,
+            floor=0.0)
+    del x, frames
+    line(f"lj fit: N={system.get_number_of_atoms()}, loss {loss_k:.6f} (dense {loss_d:.6f}); "
+         f"d/d(sigma, eps): kernels {g_k.tolist()}  dense {g_d.tolist()}  "
+         f"direct {g_x.tolist()}")
+    rel_d = ((g_k - g_d).abs() / g_d.abs()).max().item()
+    rel_x = ((g_k - g_x).abs() / g_x.abs()).max().item()
+    line(f"lj fit: kernels vs dense max rel err {rel_d:.3e} (tol 5e-3); "
+         f"replay vs direct {rel_x:.3e} (tol 1e-4)")
+    require(bool((g_d.abs() > 0).all()) and rel_d <= 5e-3,
+            "d/d(sigma, eps) through the kernels equals the dense path")
+    require(rel_x <= 1e-4, "the replay equals direct backprop")
+
+    sim = mt.Simulation(system, mt.NVE(inter, system, adjoint=True,
+                                       device=dev))
+    ode = sim.epoch_fn(dt, frequency)
+    update = fit_rdf.FitUpdate(params, LJ_LR, GRAD_CLIP)
+    before = torch.stack([p.detach().clone() for p in params])
+    state, aux = sim.initial_state()
+    n_epochs, n_steps = 3, frequency - 1
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for epoch in range(n_epochs):
+        traj, aux = ode(state, aux, {})
+        loss = rdf_loss(traj)
+        loss.backward()
+        if epoch == 0:
+            peak = torch.cuda.max_memory_allocated()
+        norm = update()
+        state = traj._replace(**{
+            k: getattr(traj, k)[-1].detach() for k in traj._fields
+            if torch.is_tensor(getattr(traj, k))})
+        loss_v, norm_v = loss.item(), norm.item()
+        line(f"lj fit: epoch {epoch}: loss {loss_v:.6f}  grad norm "
+             f"{norm_v:.6f}  sigma {inter.sigma.item():.6f}  eps "
+             f"{inter.epsilon.item():.6f}")
+        require(np.isfinite(loss_v) and np.isfinite(norm_v) and norm_v > 0,
+                "finite loss and nonzero finite gradient")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.counts()
+    moved = (torch.stack([p.detach() for p in params]) - before).abs().max()
+    steps_per_s = n_epochs * n_steps / wall
+    line(f"lj fit: {n_epochs} optimizer steps x {n_steps} MD steps in "
+         f"{wall:.3f} s: {steps_per_s:.2f} fwd+bwd MD steps/s; replay "
+         f"peak memory {peak / 2 ** 20:.1f} MiB, of which "
+         f"{(peak - resident) / 2 ** 20:.1f} MiB above what the earlier "
+         f"phases left allocated; parameters moved by {moved.item():.3e}")
+    line(f"lj fit: launches {counts['launches']}  plain_calls "
+         f"{counts['plain_calls']}")
+    require(moved.item() > 0, "sigma and eps moved")
+    # per epoch: the entry prime and every forward step run K6, every
+    # replayed step runs K6 again and its K6b, and the primed entry force
+    # takes one K6b; one RDF forward and backward
+    expected = {"lj_force": n_epochs * (1 + 2 * n_steps),
+                "lj_force_vjp": n_epochs * (1 + n_steps),
+                "rdf_counts": n_epochs, "rdf_counts_bwd": n_epochs}
+    for name, c in counts["launches"].items():
+        require(c == expected.get(name, 0),
+                f"LJ fit launches {name} {expected.get(name, 0)} times "
+                f"(got {c})")
+    require(sum(counts["plain_calls"].values()) == 0,
+            "no plain version in the LJ fit")
+    for name in LJ_KERNELS:
+        records.setdefault(name, {})["launches_lj_fit"] = \
+            counts["launches"][name]
+    return {"steps_per_s": steps_per_s, "peak": peak, "wall": wall,
+            "epoch_peak": peak - resident}
+
+
+def lj_times(mt, torch, dev, gen):
+    """Each LJ kernel, its plain version and the dense PyTorch yardstick
+    at N = 1372, 4000 and 8788 (FCC 7, 10, 13): device times from CUDA
+    graphs, and the bound from the data-sheet rates."""
+    import numpy as np
+    from mdgrad_tpu_torch import potentials
+    from mdgrad_tpu_torch.ops import pair
+    out = {name: {} for name in LJ_KERNELS}
+    for n_cells in (7, 10, 13):
+        system = lj_system(mt, n_cells, 1.2, SEED)
+        n = system.get_number_of_atoms()
+        cell = tuple(np.diag(system.cell))
+        cell_t = torch.tensor(cell, dtype=torch.float32, device=dev)
+        xyz = torch.tensor(system.positions, dtype=torch.float32, device=dev)
+        w = torch.randn(xyz.shape, device=dev, generator=gen)
+        sigma = torch.tensor(0.9, device=dev)
+        eps = torch.tensor(1.0, device=dev)
+        k_args = (cell, LJ_CUTOFF, sigma, eps)
+        p_args = (cell_t, LJ_CUTOFF, sigma, eps)   # a device cell: no copy
+        pairs_all = n * (n - 1) // 2
+        pairs_in = lj_pairs_inside(torch, xyz, cell_t, LJ_CUTOFF)
+        dense = mt.PairPotentials(system, potentials.LJFamily(0.9, 1.0),
+                                  LJ_CUTOFF, mode="dense", device=dev)
+        x_req = xyz.clone().requires_grad_(True)
+        wrt = [x_req, dense.model.sigma, dense.model.epsilon]
+
+        def lib_force():
+            return torch.autograd.grad(dense.energy(x_req, ()), x_req)
+
+        def lib_vjp():
+            (g,) = torch.autograd.grad(dense.energy(x_req, ()), x_req,
+                                       create_graph=True)
+            return torch.autograd.grad((g * w).sum(), wrt)
+
+        specs = {
+            "lj_energy_forces": (
+                lambda: pair._launch_energy_forces(xyz, *k_args),
+                lambda: pair.lj_energy_forces_plain(xyz, *p_args),
+                4 * (6 * n + 3)),
+            "lj_force": (lambda: pair._launch_force(xyz, *k_args),
+                         lambda: pair.lj_force_plain(xyz, *p_args),
+                         4 * (6 * n + 2)),
+            "lj_force_vjp": (
+                lambda: pair._launch_force_vjp(xyz, w, *k_args),
+                lambda: pair.lj_force_vjp_plain(xyz, w, *p_args),
+                4 * (9 * n + 4)),
+            "lj_force_param": (
+                lambda: pair._launch_force_param(xyz, *k_args),
+                lambda: pair.lj_force_param_plain(xyz, *p_args),
+                4 * (6 * n + 4)),
+        }
+        big = n > 2000
+        reps, groups = (2, 3) if big else (5, 5)
+        lib_force_ms = time_graph(torch, lib_force, reps=reps, groups=groups)
+        lib_vjp_ms = time_graph(torch, lib_vjp, reps=reps, groups=groups)
+        for name, (kernel, plain, n_bytes) in specs.items():
+            ms = time_graph(torch, kernel, reps=20)
+            plain_ms = time_graph(torch, plain, reps=reps, groups=groups)
+            lib_ms = lib_vjp_ms if name == "lj_force_vjp" else lib_force_ms
+            n_ops = LJ_OPS_PER_PAIR * pairs_all + LJ_OPS_INSIDE[name] * pairs_in
+            b_ms, b_by = bound_ms(n_bytes, n_ops)
+            out[name][n] = {"ms": ms, "plain_ms": plain_ms,
+                            "library_ms": lib_ms, "bound_ms": b_ms,
+                            "bound_by": b_by, "bytes": n_bytes, "ops": n_ops}
+            line(f"time {name} N={n}: kernel {ms * 1e3:.2f} us  plain "
+                 f"{plain_ms * 1e3:.2f} us  library {lib_ms * 1e3:.2f} us  "
+                 f"bound {b_ms * 1e3:.3f} us ({b_by}; {n_bytes} B, {n_ops} "
+                 f"ops; {pairs_in} i<j pairs inside {LJ_CUTOFF})")
+        del dense, x_req
+        torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -383,6 +757,20 @@ def main():
     del vjps, grads, f_x
     torch.cuda.synchronize()
 
+    def compare_scalar(name, label, got, ref, rtol):
+        """|got - ref| <= rtol |ref| for a scalar output."""
+        got, ref = got.item(), ref.item()
+        rel = abs(got - ref) / max(abs(ref), 1e-30)
+        line(f"kernel {name} {label}: {got:.7g} vs {ref:.7g}  rel_err "
+             f"{rel:.3e} (tol {rtol:.0e})")
+        require(np.isfinite(got) and rel <= rtol,
+                f"{name} {label} disagrees with its plain version")
+        rec = records.setdefault(name, {})
+        rec["max_rel_err_scalars"] = max(rel,
+                                         rec.get("max_rel_err_scalars", 0.0))
+
+    lj_kernel_phase(mt, torch, dev, gen, compare, compare_scalar)
+
     # ---- 3. the main path -------------------------------------------------
     integ = mt.NoseHooverChain(stack, system, T=298.0, Q=50.0, num_chains=5,
                                device=dev)
@@ -415,6 +803,9 @@ def main():
     require(g_r.shape == (109,) and bool(torch.isfinite(g_r).all()),
             "g(r) is finite with 109 bins")
     for name, c in counts["launches"].items():
+        if name in LJ_KERNELS:
+            require(c == 0, f"water sampling launches no {name}")
+            continue
         if name == "rdf_counts_bwd":
             require(c == 0, "sampling takes no RDF gradient")
         else:
@@ -432,8 +823,14 @@ def main():
     steps_per_s = n_steps / main_s
     del integ_k, integ_p, stack_plain, aux
 
+    # ---- 3b. the LJ sampling path ---------------------------------------
+    lj_sampled = lj_sampling_phase(mt, torch, dev, records)
+
     # ---- 4. train ---------------------------------------------------------
     trained = train_phase(mt, torch, dev, records)
+
+    # ---- 4b. the LJ differentiation path ---------------------------------
+    lj_fitted = lj_fit_phase(mt, torch, dev, gen, compare, records)
 
     # ---- 5. times ---------------------------------------------------------
     e_real = n_real
@@ -550,6 +947,32 @@ def main():
         g_edges, gather.TableIndex(idx_m, n)), reps=20)
     csr_eager_ms = time_loop(torch, lambda: gather.TableIndex(idx_m, n).csr(),
                              reps=50)
+    lj_timed = lj_times(mt, torch, dev, gen)
+    lj_specs = {
+        "lj_energy_forces": ("mdgrad_tpu/ops/pallas_pair.py:112", 4000),
+        "lj_force": ("mdgrad_tpu/ops/pallas_pair.py:444", 4000),
+        "lj_force_vjp": ("mdgrad_tpu/ops/pallas_pair.py:452", 1372),
+        "lj_force_param": ("mdgrad_tpu/ops/pallas_pair.py:210", 4000),
+    }
+    for name, (replaces, n_path) in lj_specs.items():
+        rec = records[name]
+        t = lj_timed[name][n_path]
+        # launches: the LJ path that runs the kernel (K7 has none)
+        launches = (rec["launches_lj_fit"] if name == "lj_force_vjp"
+                    else rec["launches_lj_sampling"])
+        kernels_json.append({
+            "name": name, "route": "cuda",
+            "source": "mdgrad_tpu_torch/csrc/pair.cu", "replaces": replaces,
+            "launches": launches,
+            "launches_lj_sampling": rec["launches_lj_sampling"],
+            "launches_lj_fit": rec["launches_lj_fit"],
+            "max_abs_err": rec["max_abs_err"],
+            "max_rel_err_scalars": rec.get("max_rel_err_scalars"),
+            "n": n_path,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "by_n": {str(k): v for k, v in lj_timed[name].items()}})
     line(f"time table_scatter CSR build: {csr_ms * 1e3:.2f} us (graph), "
          f"{csr_eager_ms * 1e3:.2f} us (eager loop); kernel with the CSR "
          f"build {scatter_csr_ms * 1e3:.2f} us (graph)")
@@ -563,6 +986,13 @@ def main():
          f"51 MD steps, forward and replay adjoint, in "
          f"{trained['wall']:.3f} s); replay epoch peak memory "
          f"{trained['peak']} B")
+
+    line(f"time lj sampling: {lj_sampled['steps_per_s']:.2f} steps/s (N=4000 "
+         f"NVE, 950 steps, energy drift {lj_sampled['drift']:.3e})")
+    line(f"time lj fit: {lj_fitted['steps_per_s']:.2f} fwd+bwd MD steps/s "
+         f"(N=1372, 3 x 49 steps, in {lj_fitted['wall']:.3f} s); replay "
+         f"epoch peak memory {lj_fitted['peak']} B, "
+         f"{lj_fitted['epoch_peak']} B above the resident")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

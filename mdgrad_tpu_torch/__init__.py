@@ -8,12 +8,12 @@ tests pass ``device="cpu"``.  Hand-written CUDA kernels live in ``csrc/``
 and are built at their first launch (``ops/_build.py``).
 """
 
-from . import observables, potentials, topology, units
+from . import observables, ops, potentials, topology, units
 from .interface import GNNPotentials, PairPotentials, Stack
-from .md import NoseHooverChain, Simulation
+from .md import NVE, NoseHooverChain, Simulation
 from .nn import SchNet
 from .system import System
 
-__all__ = ["GNNPotentials", "NoseHooverChain", "PairPotentials", "SchNet",
-           "Simulation", "Stack", "System", "observables", "potentials",
-           "topology", "units"]
+__all__ = ["GNNPotentials", "NVE", "NoseHooverChain", "PairPotentials",
+           "SchNet", "Simulation", "Stack", "System", "observables", "ops",
+           "potentials", "topology", "units"]

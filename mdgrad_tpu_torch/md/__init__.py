@@ -1,6 +1,6 @@
 """Molecular dynamics of the port: integrators and the simulation loop."""
 
-from .integrators import NoseHooverChain, NVTStateF
+from .integrators import NoseHooverChain, NVE, NVEStateF, NVTStateF
 from .simulation import Simulation
 
-__all__ = ["NoseHooverChain", "NVTStateF", "Simulation"]
+__all__ = ["NVE", "NVEStateF", "NoseHooverChain", "NVTStateF", "Simulation"]

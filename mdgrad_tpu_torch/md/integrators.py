@@ -1,13 +1,17 @@
-"""Nose-Hoover chain NVT integration with a cached force.
+"""NVE and Nose-Hoover chain NVT integration with a cached force.
 
 Port of ``mdgrad_tpu/md/integrators.py``: the ``_MDIntegrator`` force
-dispatch, ``prime_state`` and the cached symplectic step, and
-``NoseHooverChain``.  Forces are ``-dU/dq`` from ``torch.autograd.grad``:
-with ``create_graph=False`` on the sampling path (a new leaf, no graph
-kept), and with ``create_graph=True`` where a loss differentiates through
-the trajectory -- the force then stays on the graph to ``q`` and to the
-potential's parameters, differentiable to any order, as ``-jax.grad`` of
-the energy is in the JAX package.
+dispatch, ``prime_state`` and the cached symplectic step, ``NVE`` and
+``NoseHooverChain``.  An interaction with a ``force`` method (the fused
+pair kernels' :class:`~mdgrad_tpu_torch.ops.pair.PallasLJPair`) supplies
+the force itself; for any other, forces are ``-dU/dq`` from
+``torch.autograd.grad``.  With ``create_graph=False`` (the sampling path)
+either comes without a graph; with ``create_graph=True``, where a loss
+differentiates through the trajectory, it stays on the graph to ``q`` and
+to the potential's parameters -- differentiable to any order through
+autograd of the energy, as ``-jax.grad`` of the energy is in the JAX
+package, and to first order through a ``force`` method's own backward,
+as its JAX ``custom_vjp`` is.
 
 The end-of-step force equals the next step's start force, so each step
 evaluates the potential once; ``prime_state`` fills the cache at epoch
@@ -22,6 +26,13 @@ import torch
 from .. import units
 from .._device import resolve_device
 from ..system import check_system
+
+
+class NVEStateF(typing.NamedTuple):
+    v: torch.Tensor
+    q: torch.Tensor
+    f: torch.Tensor    # cached force at q
+    fv: bool           # the cached force is valid
 
 
 class NVTStateF(typing.NamedTuple):
@@ -61,9 +72,15 @@ class _MDIntegrator:
         return {}
 
     def force(self, q, aux, create_graph=False):
-        """-dU/dq at ``q``.  ``create_graph=False``: a new leaf, no graph
-        kept.  ``create_graph=True``: on the graph to ``q`` (when ``q``
-        requires grad) and to the potential's parameters."""
+        """The force at ``q``: the interaction's own ``force`` when it has
+        one, else -dU/dq.  ``create_graph=False``: no graph kept.
+        ``create_graph=True``: on the graph to ``q`` (when ``q`` requires
+        grad) and to the potential's parameters."""
+        if hasattr(self.model, "force"):
+            if create_graph:
+                return self.model.force(q, aux)
+            with torch.no_grad():
+                return self.model.force(q.detach(), aux)
         with torch.enable_grad():
             if not (create_graph and q.requires_grad):
                 q = q.detach().requires_grad_(True)
@@ -80,17 +97,39 @@ class _MDIntegrator:
 
     def step(self, state, aux, ctrl, dt, create_graph=False):
         """One step with ONE potential evaluation: the start-of-step force
-        is the cached end-of-step force of the previous step."""
+        is the cached end-of-step force of the previous step.  The bath
+        half-kicks run only for an integrator with a bath
+        (``derivs_from_force`` returns its derivative, not None)."""
         f0 = state.f if state.fv else self.force(state.q, aux, create_graph)
         dv0, dbath0 = self.derivs_from_force(state, ctrl, f0)
         v_half = state.v + 0.5 * dt * dv0
         q_new = state.q + v_half * dt
-        mid = state._replace(v=v_half, q=q_new,
-                             pv=state.pv + 0.5 * dt * dbath0)
+        mid = state._replace(v=v_half, q=q_new)
+        if dbath0 is not None:
+            mid = mid._replace(pv=state.pv + 0.5 * dt * dbath0)
         f1 = self.force(q_new, aux, create_graph)
         dv1, dbath1 = self.derivs_from_force(mid, ctrl, f1)
-        return mid._replace(v=v_half + 0.5 * dt * dv1, f=f1, fv=True,
-                            pv=mid.pv + 0.5 * dt * dbath1)
+        new = mid._replace(v=v_half + 0.5 * dt * dv1, f=f1, fv=True)
+        if dbath1 is not None:
+            new = new._replace(pv=mid.pv + 0.5 * dt * dbath1)
+        return new
+
+
+class NVE(_MDIntegrator):
+    """Constant-energy velocity Verlet with the cached force."""
+
+    state_keys = ["velocities", "positions"]
+
+    def initial_state(self, wrap=True):
+        kw = {"dtype": self.dtype, "device": self.device}
+        q = torch.as_tensor(self.system.get_positions(wrap=wrap), **kw)
+        return NVEStateF(
+            v=torch.as_tensor(self.system.get_velocities(), **kw), q=q,
+            f=torch.zeros_like(q), fv=False)
+
+    def derivs_from_force(self, state, ctrl, f):
+        """(dv/dt, None): no bath."""
+        return f / self.masses, None
 
 
 class NoseHooverChain(_MDIntegrator):

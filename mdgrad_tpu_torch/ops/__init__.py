@@ -7,17 +7,24 @@ launches by name and ``plain_calls`` counts plain-version calls, so a run
 can show which path it took.
 """
 
-from . import gather, rdf
+from . import gather, pair, rdf
+from .pair import PallasLJPair, lj_energy_forces
+
+__all__ = ["PallasLJPair", "counts", "lj_energy_forces", "reset_counts"]
+
+_MODULES = (gather, rdf, pair)
 
 
 def counts():
     """{'launches': {...}, 'plain_calls': {...}} over every kernel."""
-    return {"launches": {**gather.launches, **rdf.launches},
-            "plain_calls": {**gather.plain_calls, **rdf.plain_calls}}
+    return {"launches": {k: v for m in _MODULES
+                         for k, v in m.launches.items()},
+            "plain_calls": {k: v for m in _MODULES
+                            for k, v in m.plain_calls.items()}}
 
 
 def reset_counts():
-    for d in (gather.launches, gather.plain_calls, rdf.launches,
-              rdf.plain_calls):
-        for k in d:
-            d[k] = 0
+    for m in _MODULES:
+        for d in (m.launches, m.plain_calls):
+            for k in d:
+                d[k] = 0

@@ -205,3 +205,78 @@ def test_schnet_force_through_kernels_matches_plain_gather(cuda):
     scale = forces["gather"].abs().max().item()
     torch.testing.assert_close(forces["pallas"], forces["gather"],
                                atol=1e-4 * scale, rtol=0)
+
+
+def _lj_inputs(cuda, n_cells=3, seed=0):
+    """Perturbed FCC at a = 1.679 on the card (108 atoms at 3 cells), its
+    cell lengths, and a seeded cotangent."""
+    system = mt.System.from_lattice("fcc", n_cells, 1.679)
+    rng = np.random.default_rng(seed)
+    n = system.get_number_of_atoms()
+    xyz = torch.tensor(system.positions + rng.normal(0, 0.05, (n, 3)),
+                       dtype=torch.float32, device=cuda)
+    w = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32,
+                     device=cuda)
+    return system, np.diag(system.cell), xyz, w
+
+
+@pytest.mark.parametrize("rep,attr", [(12, 6), (9, 6), (12, 0)])
+def test_lj_kernels_match_plain(cuda, rep, attr):
+    """K5, K6, K6b and K7 against their plain versions on the card, at 108
+    atoms (less than one 128 tile) and 100 of them (the bounds mask); f32
+    sums of ~100 pair terms per row in another order: ~1e-6 relative."""
+    system, cell, xyz108, w108 = _lj_inputs(cuda)
+    sigma = torch.tensor(0.95, device=cuda)
+    eps = torch.tensor(1.1, device=cuda)
+    from mdgrad_tpu_torch.ops import _build, pair as tp
+    assert _build.library().mdg_pair_tile() == tp.PAIR_TILE
+    args = (cell, 2.4, sigma, eps, rep, attr)
+    for n in (108, 100):
+        xyz, w = xyz108[:n].contiguous(), w108[:n].contiguous()
+        e, f = tp._launch_energy_forces(xyz, *args)
+        e_ref, f_ref = tp.lj_energy_forces_plain(xyz, *args)
+        scale = max(f_ref.abs().max().item(), 1.0)
+        torch.testing.assert_close(f, f_ref, rtol=0, atol=1e-5 * scale)
+        torch.testing.assert_close(e, e_ref, rtol=1e-4, atol=0)
+        torch.testing.assert_close(tp._launch_force(xyz, *args), f_ref,
+                                   rtol=0, atol=1e-5 * scale)
+        got = tp._launch_force_vjp(xyz, w, *args)
+        ref = tp.lj_force_vjp_plain(xyz, w, *args)
+        torch.testing.assert_close(
+            got[0], ref[0], rtol=0,
+            atol=1e-5 * max(ref[0].abs().max().item(), 1.0))
+        for a, b in zip(got[1:], ref[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
+        got = tp._launch_force_param(xyz, *args)
+        ref = tp.lj_force_param_plain(xyz, *args)
+        torch.testing.assert_close(got[0], f_ref, rtol=0, atol=1e-5 * scale)
+        for a, b in zip(got[1:], ref[1:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=0)
+    with pytest.raises(TypeError):
+        tp._launch_force(xyz108.double(), cell, 2.4, sigma.double(),
+                         eps.double())
+    with pytest.raises(TypeError):
+        tp.make_lj_force(cell, 2.4)(xyz108.double(), 0.95, 1.1)
+
+
+def test_pallas_lj_pair_launches_force_and_vjp(cuda):
+    """PallasLJPair's force and its gradient into (xyz, sigma, epsilon)
+    on CUDA tensors launch K6 and K6b, never a plain version, and match
+    autograd through the plain force."""
+    system, cell, xyz, w = _lj_inputs(cuda, seed=1)
+    inter = mt.ops.PallasLJPair(system, 2.4, sigma=0.95, epsilon=1.1,
+                                device=cuda)
+    x = xyz.clone().requires_grad_(True)
+    wrt = [x, inter.sigma, inter.epsilon]
+    ops.reset_counts()
+    grads = torch.autograd.grad((inter.force(x, ()) * w).sum(), wrt)
+    counts = ops.counts()
+    assert counts["launches"]["lj_force"] == 1
+    assert counts["launches"]["lj_force_vjp"] == 1
+    assert sum(counts["plain_calls"].values()) == 0
+    from mdgrad_tpu_torch.ops import pair as tp
+    ref = torch.autograd.grad((tp.lj_force_plain(
+        x, cell, 2.4, inter.sigma, inter.epsilon) * w).sum(), wrt)
+    for a, b in zip(grads, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * max(b.abs().max().item(), 1.0))

@@ -1,0 +1,251 @@
+"""The port's LJ pair kernels' plain versions (mdgrad_tpu_torch/ops/pair.py:
+K5 energy and forces, K6 force, K6b its vjp, K7 force and parameter sums)
+against the JAX package's Pallas kernels in interpret mode and its dense
+XLA path, on the perturbed 108-atom FCC box of tests/test_pallas.py.
+
+float32 comparisons run the same inputs through both packages; float64
+ones run the JAX side inside ``jax.enable_x64(True)`` (never the global
+flag) against its dense autodiff force.
+"""
+
+import ast
+import pathlib
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from mdgrad_tpu import potentials as potentials_j
+from mdgrad_tpu.interface import PairPotentials as PairPotentialsJ
+from mdgrad_tpu.ops.pallas_pair import lj_energy_forces as lj_energy_forces_j
+from mdgrad_tpu.ops.pallas_pair import make_lj_force as make_lj_force_j
+from mdgrad_tpu.system import System as SystemJ
+import mdgrad_tpu_torch as mt
+from mdgrad_tpu_torch import ops
+from mdgrad_tpu_torch.ops import pair
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+CUTOFF = 2.4
+SIGMA, EPS = 0.95, 1.1
+
+
+@pytest.fixture(scope="module")
+def fcc():
+    """(cell lengths (3,), perturbed positions (108, 3)) as float64 numpy,
+    the inputs of tests/test_pallas.py::perturbed_fcc."""
+    s = SystemJ.from_lattice("fcc", 3, 1.679)
+    rng = np.random.default_rng(1)
+    xyz = s.get_positions() + rng.normal(0, 0.05, (108, 3))
+    return np.array(np.diag(s.get_cell())), xyz
+
+
+def _t(a, dtype=torch.float32, grad=False):
+    return torch.tensor(np.asarray(a), dtype=dtype, requires_grad=grad)
+
+
+def _jax_dense_force(cell, cutoff, rep, attr):
+    """The JAX package's dense force -dU/dxyz of PairPotentials(LJFamily),
+    a function of (xyz, sigma, eps)."""
+    s = SystemJ(np.zeros((108, 3)), np.diag(cell))
+    dense = PairPotentialsJ(s, potentials_j.LJFamily(
+        rep_pow=rep, attr_pow=attr), cutoff=cutoff, mode="dense")
+
+    def force(xyz, sigma, eps):
+        p = {"sigma": sigma, "epsilon": eps}
+        return -jax.grad(dense.energy, argnums=1)(p, xyz, ())
+
+    return dense, force
+
+
+@pytest.mark.parametrize("rep,attr", [(12, 6), (9, 6), (12, 0)])
+def test_energy_forces_match_jax_kernel(fcc, rep, attr):
+    """K5's plain version against the Pallas kernel (interpret mode): f32
+    sums of ~6000 pair terms in another order."""
+    cell, xyz = fcc
+    e_j, f_j = lj_energy_forces_j(jnp.asarray(xyz), cell, CUTOFF, SIGMA, EPS,
+                                  rep_pow=rep, attr_pow=attr, interpret=True)
+    ops.reset_counts()
+    e, f = pair.lj_energy_forces(_t(xyz), cell, CUTOFF, SIGMA, EPS, rep,
+                                 attr)
+    assert ops.counts()["plain_calls"]["lj_energy_forces"] == 1
+    assert f.shape == (108, 3) and e.shape == ()
+    np.testing.assert_allclose(e.item(), float(e_j), rtol=1e-5)
+    f_j = np.asarray(f_j)
+    np.testing.assert_allclose(f.numpy(), f_j, rtol=0,
+                               atol=1e-4 * np.abs(f_j).max())
+
+
+def test_padding_independence(fcc):
+    """100 of the 108 atoms: the kernel pads to its tile and masks the
+    ghosts, the port masks by bounds; both equal the dense 100-atom
+    energy."""
+    cell, xyz = fcc
+    sub = xyz[:100]
+    e_j, f_j = lj_energy_forces_j(jnp.asarray(sub), cell, CUTOFF, 1.0, 1.0,
+                                  interpret=True)
+    e, f = pair.lj_energy_forces(_t(sub), cell, CUTOFF, 1.0, 1.0)
+    assert f.shape == (100, 3)
+    dense = PairPotentialsJ(SystemJ(sub, np.diag(cell)),
+                            potentials_j.LennardJones(1.0, 1.0),
+                            cutoff=CUTOFF, mode="dense")
+    e_dense = float(dense.energy(dense.init_params(), jnp.asarray(sub), ()))
+    np.testing.assert_allclose(e.item(), float(e_j), rtol=1e-5)
+    np.testing.assert_allclose(e.item(), e_dense, rtol=1e-5)
+    f_j = np.asarray(f_j)
+    np.testing.assert_allclose(f.numpy(), f_j, rtol=0,
+                               atol=1e-4 * np.abs(f_j).max())
+    # the first 100 rows of the 108-atom call differ: the 8 atoms count
+    _, f108 = pair.lj_energy_forces(_t(xyz), cell, CUTOFF, 1.0, 1.0)
+    assert (f108[:100] - f).abs().max() > 1e-3
+
+
+def test_force_and_vjp_match_jax_make_lj_force(fcc):
+    """K6 and its K6b backward against make_lj_force(interpret=True):
+    forward, and the gradient of (w . F) into (xyz, sigma, eps) with w
+    from rng 7, at test_pallas.py::test_make_lj_force_custom_vjp_matches_
+    dense's tolerances (f32 in another order)."""
+    cell, xyz = fcc
+    force_j = make_lj_force_j(jnp.asarray(cell), CUTOFF, interpret=True)
+    w = np.random.default_rng(7).normal(size=(108, 3))
+    sigma_j, eps_j = jnp.float32(SIGMA), jnp.float32(EPS)
+    xyz_j, w_j = jnp.asarray(xyz, jnp.float32), jnp.asarray(w, jnp.float32)
+    f_j = np.asarray(force_j(xyz_j, sigma_j, eps_j))
+    g_j = jax.grad(lambda x, s, e: (w_j * force_j(x, s, e)).sum(),
+                   argnums=(0, 1, 2))(xyz_j, sigma_j, eps_j)
+
+    force = pair.make_lj_force(cell, CUTOFF)
+    x = _t(xyz, grad=True)
+    sigma, eps = _t(SIGMA, grad=True), _t(EPS, grad=True)
+    ops.reset_counts()
+    f = force(x, sigma, eps)
+    g = torch.autograd.grad((_t(w) * f).sum(), (x, sigma, eps))
+    plain = ops.counts()["plain_calls"]
+    assert plain["lj_force"] == 1 and plain["lj_force_vjp"] == 1
+    np.testing.assert_allclose(f.detach().numpy(), f_j, rtol=2e-3,
+                               atol=2e-5 * np.abs(f_j).max())
+    for a, b, name in zip(g, g_j, ("xyz", "sigma", "eps")):
+        b = np.asarray(b)
+        scale = max(np.abs(b).max(), 1e-8)
+        np.testing.assert_allclose(a.numpy(), b, rtol=2e-3,
+                                   atol=2e-5 * scale, err_msg=name)
+
+
+@pytest.mark.parametrize("rep,attr", [(12, 6), (9, 6), (12, 0)])
+def test_force_param_matches_jax_dense_f64(fcc, rep, attr):
+    """K7's plain version against the JAX dense PairPotentials(LJFamily) in
+    float64: its forces against -dU/dxyz, dU/dsigma against jax.grad in
+    sigma, U/eps against the energy over eps (rel 1e-10)."""
+    cell, xyz = fcc
+    with jax.enable_x64(True):
+        dense, force_jf = _jax_dense_force(cell, CUTOFF, rep, attr)
+        p = {"sigma": jnp.float64(SIGMA), "epsilon": jnp.float64(EPS)}
+        x_j = jnp.asarray(xyz, jnp.float64)
+        u_j, g_j = jax.value_and_grad(dense.energy)(p, x_j, ())
+        f_j = np.asarray(force_jf(x_j, p["sigma"], p["epsilon"]))
+        u_j, dsig_j = float(u_j), float(g_j["sigma"])
+    f, dsig, ueps = pair.lj_force_param(_t(xyz, torch.float64), cell, CUTOFF,
+                                        SIGMA, EPS, rep, attr)
+    assert not f.requires_grad
+    np.testing.assert_allclose(f.numpy(), f_j, rtol=0,
+                               atol=1e-10 * np.abs(f_j).max())
+    np.testing.assert_allclose(dsig.item(), dsig_j, rtol=1e-10)
+    np.testing.assert_allclose(ueps.item(), u_j / EPS, rtol=1e-10)
+
+
+def test_force_and_vjp_match_jax_dense_f64(fcc):
+    """The plain force and its vjp (K6, K6b's plain versions) against the
+    JAX dense autodiff force and jax.vjp of it, float64: rel 1e-10."""
+    cell, xyz = fcc
+    w = np.random.default_rng(7).normal(size=(108, 3))
+    with jax.enable_x64(True):
+        _, force_jf = _jax_dense_force(cell, CUTOFF, 12, 6)
+        args = (jnp.asarray(xyz, jnp.float64), jnp.float64(SIGMA),
+                jnp.float64(EPS))
+        f_j, vjp = jax.vjp(force_jf, *args)
+        g_j = [np.asarray(a) for a in vjp(jnp.asarray(w, jnp.float64))]
+        f_j = np.asarray(f_j)
+    x = _t(xyz, torch.float64)
+    sigma, eps = _t(SIGMA, torch.float64), _t(EPS, torch.float64)
+    f = pair.lj_force_plain(x, cell, CUTOFF, sigma, eps)
+    g = pair.lj_force_vjp_plain(x, _t(w, torch.float64), cell, CUTOFF, sigma,
+                                eps)
+    np.testing.assert_allclose(f.numpy(), f_j, rtol=0,
+                               atol=1e-10 * np.abs(f_j).max())
+    for a, b, name in zip(g, g_j, ("xyz", "sigma", "eps")):
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-10 * np.abs(b).max(),
+                                   err_msg=name)
+
+
+def test_lj_force_gradcheck_f64_and_first_order_only():
+    """gradcheck of the differentiable force in (xyz, sigma, eps), float64,
+    32 atoms; its backward is once-differentiable, so a second backward
+    through it raises, as the JAX custom_vjp allows no second order."""
+    s = mt.System.from_lattice("fcc", 2, 1.679)
+    rng = np.random.default_rng(4)
+    xyz = _t(s.get_positions() + rng.normal(0, 0.05, (32, 3)), torch.float64,
+             grad=True)
+    sigma, eps = _t(0.95, torch.float64, True), _t(1.1, torch.float64, True)
+    force = pair.make_lj_force(np.diag(s.get_cell()), 1.6)
+    assert torch.autograd.gradcheck(force, (xyz, sigma, eps))
+    # a cotangent that requires grad, so the backward's output carries the
+    # error node instead of no graph at all
+    w = _t(rng.normal(size=(32, 3)), torch.float64, grad=True)
+    (gx,) = torch.autograd.grad((force(xyz, sigma, eps) * w).sum(), xyz,
+                                create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        gx.sum().backward()
+
+
+def test_pair_module_imports_no_jax():
+    tree = ast.parse((REPO / "mdgrad_tpu_torch/ops/pair.py").read_text())
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module or ""]
+                 if isinstance(node, ast.ImportFrom) else [])
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "mdgrad_tpu"), name
+
+
+def test_pallas_lj_pair_on_cpu_counts_plain_calls(fcc):
+    cell, xyz = fcc
+    s = mt.System.from_lattice("fcc", 3, 1.679)
+    inter = mt.ops.PallasLJPair(s, CUTOFF, sigma=SIGMA, epsilon=EPS,
+                                device="cpu")
+    assert {n for n, _ in inter.named_parameters()} == {"sigma", "epsilon"}
+    x = _t(xyz, grad=True)
+    ops.reset_counts()
+    e = inter.energy(x.detach(), ())
+    f = inter.force(x, ())
+    torch.autograd.grad(f.sum(), [x, inter.sigma, inter.epsilon])
+    c = ops.counts()
+    assert sum(c["launches"].values()) == 0
+    assert c["plain_calls"]["lj_energy_forces"] == 1
+    assert c["plain_calls"]["lj_force"] == 1
+    assert c["plain_calls"]["lj_force_vjp"] == 1
+    e_ref, f_ref = pair.lj_energy_forces(x.detach(), cell, CUTOFF, SIGMA, EPS)
+    assert e.item() == e_ref.item()
+    torch.testing.assert_close(f.detach(), f_ref, rtol=0, atol=0)
+
+
+def test_non_diagonal_cell_raises():
+    s = mt.System.from_lattice("fcc", 3, 1.679)
+    s.cell = s.cell + np.array([[0.0, 0.3, 0.0], [0, 0, 0], [0, 0, 0]])
+    with pytest.raises(NotImplementedError, match="diagonal"):
+        mt.ops.PallasLJPair(s, CUTOFF, device="cpu")
+
+
+def test_energy_backward_raises(fcc):
+    """K5's energy has no gradient: its backward raises and names the
+    differentiable force, never differentiating the plain version."""
+    cell, xyz = fcc
+    x = _t(xyz, grad=True)
+    e, _ = pair.lj_energy_forces(x, cell, CUTOFF, SIGMA, EPS)
+    with pytest.raises(NotImplementedError, match="PallasLJPair.force"):
+        e.backward()
+    s = mt.System.from_lattice("fcc", 3, 1.679)
+    inter = mt.ops.PallasLJPair(s, CUTOFF, device="cpu")
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        torch.autograd.grad(inter.energy(x, ()), inter.sigma)

@@ -95,7 +95,8 @@ def test_sampling_slice_matches_jax():
     assert calls == {"gather_mul_reduce": 2 * n_forces,
                      "table_gather": 2 * n_forces,
                      "table_scatter": 2 * n_forces, "rdf_counts": 1,
-                     "rdf_counts_bwd": 0}
+                     "rdf_counts_bwd": 0, "lj_energy_forces": 0,
+                     "lj_force": 0, "lj_force_vjp": 0, "lj_force_param": 0}
     assert not sim.overflowed and not sim.drifted
     # float32 on both sides, the JAX aggregation through the bf16 hi/lo
     # split (~1.5e-5 relative per feature): positions after 20 steps agree
