@@ -11,10 +11,14 @@ its phases, printing one line as each check ends:
 2. kernels -- each kernel against its plain PyTorch version on the card at
    the shapes of the main paths (sentinel indices included), the SchNet
    force through the kernels against the plain gather path, and the force's
-   vector-Jacobian product (its grad-of-grad) likewise; then the LJ pair
-   kernels (K5 energy and forces, K6 force, K6b its vjp, K7 force and
-   parameter sums) on perturbed FCC boxes of 108, 100 (the bounds mask),
-   1372 and 4000 atoms, powers (12, 6), (9, 6) and (12, 0).
+   vector-Jacobian product (its grad-of-grad) likewise; K2b's CSR build
+   (one-block and grid paths) integer-equal to the plain build on the main
+   path's index and on edge cases, and K2b bit-equal through either CSR;
+   then the LJ pair kernels (K5 energy and forces, K6 force, K6b its vjp,
+   K7 force and parameter sums) on perturbed FCC boxes of 108, 100 (the
+   bounds mask), 1372 and 4000 atoms, powers (12, 6), (9, 6) and (12, 0),
+   and K6 alone at 2 and 8788 atoms and on pairs at the minimum image's
+   edges (d = +-L/2 and one ulp around it, past a box length).
 3. main    -- the water SchNet NVT sampling path at full width: 512 O sites
    on a diamond lattice at 0.99749 g/cm^3, Stack{SchNet(128/128/40, 2 convs,
    cutoff 6.0, (N, K) table), ExcludedVolume prior}, Nose-Hoover chain at
@@ -37,11 +41,13 @@ its phases, printing one line as each check ends:
    backprop, with the RDF kernels held against their plain versions on
    that epoch's frames; then 3 clipped-Adam steps on (sigma, eps).
 5. times   -- each kernel, its plain version and its library yardstick with
-   CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms), MD and
-   training steps/s, and the card's name and power limit.
+   CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms; K2b's CSR
+   build against the plain build, K2b beside each), MD and training
+   steps/s, and the card's name and power limit.
 
 Launch counts are zeroed just before phases 3, 3b, 4 and 4b and read just
-after each.  The line before the last is a JSON object with one record per
+after each: phases 3 and 4 must launch every water kernel, the CSR build
+included, and call no plain version.  The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits non-zero.  Without a CUDA device it exits
 1 and prints no result.
@@ -259,6 +265,48 @@ def train_phase(mt, torch, dev, records):
             "fwd_s": fwd}
 
 
+def csr_cases(np, index):
+    """[(name, idx (E,) int32 numpy, n)]: the main path's table index and
+    the CSR build's edge cases (sentinels < 0, == n and > n, empty rows,
+    one row with every edge, all sentinels, no edges), from a seed."""
+    rng = np.random.default_rng(SEED + 3)
+    cases = [("water", index.idx.cpu().numpy(), index.n),
+             ("sentinels", rng.integers(-3, 12, size=50), 9),
+             ("empty_rows", rng.choice([2, 5, 11], size=40), 20),
+             ("one_row", np.full(300, 3), 5),
+             ("all_sentinel", np.full(70, -1), 4),
+             ("no_edges", np.zeros(0), 6)]
+    return [(name, idx.astype(np.int32), n) for name, idx, n in cases]
+
+
+def csr_phase(torch, dev, gather, index, g_edges):
+    """K2b's CSR build (one-block and grid paths) against the plain build,
+    integer-equal, on the main path's index and the edge cases; K2b's
+    output bit-equal through either CSR at the water shape."""
+    import numpy as np
+    for name, idx_np, n in csr_cases(np, index):
+        idx = torch.tensor(idx_np, device=dev)
+        ref = gather.table_index_csr_plain(idx, n)
+        for one_block in (True, False):
+            got = gather._launch_table_index_csr(idx, n, one_block)
+            require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                    f"the CSR kernel ({'one block' if one_block else 'grid'})"
+                    f" equals the plain build on case {name}")
+        line(f"kernel table_index_csr {name} (E={idx_np.size}, n={n}): "
+             f"order and rowptr integer-equal to the plain build (one-block "
+             f"and grid paths)")
+    outs = []
+    for csr in (gather._launch_table_index_csr(index.idx, index.n),
+                gather.table_index_csr_plain(index.idx, index.n)):
+        with_csr = gather.TableIndex(index.idx, index.n)
+        with_csr._csr = csr
+        outs.append(gather._launch_table_scatter(g_edges, with_csr))
+    require(torch.equal(outs[0], outs[1]),
+            "K2b gives the same bits through the kernel's and the plain CSR")
+    line("kernel table_scatter: bit-equal through the CSR kernel's and the "
+         "plain build's inverse")
+
+
 # ---- the LJ slice --------------------------------------------------------
 # FCC at a = 1.679 in reduced units (the LJ liquid's density, 0.845), the
 # shapes of benchmarks/bench_pair_kernel.py and bench_large_n.py
@@ -308,6 +356,32 @@ def lj_pairs_inside(torch, xyz, cell, cutoff, chunk=1024):
     return total
 
 
+def lj_edge_cases(np, pair):
+    """[(L, axis, xyz (36, 3) float32, cell, cutoff, sigma)]: 18 pairs
+    whose displacement along ``axis`` is +-L/2 exactly, one ulp on each
+    side, at K6's image thresholds t1 and t2 and one ulp below each, 1.5 L
+    and 1.6 L; the pairs sit L apart along the next axis, in a cell of 40
+    L there, with the cutoff 0.6 L: a wrong image flips a pair's force."""
+    out = []
+    for L in (1.0, 11.75, 16.79, 21.827):
+        L32 = np.float32(L)
+        h = np.float32(L32 / 2)
+        t1, t2 = (np.float32(t) for t in pair.image_thresholds(L))
+        down = [np.nextafter(t, np.float32(0)) for t in (h, t1, t2)]
+        ds = [h, np.nextafter(h, np.float32(np.inf)), t1, t2, *down,
+              np.float32(1.5) * L32, np.float32(1.6) * L32]
+        ds = np.array(ds + [-d for d in ds], dtype=np.float32)
+        for axis in range(3):
+            other = (axis + 1) % 3
+            xyz = np.zeros((2 * len(ds), 3), np.float32)
+            xyz[0::2, axis] = ds
+            xyz[0::2, other] = xyz[1::2, other] = L32 * np.arange(len(ds))
+            cell = np.full(3, 40 * L)
+            cell[axis] = L
+            out.append((L, axis, xyz, tuple(cell), 0.6 * L, 0.25 * L))
+    return out
+
+
 def lj_kernel_phase(mt, torch, dev, gen, compare, compare_scalar):
     """K5, K6, K6b and K7 against their plain versions on the card: FCC at
     N = 108 (less than one 128 tile), 100 of them (the bounds mask), 1372
@@ -315,8 +389,9 @@ def lj_kernel_phase(mt, torch, dev, gen, compare, compare_scalar):
     (12, 0) at 108; a seeded cotangent W for K6b."""
     import numpy as np
     from mdgrad_tpu_torch.ops import _build, pair
-    require(_build.library().mdg_pair_tile() == pair.PAIR_TILE,
-            "ops/pair.py's PAIR_TILE is csrc/pair.cu's tile")
+    require(_build.library().mdg_pair_tile() == pair.PAIR_TILE
+            and _build.library().mdg_force_tile() == pair.FORCE_TILE,
+            "ops/pair.py's PAIR_TILE and FORCE_TILE are csrc/pair.cu's")
     sigma = torch.tensor(0.95, device=dev)
     eps = torch.tensor(1.1, device=dev)
     cases = [(3, None, 12, 6), (3, 100, 12, 6), (3, None, 9, 6),
@@ -349,6 +424,27 @@ def lj_kernel_phase(mt, torch, dev, gen, compare, compare_scalar):
         compare("lj_force_param", got[0], ref[0], 1e-5)
         compare_scalar("lj_force_param", "dU/dsigma", got[1], ref[1], 1e-4)
         compare_scalar("lj_force_param", "U/eps", got[2], ref[2], 1e-4)
+    # K6's i < j walk alone: N = 2 and 8788, and the minimum image's edges
+    for n_cells, n_take in ((3, 2), (13, None)):
+        system = lj_system(mt, n_cells, 1.2, SEED + n_cells)
+        cell = tuple(np.diag(system.cell))
+        xyz = torch.tensor(system.positions, dtype=torch.float32,
+                           device=dev)[:n_take].contiguous()
+        args = (cell, LJ_CUTOFF, sigma, eps)
+        line(f"  lj force: N={xyz.shape[0]}")
+        f6 = pair._launch_force(xyz, *args)
+        compare("lj_force", f6, pair.lj_force_plain(xyz, *args), 1e-5)
+        require(torch.equal(f6, pair._launch_force(xyz, *args)),
+                "K6 gives the same bits on every call")
+    for L, axis, xyz_np, cell, cutoff, sig in lj_edge_cases(np, pair):
+        xyz = torch.tensor(xyz_np, device=dev)
+        args = (cell, cutoff, torch.tensor(sig, dtype=torch.float32,
+                                           device=dev), eps)
+        line(f"  lj force image edges: L={L} axis {axis}")
+        f6 = pair._launch_force(xyz, *args)
+        compare("lj_force", f6, pair.lj_force_plain(xyz, *args), 1e-5)
+        require(torch.equal(f6, pair._launch_force(xyz, *args)),
+                "K6 gives the same bits on every call")
     try:
         pair._launch_force(xyz.double(), cell, LJ_CUTOFF, sigma.double(),
                            eps.double())
@@ -685,6 +781,7 @@ def main():
             gather.table_gather_plain(values, index.idx), 0.0)
     compare("table_scatter", gather._launch_table_scatter(g_edges, index),
             gather.table_scatter_plain(g_edges, index.idx, n), 1e-5)
+    csr_phase(torch, dev, gather, index, g_edges)
 
     obs = mt.observables.rdf(system, nbins=109, r_range=(1.8, 7.5),
                              backend="pallas", device=dev)
@@ -938,15 +1035,36 @@ def main():
              f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}  "
              f"bound {b_ms * 1e3:.3f} us ({b_by}; {s['bytes']} B, "
              f"{s['ops']} ops)")
-    # K2b's CSR inverse is plain torch, rebuilt with each new TableIndex
-    # (once per energy on the MD path): its device time, K2b with it, and
-    # the CSR build called eagerly back to back (host launches included)
-    csr_ms = time_graph(torch, lambda: gather.TableIndex(idx_m, n).csr(),
-                        reps=20)
-    scatter_csr_ms = time_graph(torch, lambda: gather._launch_table_scatter(
-        g_edges, gather.TableIndex(idx_m, n)), reps=20)
-    csr_eager_ms = time_loop(torch, lambda: gather.TableIndex(idx_m, n).csr(),
-                             reps=50)
+    # K2b's CSR inverse, rebuilt with each new TableIndex (once per SchNet
+    # energy): the kernel (one-block and grid builds) and the plain build,
+    # K2b with each, and both builds called eagerly back to back (host
+    # launches included); bound: 4E bytes in, 4E + 4(n + 1) out
+    def scatter_with(build):
+        with_csr = gather.TableIndex(idx_m, n)
+        with_csr._csr = build(idx_m, n)
+        return gather._launch_table_scatter(g_edges, with_csr)
+
+    csr_kernel = gather._launch_table_index_csr
+    csr_plain = gather.table_index_csr_plain
+    csr_b_ms, csr_b_by = bound_ms(4 * (2 * n_edges + n + 1), 0)
+    csr = {
+        "ms": time_graph(torch, lambda: csr_kernel(idx_m, n), reps=20),
+        "grid_ms": time_graph(torch, lambda: csr_kernel(idx_m, n, False),
+                              reps=20),
+        "plain_ms": time_graph(torch, lambda: csr_plain(idx_m, n), reps=20),
+        "with_scatter_ms": time_graph(
+            torch, lambda: scatter_with(csr_kernel), reps=20),
+        "plain_with_scatter_ms": time_graph(
+            torch, lambda: scatter_with(csr_plain), reps=20),
+        "eager_ms": time_loop(torch, lambda: csr_kernel(idx_m, n), reps=50),
+        "plain_eager_ms": time_loop(torch, lambda: csr_plain(idx_m, n),
+                                    reps=50),
+        "bound_ms": csr_b_ms, "bound_by": csr_b_by,
+        "launches_sampling": records["table_index_csr"]["launches_sampling"],
+        "launches_per_train_step":
+            records["table_index_csr"]["launches_per_train_step"]}
+    k2b = next(r for r in kernels_json if r["name"] == "table_scatter")
+    k2b.update({f"csr_{key}": v for key, v in csr.items()})
     lj_timed = lj_times(mt, torch, dev, gen)
     lj_specs = {
         "lj_energy_forces": ("mdgrad_tpu/ops/pallas_pair.py:112", 4000),
@@ -973,9 +1091,14 @@ def main():
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "by_n": {str(k): v for k, v in lj_timed[name].items()}})
-    line(f"time table_scatter CSR build: {csr_ms * 1e3:.2f} us (graph), "
-         f"{csr_eager_ms * 1e3:.2f} us (eager loop); kernel with the CSR "
-         f"build {scatter_csr_ms * 1e3:.2f} us (graph)")
+    line(f"time table_index_csr (K2b's CSR build, E={n_edges}, n={n}): "
+         f"kernel {csr['ms'] * 1e3:.2f} us (grid path "
+         f"{csr['grid_ms'] * 1e3:.2f} us)  plain {csr['plain_ms'] * 1e3:.2f}"
+         f" us  bound {csr_b_ms * 1e3:.3f} us ({csr_b_by}); K2b with it "
+         f"{csr['with_scatter_ms'] * 1e3:.2f} us, with the plain build "
+         f"{csr['plain_with_scatter_ms'] * 1e3:.2f} us (graph); eager loop "
+         f"{csr['eager_ms'] * 1e3:.2f} us, plain "
+         f"{csr['plain_eager_ms'] * 1e3:.2f} us")
     line(f"time rdf_counts: {n_frames} frames, {pairs_in} pairs inside "
          f"{op.cutoff} A")
     line(f"time rdf_counts_bwd: 3 frames, {pairs_in_t} pairs inside "

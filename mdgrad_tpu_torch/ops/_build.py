@@ -35,14 +35,16 @@ SIGNATURES = {
     "mdg_gather_mul_reduce": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mdg_table_gather": (_P, _P, _P, _I, _I, _I, _P),
     "mdg_table_scatter": (_P, _P, _P, _P, _I, _I, _P),
+    "mdg_table_index_csr": (_P, _I, _I, _P, _P, _P, _I, _P),
     "mdg_rdf_tile": (),
     "mdg_rdf_counts": (_P, _I, _I, _F, _F, _F, _F, _P, _P, _I, _P, _P, _P),
     "mdg_rdf_counts_bwd": (_P, _I, _I, _F, _F, _F, _F, _P, _P, _P, _I, _P,
                            _P, _P),
     "mdg_pair_tile": (),
+    "mdg_force_tile": (),
     # the four LJ pair kernels, picked by the first argument (csrc/pair.cu)
-    "mdg_lj_pair": (_I, _P, _P, _I, _F, _F, _F, _F, _P, _P, _I, _I, _P, _P,
-                    _P, _P, _P),
+    "mdg_lj_pair": (_I, _P, _P, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                    _P, _P, _I, _I, _P, _P, _P, _P, _P),
 }
 
 build_seconds = None   # wall time of the last build in this process

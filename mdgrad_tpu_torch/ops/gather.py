@@ -10,14 +10,18 @@ Port of ``mdgrad_tpu/ops/pallas_gather.py``.  Three CUDA kernels
   sentinel; replaces ``table_gather`` (``_gather_kernel``).
 * :func:`table_scatter` (K2b) -- ``out[i] = sum_{idx[e]=i} g[e]``,
   out-of-range indices dropped; replaces ``table_scatter``
-  (``_scatter_kernel``).
+  (``_scatter_kernel``).  It reads a CSR inverse of the index, built on
+  the card by a fourth kernel (``TableIndex.csr``, counted as
+  ``table_index_csr``), the port's own: the TPU kernel needs no inverse.
 
 What bounds them on an H100: bytes.  At the 512-site water shapes the
 edge tensor has 20480 slots of 128 f32 (10.5 MB), of which ~70% are real
 edges.  K2a writes every slot; K1 and K2b read only the real edges' rows
 (~7.3 MB), plus the (512, 128) node tables: ~2.3-3.2 us at 3.35 TB/s,
-with 2 flops per edge element at most.  K2b's CSR inverse is plain torch
-work on top of that, once per TableIndex.  The TPU kernels turn the gather into a one-hot matmul for the MXU;
+with 2 flops per edge element at most.  K2b's CSR inverse moves 4E bytes
+in and 4E + 4(n + 1) out (0.05 us) and is bound by latency: one block
+builds it as a stable counting sort in one launch (``csrc/gather.cu``).
+The TPU kernels turn the gather into a one-hot matmul for the MXU;
 here the gather is a direct indexed load in exact f32, threads over the
 feature axis so every warp reads whole 128-byte rows, and the K-sum of K1
 stays in registers so the gathered (E, F) tensor never reaches memory.
@@ -39,9 +43,10 @@ import torch
 
 from . import _build
 
-launches = {"gather_mul_reduce": 0, "table_gather": 0, "table_scatter": 0}
+launches = {"gather_mul_reduce": 0, "table_gather": 0, "table_scatter": 0,
+            "table_index_csr": 0}
 plain_calls = {"gather_mul_reduce": 0, "table_gather": 0,
-               "table_scatter": 0}
+               "table_scatter": 0, "table_index_csr": 0}
 
 
 class TableIndex:
@@ -50,8 +55,10 @@ class TableIndex:
 
     An entry outside ``[0, n)`` is the padding sentinel.  The CSR inverse
     (a stable argsort of the sentinel-mapped index and row pointers) is
-    built on first use with plain torch and then shared by every scatter
-    on this index -- once per neighbor-table refresh on the MD path.
+    built on first use -- by the CSR kernel for a CUDA index, by
+    :func:`table_index_csr_plain` for a CPU one -- and then shared by every
+    scatter on this index.  SchNet makes one TableIndex per energy, so on
+    the MD path that is one build per force.
     """
 
     def __init__(self, idx, n):
@@ -63,20 +70,15 @@ class TableIndex:
 
     def key(self):
         """int64 index with every sentinel mapped to ``n``."""
-        idx = self.idx.long()
-        return torch.where((idx >= 0) & (idx < self.n), idx, self.n)
+        return _key(self.idx, self.n)
 
     def csr(self):
         """(order (E,) int32, rowptr (n + 1,) int32): the edges that land
         on row ``i`` are ``order[rowptr[i]:rowptr[i + 1]]``, ascending."""
         if self._csr is None:
-            key = self.key()
-            order = torch.argsort(key, stable=True)
-            # row pointers by binary search in the sorted keys: unlike
-            # bincount this never waits for the device
-            rowptr = torch.searchsorted(
-                key[order], torch.arange(self.n + 1, device=key.device))
-            self._csr = (order.to(torch.int32), rowptr.to(torch.int32))
+            self._csr = (_launch_table_index_csr(self.idx, self.n)
+                         if _build.on_cuda(self.idx)
+                         else table_index_csr_plain(self.idx, self.n))
         return self._csr
 
 
@@ -84,12 +86,26 @@ class TableIndex:
 # plain versions (CPU path; the reference the kernels are held to)
 # ---------------------------------------------------------------------------
 
-def _gather_rows(values, idx):
-    n = values.shape[0]
+def _key(idx, n):
+    """int64 ``idx`` with every sentinel mapped to ``n``."""
     idx = idx.long()
-    key = torch.where((idx >= 0) & (idx < n), idx, n)
+    return torch.where((idx >= 0) & (idx < n), idx, n)
+
+
+def _gather_rows(values, idx):
     ext = torch.cat([values, values.new_zeros(1, values.shape[1])])
-    return ext[key]
+    return ext[_key(idx, values.shape[0])]
+
+
+def table_index_csr_plain(idx, n):
+    """(order (E,) int32, rowptr (n + 1,) int32): a stable argsort of the
+    index with every sentinel mapped to ``n``, and each row's first slot."""
+    plain_calls["table_index_csr"] += 1
+    key = _key(idx, n)
+    order = torch.argsort(key, stable=True)
+    rowptr = torch.searchsorted(key[order],
+                                torch.arange(n + 1, device=key.device))
+    return order.to(torch.int32), rowptr.to(torch.int32)
 
 
 def table_gather_plain(values, idx):
@@ -101,9 +117,7 @@ def table_gather_plain(values, idx):
 def table_scatter_plain(g, idx, n):
     """``out[i] = sum over e with idx[e] == i of g[e]``; sentinels dropped."""
     plain_calls["table_scatter"] += 1
-    idx = idx.long()
-    key = torch.where((idx >= 0) & (idx < n), idx, n)
-    return g.new_zeros(n + 1, g.shape[1]).index_add(0, key, g)[:n]
+    return g.new_zeros(n + 1, g.shape[1]).index_add(0, _key(idx, n), g)[:n]
 
 
 def gather_mul_reduce_plain(values, w, idx, k):
@@ -158,6 +172,27 @@ def _launch_table_gather(values, idx):
     _build.check(code, "table_gather")
     launches["table_gather"] += 1
     return out
+
+
+# max_shared for mdg_table_index_csr: any size up to the card's limit
+# takes the one-block build, 0 forces the grid build
+_CSR_ONE_BLOCK, _CSR_GRID = 2 ** 31 - 1, 0
+
+
+def _launch_table_index_csr(idx, n, one_block=True):
+    dev = idx.device
+    _check(idx, "idx", dev, torch.int32, 1)
+    e = idx.shape[0]
+    order = torch.empty(e, device=dev, dtype=torch.int32)
+    rowptr = torch.empty(n + 1, device=dev, dtype=torch.int32)
+    scratch = torch.empty(n + 1, device=dev, dtype=torch.int32)
+    code = _build.library().mdg_table_index_csr(
+        idx.data_ptr(), e, n, order.data_ptr(), rowptr.data_ptr(),
+        scratch.data_ptr(), _CSR_ONE_BLOCK if one_block else _CSR_GRID,
+        _build.stream_of(idx))
+    _build.check(code, "table_index_csr")
+    launches["table_index_csr"] += 1
+    return order, rowptr
 
 
 def _launch_table_scatter(g, index):

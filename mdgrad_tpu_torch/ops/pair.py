@@ -25,16 +25,21 @@ versions, a tensor.
 
 What bounds them on an H100: operations -- the minimum image and r^2 of
 every i < j pair, the LJ terms of those inside the cutoff; bytes are 12
-to 24 per atom.  The kernels tile the ordered pairs 128 x 128, keep each
-row's sums in one thread's registers and sum every partial in a fixed
-order: no (N, N) tensor, no atomics, the same force bits on every call,
-as the replay needs.
+to 24 per atom.  K5, K6b and K7 tile the ordered pairs 128 x 128 and keep
+each row's sums in one thread's registers.  K6, the force of every MD
+step, walks each i < j pair once in 32 x 32 warp tiles and gives the
+pair's force to both atoms, with a minimum image that needs no division
+(:func:`image_thresholds`).  Every partial is summed in a fixed order: no
+(N, N) tensor, no float atomics, the same force bits on every call, as
+the replay needs.
 
 A wrapper launches its kernel for CUDA tensors (float32, contiguous; any
 other dtype raises ``TypeError`` where the JAX package casts) or raises;
 it takes the plain version only for CPU tensors.  ``launches`` and
 ``plain_calls`` count the two paths.
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -160,7 +165,35 @@ def _check(t, name, device, shape):
 
 # the kernels' order in mdg_lj_pair's mode argument (csrc/pair.cu)
 _MODES = ("lj_energy_forces", "lj_force", "lj_force_vjp", "lj_force_param")
-PAIR_TILE = 128   # csrc/pair.cu kPairTile; sizes the partial-sum scratch
+# csrc/pair.cu's tiles, which size the partial-sum scratch: kPairTile
+# (K5, K6b, K7) and kForceTile (K6)
+PAIR_TILE, FORCE_TILE = 128, 64
+
+
+@functools.cache
+def image_thresholds(L):
+    """(t1, t2) as float32 for the cell length ``L``: with ``s =
+    rint(fl32(d / L))``, for ``|d| < t2`` s is 1 from ``d >= t1`` on, -1
+    from ``d <= -t1`` on and 0 between.  t1 is the least float32 with
+    fl32(t1 / L) > 0.5 (rint takes 0.5 to 0, ties to even), t2 the least
+    with fl32(t2 / L) >= 1.5; the division is monotone in d, so a
+    nextafter search from 0.5 L and 1.5 L finds them.  K6 takes the
+    minimum image from these compares, bit-equal to ``d - rint(d / L) L``.
+    """
+    L = np.float32(L)
+    if not (np.isfinite(L) and L > 0):
+        raise ValueError(f"cell length must be finite and > 0, got {L}")
+
+    def least(q, above):
+        d = np.float32(np.float32(q) * L)
+        hit = (lambda d: d / L > q) if above else (lambda d: d / L >= q)
+        while hit(d):
+            d = np.nextafter(d, np.float32(0))
+        while not hit(d):
+            d = np.nextafter(d, np.float32(np.inf))
+        return float(d)
+
+    return least(0.5, True), least(1.5, False)
 
 
 def _launch(name, xyz, cell_len, cutoff, sigma, epsilon, rep_pow, attr_pow,
@@ -180,17 +213,19 @@ def _launch(name, xyz, cell_len, cutoff, sigma, epsilon, rep_pow, attr_pow,
     if rep_pow < 0 or attr_pow < 0:
         raise ValueError(f"{name}: powers must be >= 0, got ({rep_pow}, "
                          f"{attr_pow})")
-    tiles = -(-n // PAIR_TILE)
+    tiles = -(-n // (FORCE_TILE if name == "lj_force" else PAIR_TILE))
     partial = torch.empty(tiles * n * 3, device=dev, dtype=torch.float32)
     block_partial = (torch.empty(n_scalars * tiles * tiles, device=dev,
                                  dtype=torch.float32) if n_scalars else None)
     out = torch.empty(n, 3, device=dev, dtype=torch.float32)
     scalars = (torch.empty(n_scalars, device=dev, dtype=torch.float32)
                if n_scalars else None)
-    lx, ly, lz = (float(c) for c in cell_len)
+    cell_len = tuple(float(c) for c in cell_len)
+    t1, t2 = zip(*map(image_thresholds, cell_len))
     code = _build.library().mdg_lj_pair(
         _MODES.index(name), xyz.data_ptr(),
-        None if w is None else w.data_ptr(), n, lx, ly, lz, float(cutoff),
+        None if w is None else w.data_ptr(), n, *cell_len, *t1, *t2,
+        float(cutoff),
         sigma.data_ptr(), epsilon.data_ptr(), int(rep_pow), int(attr_pow),
         partial.data_ptr(),
         None if block_partial is None else block_partial.data_ptr(),

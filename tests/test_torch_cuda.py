@@ -22,6 +22,52 @@ from mdgrad_tpu_torch.ops import rdf as trdf
 pytestmark = pytest.mark.cuda
 
 
+def csr_index_cases():
+    """[(name, idx (E,) int32, n)]: the CSR build's edge cases and the
+    water shape (512 x 40 slots, ~30% sentinels), from a numpy seed."""
+    rng = np.random.default_rng(3)
+    water = rng.integers(0, 512, size=512 * 40)
+    water[rng.random(water.size) < 0.3] = 512
+    cases = [
+        ("sentinels", rng.integers(-3, 12, size=50), 9),   # < 0, == n, > n
+        ("empty_rows", rng.choice([2, 5, 11], size=40), 20),
+        ("one_row", np.full(300, 3), 5),   # longer than one thread sorts
+        ("all_sentinel", np.full(70, -1), 4),
+        ("no_edges", np.zeros(0), 6),
+        ("water", water, 512),
+    ]
+    return [(name, idx.astype(np.int32), n) for name, idx, n in cases]
+
+
+def lj_edge_cases():
+    """[(L, axis, xyz (36, 3) float32, cell (3,), cutoff, sigma)]: 18
+    pairs whose displacement along ``axis`` is +-L/2 exactly, one ulp on
+    each side of it, at the image thresholds t1 and t2 and one ulp below
+    each, 1.5 L and 1.6 L (positions not wrapped); the pairs sit L apart
+    along the next axis, in a cell of 40 L there, so each pair sees only
+    itself inside the cutoff 0.6 L.  A wrong image decision flips the sign
+    of the pair's force."""
+    from mdgrad_tpu_torch.ops import pair as tp
+    out = []
+    for L in (1.0, 11.75, 16.79, 21.827):
+        L32 = np.float32(L)
+        h = np.float32(L32 / 2)
+        t1, t2 = (np.float32(t) for t in tp.image_thresholds(L))
+        down = [np.nextafter(t, np.float32(0)) for t in (h, t1, t2)]
+        ds = [h, np.nextafter(h, np.float32(np.inf)), t1, t2, *down,
+              np.float32(1.5) * L32, np.float32(1.6) * L32]
+        ds = np.array(ds + [-d for d in ds], dtype=np.float32)
+        for axis in range(3):
+            other = (axis + 1) % 3
+            xyz = np.zeros((2 * len(ds), 3), np.float32)
+            xyz[0::2, axis] = ds
+            xyz[0::2, other] = xyz[1::2, other] = L32 * np.arange(len(ds))
+            cell = np.full(3, 40 * L)
+            cell[axis] = L
+            out.append((L, axis, xyz, cell, 0.6 * L, 0.25 * L))
+    return out
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -280,3 +326,73 @@ def test_pallas_lj_pair_launches_force_and_vjp(cuda):
     for a, b in zip(grads, ref):
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=1e-5 * max(b.abs().max().item(), 1.0))
+
+
+@pytest.mark.parametrize("one_block", [True, False], ids=["one_block", "grid"])
+@pytest.mark.parametrize("case", csr_index_cases(), ids=lambda c: c[0])
+def test_table_index_csr_kernel_matches_plain(cuda, case, one_block):
+    """The CSR kernel, its one-block build and its grid build, is
+    integer-equal to the plain build; K2b gives the same bits through
+    either CSR."""
+    _, idx_np, n = case
+    idx = torch.tensor(idx_np, device=cuda)
+    ops.reset_counts()
+    order, rowptr = tg._launch_table_index_csr(idx, n, one_block=one_block)
+    assert ops.counts()["launches"]["table_index_csr"] == 1
+    ref_order, ref_rowptr = tg.table_index_csr_plain(idx, n)
+    assert torch.equal(order, ref_order) and torch.equal(rowptr, ref_rowptr)
+    g = torch.tensor(np.random.default_rng(9).normal(size=(len(idx_np), 16)),
+                     dtype=torch.float32, device=cuda)
+    out = []
+    for csr in ((order, rowptr), (ref_order, ref_rowptr)):
+        index = tg.TableIndex(idx, n)
+        index._csr = csr
+        out.append(tg._launch_table_scatter(g, index))
+    assert torch.equal(out[0], out[1])
+
+
+def test_table_index_builds_its_csr_on_the_card(cuda):
+    idx = torch.tensor(csr_index_cases()[-1][1], device=cuda)
+    ops.reset_counts()
+    order, rowptr = tg.TableIndex(idx, 512).csr()
+    counts = ops.counts()
+    assert counts["launches"]["table_index_csr"] == 1
+    assert counts["plain_calls"]["table_index_csr"] == 0
+    assert order.is_cuda and rowptr.shape == (513,)
+
+
+@pytest.mark.parametrize("n_cells,n", [(3, 2), (3, 100), (3, 108),
+                                       (7, 1372), (10, 4000)])
+def test_lj_force_kernel_matches_plain(cuda, n_cells, n):
+    """K6's i < j walk against its plain version within 1e-5 of
+    max(|F|, 1) (f32 sums of ~100 pair terms per atom in another order),
+    and the same bits on a second call."""
+    from mdgrad_tpu_torch.ops import _build, pair as tp
+    assert _build.library().mdg_force_tile() == tp.FORCE_TILE
+    _, cell, xyz, _ = _lj_inputs(cuda, n_cells)
+    xyz = xyz[:n].contiguous()
+    args = (cell, 2.5, torch.tensor(0.95, device=cuda),
+            torch.tensor(1.1, device=cuda))
+    f = tp._launch_force(xyz, *args)
+    ref = tp.lj_force_plain(xyz, *args)
+    torch.testing.assert_close(f, ref, rtol=0,
+                               atol=1e-5 * max(ref.abs().max().item(), 1.0))
+    assert torch.equal(f, tp._launch_force(xyz, *args))
+
+
+@pytest.mark.parametrize("case", lj_edge_cases(),
+                         ids=lambda c: f"L{c[0]}-axis{c[1]}")
+def test_lj_force_kernel_on_image_edges(cuda, case):
+    """K6 takes the same image decisions as the plain version at d = +-L/2,
+    one ulp on each side, at its thresholds and past a box length."""
+    from mdgrad_tpu_torch.ops import pair as tp
+    _, _, xyz_np, cell, cutoff, sigma = case
+    xyz = torch.tensor(xyz_np, device=cuda)
+    args = (cell, cutoff, torch.tensor(sigma, dtype=torch.float32,
+                                       device=cuda),
+            torch.tensor(1.0, device=cuda))
+    f = tp._launch_force(xyz, *args)
+    ref = tp.lj_force_plain(xyz, *args)
+    torch.testing.assert_close(f, ref, rtol=0,
+                               atol=1e-5 * max(ref.abs().max().item(), 1.0))
+    assert torch.equal(f, tp._launch_force(xyz, *args))

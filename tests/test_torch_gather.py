@@ -18,6 +18,7 @@ import torch
 from mdgrad_tpu.ops.pallas_gather import (gather_mul_reduce, table_gather,
                                           table_scatter)
 from mdgrad_tpu_torch.ops import counts, gather as tg, reset_counts
+from test_torch_cuda import csr_index_cases
 
 N, F, K, NO = 37, 40, 12, 29
 
@@ -161,4 +162,61 @@ def test_cpu_wrappers_take_the_plain_versions(data):
     tg.table_scatter(_t(data["g"]), index)
     c = counts()
     assert all(c["launches"][k] == 0 for k in tg.launches)
-    assert all(c["plain_calls"][k] == 1 for k in tg.plain_calls)
+    # the plain scatter is an index_add: it builds no CSR inverse
+    assert {k: c["plain_calls"][k] for k in tg.plain_calls} == {
+        "gather_mul_reduce": 1, "table_gather": 1, "table_scatter": 1,
+        "table_index_csr": 0}
+
+
+@pytest.mark.parametrize("case", csr_index_cases(), ids=lambda c: c[0])
+def test_table_index_csr_plain_matches_numpy(case):
+    """The plain CSR build (the reference of the CSR kernel) against a
+    numpy stable argsort and bincount of the sentinel-mapped index, on
+    negative, == n and > n sentinels, empty rows, one row that takes every
+    edge, no edges, and the water shape."""
+    _, idx, n = case
+    key = np.where((idx >= 0) & (idx < n), idx, n)
+    reset_counts()
+    order, rowptr = tg.TableIndex(torch.tensor(idx), n).csr()
+    assert counts()["plain_calls"]["table_index_csr"] == 1
+    assert order.dtype == rowptr.dtype == torch.int32
+    np.testing.assert_array_equal(order.numpy(),
+                                  np.argsort(key, kind="stable"))
+    starts = np.concatenate([[0], np.cumsum(np.bincount(key, minlength=n + 1))])
+    np.testing.assert_array_equal(rowptr.numpy(), starts[:n + 1])
+
+
+def _scatter_csr_order(g, order, rowptr):
+    """out[i] = g[order[rowptr[i]]] + g[order[rowptr[i] + 1]] + ... in
+    float32, in the order of the CSR kernel's walk (csrc/gather.cu)."""
+    n = rowptr.shape[0] - 1
+    starts = rowptr.long()
+    lens = starts[1:] - starts[:-1]
+    starts = starts[:-1]
+    out = g.new_zeros(n, g.shape[1])
+    for s in range(int(lens.max()) if n else 0):
+        rows = torch.nonzero(lens > s).flatten()
+        out[rows] += g[order[starts[rows] + s].long()]
+    return out
+
+
+@pytest.mark.parametrize("case", csr_index_cases(), ids=lambda c: c[0])
+def test_scatter_in_csr_order_matches_jax(case):
+    """K2b's sum in the CSR's order, from the plain CSR, against the JAX
+    table_scatter (interpret mode) to 1e-6 of the largest |out| in f32.
+    g is rounded to bfloat16, which the JAX kernel's hi/lo split carries
+    exactly, so both sides sum the same values and differ only in order."""
+    _, idx, n = case
+    rng = np.random.default_rng(8)
+    g = rng.normal(size=(idx.shape[0], 24)).astype(np.float32)
+    g = np.asarray(jnp.asarray(g).astype(jnp.bfloat16).astype(jnp.float32))
+    order, rowptr = tg.table_index_csr_plain(torch.tensor(idx), n)
+    got = _scatter_csr_order(torch.tensor(g), order, rowptr)
+    ref = np.asarray(table_scatter(jnp.asarray(g), jnp.asarray(idx), n,
+                                   True, True))
+    assert got.shape == ref.shape == (n, 24)
+    scale = max(np.abs(ref).max(initial=0.0), 1e-30)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6 * scale)
+    np.testing.assert_allclose(
+        tg.table_scatter_plain(torch.tensor(g), torch.tensor(idx), n).numpy(),
+        ref, rtol=0, atol=1e-6 * scale)

@@ -25,6 +25,7 @@ from mdgrad_tpu.system import System as SystemJ
 import mdgrad_tpu_torch as mt
 from mdgrad_tpu_torch import ops
 from mdgrad_tpu_torch.ops import pair
+from test_torch_cuda import lj_edge_cases
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CUTOFF = 2.4
@@ -249,3 +250,52 @@ def test_energy_backward_raises(fcc):
     inter = mt.ops.PallasLJPair(s, CUTOFF, device="cpu")
     with pytest.raises(NotImplementedError, match="no gradient"):
         torch.autograd.grad(inter.energy(x, ()), inter.sigma)
+
+
+@pytest.mark.parametrize("L", [1.0, 11.75, 16.79, 21.827])
+def test_image_thresholds_exhaustive(L):
+    """Every float32 d within 64 ulps of +-L/2 and +-3L/2: the shift that
+    K6 takes from the thresholds (IEEE past t2) equals torch.round(d / L),
+    and d minus it times L has the same bits as the plain minimum image."""
+    t1, t2 = pair.image_thresholds(L)
+    L32 = np.float32(L)
+    band = []
+    for c in (L32 / 2, np.float32(1.5) * L32):
+        ints = np.float32(c).view(np.int32) + np.arange(-64, 65,
+                                                        dtype=np.int32)
+        band.append(ints.view(np.float32))
+    d = np.concatenate(band)
+    d = np.concatenate([d, -d])
+    ref_shift = torch.round(torch.tensor(d) / torch.tensor(L32)).numpy()
+    fast = np.where(d >= t1, 1, np.where(d <= -t1, -1, 0))
+    shift = np.where(np.abs(d) >= t2, ref_shift, fast)
+    np.testing.assert_array_equal(shift, ref_shift)
+    # t2 is where the shift first reaches 2: every |d| past it takes IEEE
+    assert (np.abs(ref_shift[np.abs(d) >= t2]) == 2).all()
+    assert (np.abs(ref_shift[(np.abs(d) < t2) & (np.abs(d) > L32)]) == 1).all()
+    image = (torch.tensor(d) - torch.tensor(shift.astype(np.float32)) * L32)
+    plain = (torch.tensor(d)
+             - torch.round(torch.tensor(d) / torch.tensor(L32)) * L32)
+    np.testing.assert_array_equal(image.numpy().view(np.int32),
+                                  plain.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("case", lj_edge_cases(),
+                         ids=lambda c: f"L{c[0]}-axis{c[1]}")
+def test_force_on_image_edges_matches_jax(case):
+    """The plain K6 (lj_force_plain) against make_lj_force(interpret=True)
+    on pairs at d = +-L/2, one ulp on each side, at the image thresholds
+    and past a box length: the same image decisions on both sides, at
+    test_force_and_vjp_match_jax_make_lj_force's tolerances."""
+    _, _, xyz, cell, cutoff, sigma = case
+    force_j = make_lj_force_j(jnp.asarray(cell, jnp.float32), cutoff,
+                              interpret=True)
+    f_j = np.asarray(force_j(jnp.asarray(xyz), jnp.float32(sigma),
+                             jnp.float32(1.0)))
+    f = pair.lj_force_plain(torch.tensor(xyz), cell, cutoff,
+                            torch.tensor(sigma, dtype=torch.float32),
+                            torch.tensor(1.0))
+    scale = np.abs(f_j).max()
+    assert scale > 0
+    np.testing.assert_allclose(f.numpy(), f_j, rtol=2e-3,
+                               atol=2e-5 * scale)

@@ -94,7 +94,8 @@ def test_sampling_slice_matches_jax():
     n_forces = STEPS // FREQUENCY * FREQUENCY
     assert calls == {"gather_mul_reduce": 2 * n_forces,
                      "table_gather": 2 * n_forces,
-                     "table_scatter": 2 * n_forces, "rdf_counts": 1,
+                     "table_scatter": 2 * n_forces, "table_index_csr": 0,
+                     "rdf_counts": 1,
                      "rdf_counts_bwd": 0, "lj_energy_forces": 0,
                      "lj_force": 0, "lj_force_vjp": 0, "lj_force_param": 0}
     assert not sim.overflowed and not sim.drifted
