@@ -9,7 +9,9 @@ its phases, printing one line as each check ends:
 1. build   -- one nvcc process per source, in parallel, and one link into
    one shared library; its wall time.
 2. kernels -- each kernel against its plain PyTorch version on the card at
-   the shapes of the main paths (sentinel indices included), the SchNet
+   the shapes of the main paths (sentinel indices included); K1 and K2a
+   also at F = 1, 3, 40, 128, 130, K = 1, 12, 40 and four sentinel layouts,
+   and through views at a 4-byte offset (their scalar path); the SchNet
    force through the kernels against the plain gather path, and the force's
    vector-Jacobian product (its grad-of-grad) likewise; K2b's CSR build
    (one-block and grid paths) integer-equal to the plain build on the main
@@ -42,8 +44,10 @@ its phases, printing one line as each check ends:
    that epoch's frames; then 3 clipped-Adam steps on (sigma, eps).
 5. times   -- each kernel, its plain version and its library yardstick with
    CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms; K2b's CSR
-   build against the plain build, K2b beside each), MD and training
-   steps/s, and the card's name and power limit.
+   build against the plain build, K2b beside each; K1, K2a and K2b warm,
+   their inputs in the L2 as on the MD path, and cold, cycling over input
+   sets larger than the L2, with the cold share of the bound), MD and
+   training steps/s, and the card's name and power limit.
 
 Launch counts are zeroed just before phases 3, 3b, 4 and 4b and read just
 after each: phases 3 and 4 must launch every water kernel, the CSR build
@@ -54,7 +58,6 @@ check raises and the script exits non-zero.  Without a CUDA device it exits
 """
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -82,47 +85,6 @@ def bound_ms(n_bytes, n_ops):
     t_ops = n_ops / FP32_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
-
-
-def time_graph(torch, fn, reps=100, groups=7):
-    """Median device time (ms) of one ``fn()`` replayed from a CUDA graph
-    of ``reps`` calls: the launch cost of the host is not in it."""
-    fn()
-    torch.cuda.synchronize()
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    return _median_events(torch, graph.replay, groups) / reps
-
-
-def time_loop(torch, fn, reps, groups=5):
-    """Median time (ms) of one ``fn()`` called back to back, host launch
-    cost included (for code that reads the device, e.g. masks)."""
-    fn()
-    torch.cuda.synchronize()
-    return _median_events(torch, lambda: [fn() for _ in range(reps)],
-                          groups) / reps
-
-
-def _median_events(torch, run, groups):
-    times = []
-    for _ in range(groups):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def max_errs(got, ref):
@@ -263,6 +225,83 @@ def train_phase(mt, torch, dev, records):
         require(c == 0, f"plain version of {name} not used in training")
     return {"steps_per_s": steps_per_s, "wall": wall, "peak": peak,
             "fwd_s": fwd}
+
+
+GATHER_LAYOUTS = ("suffix", "interleaved", "negative", "whole_rows")
+
+
+def gather_index(np, rng, layout, n, n_out, k):
+    """(n_out * k,) int32 index of an atom-major (n_out, k) table over n
+    rows, its sentinels laid out as in ``layout``: each row's real entries
+    first (the water table's order, some rows all sentinel), scattered
+    (30% == n), scattered below 0 and above n, or every third row."""
+    idx = rng.integers(0, n, size=(n_out, k))
+    if layout == "suffix":
+        real = rng.integers(0, k + 1, size=n_out)
+        idx[np.arange(k) >= real[:, None]] = n
+    elif layout == "interleaved":
+        idx[rng.random(idx.shape) < 0.3] = n
+    elif layout == "negative":
+        hole = rng.random(idx.shape) < 0.3
+        idx[hole] = rng.choice([-1, -7, n + 3], size=int(hole.sum()))
+    else:
+        idx[::3] = n
+    return idx.reshape(-1).astype(np.int32)
+
+
+def gather_phase(torch, dev, gen, gather, index, k, compare, records):
+    """K1 and K2a against their plain versions on the cases their kernels
+    special-case: F = 1, 3, 40, 128, 130 (F % 4 != 0: the scalar path; F >
+    128: a second pass over the row), K = 1, 12, 40 (1, 3 and 10 warps a
+    row in K1), the four sentinel layouts of ``gather_index``, 29 output
+    rows over 37 values; then at the water shape through views at a 4-byte
+    storage offset (the scalar path).  K1 within 1e-5 of max(|ref|, 1)
+    (f32 sums of at most K products in another order), K2a bit-exact (a
+    copy); each gives the same bits on a second call."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 4)
+    n, n_out = 37, 29
+    for f in (1, 3, 40, 128, 130):
+        err_k1 = 0.0
+        for k_case in (1, 12, 40):
+            for layout in GATHER_LAYOUTS:
+                idx = torch.tensor(gather_index(np, rng, layout, n, n_out,
+                                                k_case), device=dev)
+                v = torch.randn(n, f, device=dev, generator=gen)
+                w = torch.randn(n_out * k_case, f, device=dev, generator=gen)
+                got = gather._launch_gather_mul_reduce(v, w, idx, k_case)
+                err, _, scale = max_errs(
+                    got, gather.gather_mul_reduce_plain(v, w, idx, k_case))
+                require(err <= 1e-5 * max(scale, 1.0),
+                        f"K1 agrees with its plain version at F={f}, "
+                        f"K={k_case}, {layout}")
+                out = gather._launch_table_gather(v, idx)
+                require(torch.equal(out, gather.table_gather_plain(v, idx)),
+                        f"K2a is bit-exact at F={f}, K={k_case}, {layout}")
+                require(torch.equal(got, gather._launch_gather_mul_reduce(
+                    v, w, idx, k_case)) and torch.equal(
+                    out, gather._launch_table_gather(v, idx)),
+                    "K1 and K2a give the same bits on a second call")
+                err_k1 = max(err_k1, err)
+        line(f"kernel gather_mul_reduce, table_gather F={f}: K = 1, 12, 40 x "
+             f"{len(GATHER_LAYOUTS)} sentinel layouts: K1 max_abs_err "
+             f"{err_k1:.3e} (tol 1e-5 of max(|ref|, 1)); K2a bit-equal; the "
+             f"same bits twice")
+        rec = records.setdefault("gather_mul_reduce", {})
+        rec["max_abs_err"] = max(err_k1, rec.get("max_abs_err", 0.0))
+    n, f = index.n, 128
+    e = index.idx.shape[0]
+    buf = torch.randn(1 + n * f + e * f, device=dev, generator=gen)
+    v = buf[1:1 + n * f].view(n, f)
+    w = buf[1 + n * f:].view(e, f)
+    require(v.data_ptr() % 16 != 0 and w.data_ptr() % 16 != 0,
+            "the views break 16-byte alignment")
+    line("  gather kernels at the water shape, views at a 4-byte offset:")
+    compare("gather_mul_reduce", gather._launch_gather_mul_reduce(
+        v, w, index.idx, k), gather.gather_mul_reduce_plain(
+        v, w, index.idx, k), 1e-5)
+    compare("table_gather", gather._launch_table_gather(v, index.idx),
+            gather.table_gather_plain(v, index.idx), 0.0)
 
 
 def csr_cases(np, index):
@@ -645,7 +684,7 @@ def lj_times(mt, torch, dev, gen):
     graphs, and the bound from the data-sheet rates."""
     import numpy as np
     from mdgrad_tpu_torch import potentials
-    from mdgrad_tpu_torch.ops import pair
+    from mdgrad_tpu_torch.ops import pair, timing
     out = {name: {} for name in LJ_KERNELS}
     for n_cells in (7, 10, 13):
         system = lj_system(mt, n_cells, 1.2, SEED)
@@ -692,11 +731,11 @@ def lj_times(mt, torch, dev, gen):
         }
         big = n > 2000
         reps, groups = (2, 3) if big else (5, 5)
-        lib_force_ms = time_graph(torch, lib_force, reps=reps, groups=groups)
-        lib_vjp_ms = time_graph(torch, lib_vjp, reps=reps, groups=groups)
+        lib_force_ms = timing.time_graph(lib_force, reps=reps, groups=groups)
+        lib_vjp_ms = timing.time_graph(lib_vjp, reps=reps, groups=groups)
         for name, (kernel, plain, n_bytes) in specs.items():
-            ms = time_graph(torch, kernel, reps=20)
-            plain_ms = time_graph(torch, plain, reps=reps, groups=groups)
+            ms = timing.time_graph(kernel, reps=20)
+            plain_ms = timing.time_graph(plain, reps=reps, groups=groups)
             lib_ms = lib_vjp_ms if name == "lj_force_vjp" else lib_force_ms
             n_ops = LJ_OPS_PER_PAIR * pairs_all + LJ_OPS_INSIDE[name] * pairs_in
             b_ms, b_by = bound_ms(n_bytes, n_ops)
@@ -722,7 +761,8 @@ def main():
     import numpy as np
     import mdgrad_tpu_torch as mt
     from mdgrad_tpu_torch import ops, units
-    from mdgrad_tpu_torch.ops import _build, gather, rdf as rdf_ops
+    from mdgrad_tpu_torch.ops import (_build, gather, rdf as rdf_ops,
+                                      time_gather, timing)
     dev = torch.device("cuda", 0)
     line(f"device: {torch.cuda.get_device_name(0)}  torch {torch.__version__}"
          f"  cuda {torch.version.cuda}")
@@ -781,6 +821,11 @@ def main():
             gather.table_gather_plain(values, index.idx), 0.0)
     compare("table_scatter", gather._launch_table_scatter(g_edges, index),
             gather.table_scatter_plain(g_edges, index.idx, n), 1e-5)
+    require(torch.equal(
+        gather._launch_gather_mul_reduce(values, w, index.idx, k),
+        gather._launch_gather_mul_reduce(values, w, index.idx, k)),
+        "K1 gives the same bits on every call (the replay needs it)")
+    gather_phase(torch, dev, gen, gather, index, k, compare, records)
     csr_phase(torch, dev, gather, index, g_edges)
 
     obs = mt.observables.rdf(system, nbins=109, r_range=(1.8, 7.5),
@@ -955,34 +1000,32 @@ def main():
     xyz_t = xyz_f[-3:].contiguous()
     pairs_in_t = pairs_inside(xyz_t)
     ct_t = torch.randn(n_bins, device=dev, generator=gen)
+    # K1, K2a and K2b warm (one input set, resident in the L2 as on the MD
+    # path) and cold (cycling over sets that together exceed the L2)
+    gather_times = time_gather.warm_cold(
+        _build.library(), time_gather.make_sets(index, k, time_gather.N_SETS,
+                                                gen), k)
+    gather_bytes = time_gather.bound_bytes(n, f, n_edges, e_real)
     specs = {
         "gather_mul_reduce": dict(
             source="mdgrad_tpu_torch/csrc/gather.cu",
             replaces="mdgrad_tpu/ops/pallas_gather.py:266",
-            kernel=lambda: gather._launch_gather_mul_reduce(
-                values, w, index.idx, k),
             plain=lambda: gather.gather_mul_reduce_plain(
                 values, w, index.idx, k),
-            library=None,
-            # w is read only at the real edges; idx at every slot
-            bytes=4 * (n * f + e_real * f + n_edges + n * f),
+            library=None, bytes=gather_bytes["gather_mul_reduce"],
             ops=2 * e_real * f),
         "table_gather": dict(
             source="mdgrad_tpu_torch/csrc/gather.cu",
             replaces="mdgrad_tpu/ops/pallas_gather.py:170",
-            kernel=lambda: gather._launch_table_gather(values, index.idx),
             plain=lambda: gather.table_gather_plain(values, index.idx),
             library=lambda: torch.index_select(pad_values, 0, key),
-            bytes=4 * (n * f + n_edges + n_edges * f), ops=0),
+            bytes=gather_bytes["table_gather"], ops=0),
         "table_scatter": dict(
             source="mdgrad_tpu_torch/csrc/gather.cu",
             replaces="mdgrad_tpu/ops/pallas_gather.py:193",
-            kernel=lambda: gather._launch_table_scatter(g_edges, index),
             plain=lambda: gather.table_scatter_plain(g_edges, index.idx, n),
             library=lambda: zero_table.index_add_(0, key, g_edges),
-            # the CSR walk reads only the real edges' rows of g and order
-            bytes=4 * (e_real * f + e_real + (n + 1) + n * f),
-            ops=e_real * f),
+            bytes=gather_bytes["table_scatter"], ops=e_real * f),
         "rdf_counts": dict(
             source="mdgrad_tpu_torch/csrc/rdf.cu",
             replaces="mdgrad_tpu/ops/pallas_rdf.py:194 (counts) + :267 "
@@ -1015,12 +1058,14 @@ def main():
     kernels_json = []
     for name, s in specs.items():
         rdf = name.startswith("rdf_counts")
-        ms = time_graph(torch, s["kernel"], reps=20 if rdf else 100)
+        warm_cold = gather_times.get(name)
+        ms = (warm_cold["ms"] if warm_cold
+              else timing.time_graph(s["kernel"], reps=20 if rdf else 100))
         # the plain RDF versions read masks on the host: a loop, no graph
-        plain_ms = (time_loop(torch, s["plain"], reps=3) if rdf
-                    else time_graph(torch, s["plain"], reps=20))
+        plain_ms = (timing.time_loop(s["plain"], reps=3) if rdf
+                    else timing.time_graph(s["plain"], reps=20))
         lib_ms = (None if s["library"] is None
-                  else time_graph(torch, s["library"], reps=100))
+                  else timing.time_graph(s["library"], reps=100))
         b_ms, b_by = bound_ms(s["bytes"], s["ops"])
         rec = records[name]
         kernels_json.append({
@@ -1030,7 +1075,14 @@ def main():
             "launches_sampling": rec["launches_sampling"],
             "max_abs_err": rec["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
-        line(f"time {name}: kernel {ms * 1e3:.2f} us  plain "
+        cold_text = ""
+        if warm_cold:
+            cold = warm_cold["cold_ms"]
+            kernels_json[-1].update(cold_ms=cold,
+                                    cold_share_of_bound=b_ms / cold)
+            cold_text = (f" warm, {cold * 1e3:.2f} us cold ("
+                         f"{b_ms / cold:.1%} of the bound)")
+        line(f"time {name}: kernel {ms * 1e3:.2f} us{cold_text}  plain "
              f"{plain_ms * 1e3:.2f} us  library "
              f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}  "
              f"bound {b_ms * 1e3:.3f} us ({b_by}; {s['bytes']} B, "
@@ -1048,17 +1100,17 @@ def main():
     csr_plain = gather.table_index_csr_plain
     csr_b_ms, csr_b_by = bound_ms(4 * (2 * n_edges + n + 1), 0)
     csr = {
-        "ms": time_graph(torch, lambda: csr_kernel(idx_m, n), reps=20),
-        "grid_ms": time_graph(torch, lambda: csr_kernel(idx_m, n, False),
-                              reps=20),
-        "plain_ms": time_graph(torch, lambda: csr_plain(idx_m, n), reps=20),
-        "with_scatter_ms": time_graph(
-            torch, lambda: scatter_with(csr_kernel), reps=20),
-        "plain_with_scatter_ms": time_graph(
-            torch, lambda: scatter_with(csr_plain), reps=20),
-        "eager_ms": time_loop(torch, lambda: csr_kernel(idx_m, n), reps=50),
-        "plain_eager_ms": time_loop(torch, lambda: csr_plain(idx_m, n),
-                                    reps=50),
+        "ms": timing.time_graph(lambda: csr_kernel(idx_m, n), reps=20),
+        "grid_ms": timing.time_graph(lambda: csr_kernel(idx_m, n, False),
+                                     reps=20),
+        "plain_ms": timing.time_graph(lambda: csr_plain(idx_m, n), reps=20),
+        "with_scatter_ms": timing.time_graph(
+            lambda: scatter_with(csr_kernel), reps=20),
+        "plain_with_scatter_ms": timing.time_graph(
+            lambda: scatter_with(csr_plain), reps=20),
+        "eager_ms": timing.time_loop(lambda: csr_kernel(idx_m, n), reps=50),
+        "plain_eager_ms": timing.time_loop(lambda: csr_plain(idx_m, n),
+                                           reps=50),
         "bound_ms": csr_b_ms, "bound_by": csr_b_by,
         "launches_sampling": records["table_index_csr"]["launches_sampling"],
         "launches_per_train_step":

@@ -8,10 +8,22 @@
 //
 // The TPU kernels build a one-hot tile in VMEM and contract it on the MXU
 // (with a bf16 hi/lo split for ~f32 accuracy).  On Hopper the gather is a
-// plain indexed load: every kernel here is exact f32, memory-bound, and
-// reads the edge tensor once with neighbouring threads on neighbouring
-// features (coalesced 128-byte rows).  The (N, F) node table is small
-// (256 KB at N=512, F=128) and stays in L2 across the K re-reads.
+// plain indexed load: every kernel here is exact f32 and memory-bound.
+// The (N, F) node table is small (256 KB at N=512, F=128) and stays in L2
+// across the K re-reads; what has to move is the (E, F) edge tensor, read
+// once at its real edges (K1, K2b) or written at every slot (K2a).
+//
+// Their bound is bytes, but they reach it only with enough loads in
+// flight: ~15-20 KB an SM (Little's law at ~0.7 us), which a thread a
+// feature walking the K slots as a dependent chain (index, branch, one
+// 4-byte load) is far from.  So both move rows as
+// 16-byte vectors (float4 a lane; a scalar instantiation of the same
+// kernel takes F % 4 != 0 or an unaligned pointer) and issue a batch of
+// independent row loads before they use any: K1 spreads each output row's
+// slots over up to 16 warps, each loading 4 slots' index, then their
+// values and w rows, then doing the FMAs, and sums the warps' partials in
+// warp order; K2a gives each warp 8 edge rows, whose indices one load and
+// a shuffle bring, loads them all, then stores them.
 //
 // Index convention (shared with the Python plain versions): an index
 // outside [0, n_values) is the padding sentinel -- it gathers a zero row
@@ -44,43 +56,149 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
+
 namespace {
 
-constexpr int kRowsPerBlock = 2;
+// ---- K1 and K2a ------------------------------------------------------------
+// A row of F floats moves as T = float4 (16 bytes a lane) when F % 4 == 0
+// and every row pointer is 16-byte aligned, else as T = float: the same
+// kernels, instantiated twice.  fv is the row length in T.
 
-__global__ void gather_mul_reduce_kernel(
-    const float* __restrict__ values, const float* __restrict__ w,
-    const int* __restrict__ idx, float* __restrict__ out,
-    int n_values, int n_out, int k, int f) {
-  const int i = blockIdx.x * blockDim.y + threadIdx.y;
-  if (i >= n_out) return;
-  const long long e0 = static_cast<long long>(i) * k;
-  for (int c = threadIdx.x; c < f; c += blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < k; ++s) {
-      const int j = __ldg(idx + e0 + s);
-      if (static_cast<unsigned>(j) < static_cast<unsigned>(n_values)) {
-        acc = fmaf(__ldg(values + static_cast<long long>(j) * f + c),
-                   __ldg(w + (e0 + s) * f + c), acc);
+__device__ __forceinline__ float4 load(const float4* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float4 zero<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.f; }
+
+__device__ __forceinline__ void fma_into(float4& acc, float4 a, float4 b) {
+  acc.x = fmaf(a.x, b.x, acc.x);
+  acc.y = fmaf(a.y, b.y, acc.y);
+  acc.z = fmaf(a.z, b.z, acc.z);
+  acc.w = fmaf(a.w, b.w, acc.w);
+}
+__device__ __forceinline__ void fma_into(float& acc, float a, float b) {
+  acc = fmaf(a, b, acc);
+}
+__device__ __forceinline__ void add_into(float4& acc, float4 a) {
+  acc.x += a.x;
+  acc.y += a.y;
+  acc.z += a.z;
+  acc.w += a.w;
+}
+__device__ __forceinline__ void add_into(float& acc, float a) { acc += a; }
+
+__device__ __forceinline__ bool real_row(int j, int n) {
+  return static_cast<unsigned>(j) < static_cast<unsigned>(n);
+}
+
+constexpr int kSlotsPerWarp = 4;   // K1: slots a warp loads before an FMA
+constexpr int kMaxRowWarps = 16;   // K1: warps on one output row
+
+// K1.  Block i owns output row i; its warp q takes the slots q, q + W,
+// q + 2W, ... of the row (W = blockDim.y), kSlotsPerWarp at a time: the
+// indices of the batch first, then every real slot's values and w rows,
+// then the FMAs, so a warp has 4 rows of w (2 KB at F = 128) in flight,
+// not one.  Striding the slots over the warps balances the water table,
+// whose real neighbours come first in each row.  The warps' partials are
+// summed in warp order through shared memory: a fixed order, no atomics.
+template <typename T>
+__global__ void __launch_bounds__(32 * kMaxRowWarps) gather_mul_reduce_kernel(
+    const T* __restrict__ values, const T* __restrict__ w,
+    const int* __restrict__ idx, T* __restrict__ out, int n_values, int k,
+    int fv) {
+  __shared__ T part[kMaxRowWarps][32];
+  const int lane = threadIdx.x;
+  const int q = threadIdx.y;
+  const int n_warps = blockDim.y;
+  const long long e0 = static_cast<long long>(blockIdx.x) * k;
+  for (int c0 = 0; c0 < fv; c0 += 32) {   // one pass at F = 128
+    const int c = c0 + lane;
+    const bool in_row = c < fv;
+    T acc = zero<T>();
+    for (int s0 = q; s0 < k; s0 += n_warps * kSlotsPerWarp) {
+      int j[kSlotsPerWarp];
+#pragma unroll
+      for (int u = 0; u < kSlotsPerWarp; ++u) {
+        const int s = s0 + u * n_warps;
+        j[u] = s < k ? __ldg(idx + e0 + s) : -1;
       }
+      T a[kSlotsPerWarp], b[kSlotsPerWarp];
+#pragma unroll
+      for (int u = 0; u < kSlotsPerWarp; ++u) {
+        const bool real = in_row && real_row(j[u], n_values);
+        const long long e = e0 + s0 + u * n_warps;
+        a[u] = real ? load(values + static_cast<long long>(j[u]) * fv + c)
+                    : zero<T>();
+        b[u] = real ? load(w + e * fv + c) : zero<T>();
+      }
+#pragma unroll
+      for (int u = 0; u < kSlotsPerWarp; ++u) fma_into(acc, a[u], b[u]);
     }
-    out[static_cast<long long>(i) * f + c] = acc;
+    part[q][lane] = acc;
+    __syncthreads();
+    if (q == 0 && in_row) {
+      T sum = part[0][lane];
+      for (int p = 1; p < n_warps; ++p) add_into(sum, part[p][lane]);
+      out[static_cast<long long>(blockIdx.x) * fv + c] = sum;
+    }
+    __syncthreads();
   }
 }
 
-__global__ void table_gather_kernel(
-    const float* __restrict__ values, const int* __restrict__ idx,
-    float* __restrict__ out, int n_values, int n_edges, int f) {
-  const int e = blockIdx.x * blockDim.y + threadIdx.y;
-  if (e >= n_edges) return;
-  const int j = __ldg(idx + e);
-  const bool real = static_cast<unsigned>(j) < static_cast<unsigned>(n_values);
-  float* dst = out + static_cast<long long>(e) * f;
-  const float* src = values + static_cast<long long>(real ? j : 0) * f;
-  for (int c = threadIdx.x; c < f; c += blockDim.x) {
-    dst[c] = real ? __ldg(src + c) : 0.f;
+constexpr int kGatherThreads = 256;
+constexpr int kGatherWarps = kGatherThreads / 32;
+constexpr int kGatherRowsPerWarp = 8;   // K2a: rows loaded before a store
+
+// K2a.  Each warp owns kGatherRowsPerWarp consecutive edge rows: one lane
+// a row loads the index, a shuffle hands them to every lane, then all the
+// rows' loads are issued before the first store (4 KB in flight a warp at
+// F = 128).  A sentinel row is stored as zeros without a load.
+template <typename T>
+__global__ void __launch_bounds__(kGatherThreads) table_gather_kernel(
+    const T* __restrict__ values, const int* __restrict__ idx,
+    T* __restrict__ out, int n_values, int n_edges, int fv) {
+  const int lane = threadIdx.x & 31;
+  const long long e0 = (static_cast<long long>(blockIdx.x) * kGatherWarps +
+                        (threadIdx.x >> 5)) * kGatherRowsPerWarp;
+  if (e0 >= n_edges) return;   // warp-uniform
+  const int mine = lane < kGatherRowsPerWarp && e0 + lane < n_edges
+                       ? __ldg(idx + e0 + lane)
+                       : -1;
+  int j[kGatherRowsPerWarp];
+#pragma unroll
+  for (int u = 0; u < kGatherRowsPerWarp; ++u) {
+    j[u] = __shfl_sync(0xffffffffu, mine, u);
+  }
+  for (int c = lane; c < fv; c += 32) {   // one pass at F = 128
+    T v[kGatherRowsPerWarp];
+#pragma unroll
+    for (int u = 0; u < kGatherRowsPerWarp; ++u) {
+      v[u] = real_row(j[u], n_values)
+                 ? load(values + static_cast<long long>(j[u]) * fv + c)
+                 : zero<T>();
+    }
+#pragma unroll
+    for (int u = 0; u < kGatherRowsPerWarp; ++u) {
+      if (e0 + u < n_edges) out[(e0 + u) * fv + c] = v[u];
+    }
   }
 }
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// ---- K2b -------------------------------------------------------------------
+
+constexpr int kRowsPerBlock = 2;
 
 __global__ void table_scatter_kernel(
     const float* __restrict__ g, const int* __restrict__ order,
@@ -97,6 +215,14 @@ __global__ void table_scatter_kernel(
     }
     out[static_cast<long long>(i) * f + c] = acc;
   }
+}
+
+dim3 feature_block(int f) {
+  // threads over the feature axis (a multiple of the warp, at most 128),
+  // kRowsPerBlock output rows per block
+  int tx = ((f + 31) / 32) * 32;
+  if (tx > 128) tx = 128;
+  return dim3(tx, kRowsPerBlock);
 }
 
 // ---- K2b's CSR inverse ----------------------------------------------------
@@ -289,14 +415,6 @@ __global__ void csr_sort_kernel(const int* __restrict__ rowptr, int e, int n,
   if (len > 1) block_sort(order + s, len);
 }
 
-dim3 feature_block(int f) {
-  // threads over the feature axis (a multiple of the warp, at most 128),
-  // kRowsPerBlock output rows per block
-  int tx = ((f + 31) / 32) * 32;
-  if (tx > 128) tx = 128;
-  return dim3(tx, kRowsPerBlock);
-}
-
 }  // namespace
 
 extern "C" {
@@ -309,21 +427,39 @@ int mdg_gather_mul_reduce(const float* values, const float* w, const int* idx,
                           float* out, int n_values, int n_out, int k, int f,
                           void* stream) {
   if (n_out == 0) return 0;
-  const dim3 block = feature_block(f);
-  const dim3 grid((n_out + kRowsPerBlock - 1) / kRowsPerBlock);
-  gather_mul_reduce_kernel<<<grid, block, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      values, w, idx, out, n_values, n_out, k, f);
+  if (k < 1 || f < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int warps = std::min(kMaxRowWarps,
+                             (k + kSlotsPerWarp - 1) / kSlotsPerWarp);
+  const dim3 block(32, warps);
+  if (f % 4 == 0 && aligned16(values) && aligned16(w) && aligned16(out)) {
+    gather_mul_reduce_kernel<float4><<<n_out, block, 0, s>>>(
+        reinterpret_cast<const float4*>(values),
+        reinterpret_cast<const float4*>(w), idx,
+        reinterpret_cast<float4*>(out), n_values, k, f / 4);
+  } else {
+    gather_mul_reduce_kernel<float><<<n_out, block, 0, s>>>(
+        values, w, idx, out, n_values, k, f);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 int mdg_table_gather(const float* values, const int* idx, float* out,
                      int n_values, int n_edges, int f, void* stream) {
   if (n_edges == 0) return 0;
-  const dim3 block = feature_block(f);
-  const dim3 grid((n_edges + kRowsPerBlock - 1) / kRowsPerBlock);
-  table_gather_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      values, idx, out, n_values, n_edges, f);
+  if (f < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int rows_per_block = kGatherWarps * kGatherRowsPerWarp;
+  const int grid =
+      static_cast<int>((n_edges + rows_per_block - 1LL) / rows_per_block);
+  if (f % 4 == 0 && aligned16(values) && aligned16(out)) {
+    table_gather_kernel<float4><<<grid, kGatherThreads, 0, s>>>(
+        reinterpret_cast<const float4*>(values), idx,
+        reinterpret_cast<float4*>(out), n_values, n_edges, f / 4);
+  } else {
+    table_gather_kernel<float><<<grid, kGatherThreads, 0, s>>>(
+        values, idx, out, n_values, n_edges, f);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

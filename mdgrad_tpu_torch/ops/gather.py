@@ -18,16 +18,22 @@ What bounds them on an H100: bytes.  At the 512-site water shapes the
 edge tensor has 20480 slots of 128 f32 (10.5 MB), of which ~70% are real
 edges.  K2a writes every slot; K1 and K2b read only the real edges' rows
 (~7.3 MB), plus the (512, 128) node tables: ~2.3-3.2 us at 3.35 TB/s,
-with 2 flops per edge element at most.  K2b's CSR inverse moves 4E bytes
-in and 4E + 4(n + 1) out (0.05 us) and is bound by latency: one block
-builds it as a stable counting sort in one launch (``csrc/gather.cu``).
-The TPU kernels turn the gather into a one-hot matmul for the MXU;
-here the gather is a direct indexed load in exact f32, threads over the
-feature axis so every warp reads whole 128-byte rows, and the K-sum of K1
-stays in registers so the gathered (E, F) tensor never reaches memory.
-The scatter reads a CSR inverse of the index (:class:`TableIndex`) and
-sums each output row in ascending edge order: deterministic, with no
-float atomics.
+with 2 flops per edge element at most.  They reach that bound only with
+enough loads in flight, so K1 and K2a move rows as 16-byte vectors and
+issue a batch of independent row loads before using any: K1 spreads each
+output row's K slots over up to 16 warps of one block (4 slots a warp,
+partials summed in warp order), K2a gives each warp 8 edge rows; F % 4
+!= 0 or an unaligned pointer takes a scalar instantiation of the same
+kernel.  What remains is a launch floor of ~2 us (the same kernels on one
+row) and, with the inputs in device memory rather than in the L2, the
+HBM's rate (PERF.md).  K2b's CSR inverse moves 4E bytes in and 4E +
+4(n + 1) out (0.05 us) and is bound by latency: one block builds it as a
+stable counting sort in one launch (``csrc/gather.cu``).  The TPU
+kernels turn the gather into a one-hot matmul for the MXU; here the
+gather is a direct indexed load in exact f32, and the K-sum of K1 stays
+on chip so the gathered (E, F) tensor never reaches memory.  The scatter
+reads a CSR inverse of the index (:class:`TableIndex`) and sums each
+output row in ascending edge order: deterministic, with no float atomics.
 
 Autograd is wired as the JAX ``custom_vjp``s are: the gather's backward
 is the scatter and the scatter's is the gather, and K1's backward is

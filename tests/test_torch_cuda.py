@@ -39,6 +39,32 @@ def csr_index_cases():
     return [(name, idx.astype(np.int32), n) for name, idx, n in cases]
 
 
+# K1 and K2a's special cases: F % 4 != 0 takes the scalar path and F > 128
+# a second pass over the row; K = 1, 12, 40 give K1 1, 3 and 10 warps a row
+GATHER_F = (1, 3, 40, 128, 130)
+GATHER_K = (1, 12, 40)
+GATHER_LAYOUTS = ("suffix", "interleaved", "negative", "whole_rows")
+
+
+def gather_index(rng, layout, n, n_out, k):
+    """(n_out * k,) int32 index of an atom-major (n_out, k) table over n
+    rows, its sentinels laid out as in ``layout``: each row's real entries
+    first (the water table's order, some rows all sentinel), scattered
+    (30% == n), scattered below 0 and above n, or every third row."""
+    idx = rng.integers(0, n, size=(n_out, k))
+    if layout == "suffix":
+        real = rng.integers(0, k + 1, size=n_out)
+        idx[np.arange(k) >= real[:, None]] = n
+    elif layout == "interleaved":
+        idx[rng.random(idx.shape) < 0.3] = n
+    elif layout == "negative":
+        hole = rng.random(idx.shape) < 0.3
+        idx[hole] = rng.choice([-1, -7, n + 3], size=int(hole.sum()))
+    else:
+        idx[::3] = n
+    return idx.reshape(-1).astype(np.int32)
+
+
 def lj_edge_cases():
     """[(L, axis, xyz (36, 3) float32, cell (3,), cutoff, sigma)]: 18
     pairs whose displacement along ``axis`` is +-L/2 exactly, one ulp on
@@ -99,6 +125,56 @@ def test_gather_kernels_match_plain(cuda):
         tg._launch_table_gather(v.double(), index.idx)
     with pytest.raises(ValueError):
         tg._launch_gather_mul_reduce(v, w[:-1], index.idx, k)
+
+
+@pytest.mark.parametrize("layout", GATHER_LAYOUTS)
+@pytest.mark.parametrize("k", GATHER_K)
+@pytest.mark.parametrize("f", GATHER_F)
+def test_gather_kernels_on_edge_cases(cuda, f, k, layout):
+    """K1 within 1e-5 of max(|ref|, 1) of its plain version (f32 sums of
+    at most k products in another order) and K2a bit-exact (a copy), on 29
+    output rows over 37 values (neither a multiple of a block's or a warp's
+    rows), and the same bits on a second call."""
+    rng = np.random.default_rng(10)
+    n, n_out = 37, 29
+    idx = torch.tensor(gather_index(rng, layout, n, n_out, k), device=cuda)
+    v = torch.tensor(rng.normal(size=(n, f)), dtype=torch.float32,
+                     device=cuda)
+    w = torch.tensor(rng.normal(size=(n_out * k, f)), dtype=torch.float32,
+                     device=cuda)
+    got = tg._launch_gather_mul_reduce(v, w, idx, k)
+    ref = tg.gather_mul_reduce_plain(v, w, idx, k)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-5 * max(ref.abs().max().item(), 1.0))
+    assert torch.equal(got, tg._launch_gather_mul_reduce(v, w, idx, k))
+    out = tg._launch_table_gather(v, idx)
+    assert torch.equal(out, tg.table_gather_plain(v, idx))
+    assert torch.equal(out, tg._launch_table_gather(v, idx))
+
+
+@pytest.mark.parametrize("f", [40, 128])
+def test_gather_kernels_at_an_unaligned_offset(cuda, f):
+    """Contiguous views at a 4-byte storage offset take the scalar path:
+    K1 and K2a still match their plain versions, and give the bits of the
+    16-byte path on aligned copies of the same inputs (each feature is
+    summed in the same order on both paths)."""
+    rng = np.random.default_rng(11)
+    n, n_out, k = 64, 64, 40
+    idx = torch.tensor(gather_index(rng, "suffix", n, n_out, k), device=cuda)
+    buf = torch.tensor(rng.normal(size=1 + n * f + n_out * k * f),
+                       dtype=torch.float32, device=cuda)
+    v = buf[1:1 + n * f].view(n, f)
+    w = buf[1 + n * f:].view(n_out * k, f)
+    assert v.is_contiguous() and v.data_ptr() % 16 and w.data_ptr() % 16
+    got = tg._launch_gather_mul_reduce(v, w, idx, k)
+    ref = tg.gather_mul_reduce_plain(v, w, idx, k)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-5 * max(ref.abs().max().item(), 1.0))
+    assert torch.equal(got, tg._launch_gather_mul_reduce(v.clone(),
+                                                         w.clone(), idx, k))
+    out = tg._launch_table_gather(v, idx)
+    assert torch.equal(out, tg.table_gather_plain(v, idx))
+    assert torch.equal(out, tg._launch_table_gather(v.clone(), idx))
 
 
 def test_gather_autograd_runs_the_kernels(cuda):

@@ -9,6 +9,8 @@ custom_vjps.  The kernels themselves are held to the plain versions on
 the card by tests/test_torch_cuda.py.
 """
 
+import itertools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -18,7 +20,8 @@ import torch
 from mdgrad_tpu.ops.pallas_gather import (gather_mul_reduce, table_gather,
                                           table_scatter)
 from mdgrad_tpu_torch.ops import counts, gather as tg, reset_counts
-from test_torch_cuda import csr_index_cases
+from test_torch_cuda import (GATHER_F, GATHER_K, GATHER_LAYOUTS,
+                             csr_index_cases, gather_index)
 
 N, F, K, NO = 37, 40, 12, 29
 
@@ -48,29 +51,52 @@ def _t(a, **kw):
 ATOL = 2e-4
 
 
-def test_gather_mul_reduce_matches_jax(data):
+# each (F, K) of the kernels' special cases once, the sentinel layouts in
+# turn; (128, 40) is the water shape with the water table's layout
+GATHER_CASES = [(f, k, GATHER_LAYOUTS[i % len(GATHER_LAYOUTS)])
+                for i, (f, k) in enumerate(
+                    itertools.product(GATHER_F, GATHER_K), start=1)]
+
+
+def _case(f, k, layout):
+    """Seeded inputs for a (F, K, layout) case: N values, NO output rows."""
+    rng = np.random.default_rng(7)
+    return {
+        "vals": rng.normal(size=(N, f)).astype(np.float32),
+        "idx": gather_index(rng, layout, N, NO, k),
+        "w": rng.normal(size=(NO * k, f)).astype(np.float32),
+        "g": rng.normal(size=(NO * k, f)).astype(np.float32),
+        "ct": rng.normal(size=(NO, f)).astype(np.float32),
+    }
+
+
+@pytest.mark.parametrize("f,k,layout", GATHER_CASES)
+def test_gather_mul_reduce_matches_jax(f, k, layout):
+    data = _case(f, k, layout)
     index = tg.TableIndex(_t(data["idx"]), N)
     vals = _t(data["vals"], requires_grad=True)
     w = _t(data["w"], requires_grad=True)
-    out = tg.gather_mul_reduce(vals, w, index, K)
+    out = tg.gather_mul_reduce(vals, w, index, k)
     ref = gather_mul_reduce(jnp.asarray(data["vals"]), jnp.asarray(data["w"]),
-                            jnp.asarray(data["idx"]), K, True, True)
+                            jnp.asarray(data["idx"]), k, True, True)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
                                atol=ATOL)
     plain = tg.gather_mul_reduce_plain(vals.detach(), w.detach(),
-                                       index.idx, K)
+                                       index.idx, k)
     np.testing.assert_allclose(plain.numpy(), np.asarray(ref), atol=ATOL)
 
     (out * _t(data["ct"])).sum().backward()
     gv, gw = jax.grad(lambda v, w_: (gather_mul_reduce(
-        v, w_, jnp.asarray(data["idx"]), K, True, True)
+        v, w_, jnp.asarray(data["idx"]), k, True, True)
         * data["ct"]).sum(), argnums=(0, 1))(
         jnp.asarray(data["vals"]), jnp.asarray(data["w"]))
     np.testing.assert_allclose(vals.grad.numpy(), np.asarray(gv), atol=ATOL)
     np.testing.assert_allclose(w.grad.numpy(), np.asarray(gw), atol=ATOL)
 
 
-def test_table_gather_scatter_match_jax(data):
+@pytest.mark.parametrize("f,k,layout", GATHER_CASES)
+def test_table_gather_scatter_match_jax(f, k, layout):
+    data = _case(f, k, layout)
     index = tg.TableIndex(_t(data["idx"]), N)
     idx_j = jnp.asarray(data["idx"])
     vals = _t(data["vals"], requires_grad=True)
