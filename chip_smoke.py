@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of mdgrad_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against OTHER.cu ...]
 
 Builds the port's CUDA kernels from ``mdgrad_tpu_torch/csrc`` and runs
 its phases, printing one line as each check ends:
@@ -48,6 +48,13 @@ its phases, printing one line as each check ends:
    their inputs in the L2 as on the MD path, and cold, cycling over input
    sets larger than the L2, with the cold share of the bound), MD and
    training steps/s, and the card's name and power limit.
+5b. gather a/b -- only with ``--against``: each OTHER.cu (another version
+   of ``csrc/gather.cu``) built alone into a library of its own, held
+   against the plain versions, and timed with this build's K1, K2a and
+   K2b on the same input sets, warm, cold and on one row, in turns -- the
+   others, this, this, the others in reverse (A B B A for one other) --
+   ``ROUNDS`` times; the medians and the cold share of the bound, then one
+   JSON line ``{"gather_ab": ...}`` with every reading.
 
 Launch counts are zeroed just before phases 3, 3b, 4 and 4b and read just
 after each: phases 3 and 4 must launch every water kernel, the CSR build
@@ -57,7 +64,9 @@ check raises and the script exits non-zero.  Without a CUDA device it exits
 1 and prints no result.
 """
 
+import argparse
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -69,6 +78,7 @@ TARGET = "H20_0.997_298K"     # the fit's experimental O-O RDF
 LR, GRAD_CLIP = 1.839e-4, 10.0
 LJ_KERNELS = ("lj_energy_forces", "lj_force", "lj_force_vjp",
               "lj_force_param")       # K5, K6, K6b, K7
+ROUNDS = 3                    # A B B A rounds of the gather a/b
 
 
 def line(msg):
@@ -227,46 +237,25 @@ def train_phase(mt, torch, dev, records):
             "fwd_s": fwd}
 
 
-GATHER_LAYOUTS = ("suffix", "interleaved", "negative", "whole_rows")
-
-
-def gather_index(np, rng, layout, n, n_out, k):
-    """(n_out * k,) int32 index of an atom-major (n_out, k) table over n
-    rows, its sentinels laid out as in ``layout``: each row's real entries
-    first (the water table's order, some rows all sentinel), scattered
-    (30% == n), scattered below 0 and above n, or every third row."""
-    idx = rng.integers(0, n, size=(n_out, k))
-    if layout == "suffix":
-        real = rng.integers(0, k + 1, size=n_out)
-        idx[np.arange(k) >= real[:, None]] = n
-    elif layout == "interleaved":
-        idx[rng.random(idx.shape) < 0.3] = n
-    elif layout == "negative":
-        hole = rng.random(idx.shape) < 0.3
-        idx[hole] = rng.choice([-1, -7, n + 3], size=int(hole.sum()))
-    else:
-        idx[::3] = n
-    return idx.reshape(-1).astype(np.int32)
-
-
-def gather_phase(torch, dev, gen, gather, index, k, compare, records):
+def gather_phase(torch, dev, gen, gather, time_gather, index, k, compare,
+                 records):
     """K1 and K2a against their plain versions on the cases their kernels
-    special-case: F = 1, 3, 40, 128, 130 (F % 4 != 0: the scalar path; F >
-    128: a second pass over the row), K = 1, 12, 40 (1, 3 and 10 warps a
-    row in K1), the four sentinel layouts of ``gather_index``, 29 output
-    rows over 37 values; then at the water shape through views at a 4-byte
-    storage offset (the scalar path).  K1 within 1e-5 of max(|ref|, 1)
-    (f32 sums of at most K products in another order), K2a bit-exact (a
-    copy); each gives the same bits on a second call."""
+    special-case (``time_gather``'s F = 1, 3, 40, 128, 130: F % 4 != 0 the
+    scalar path, F > 128 a second pass over the row; K = 1, 12, 40: 1, 3
+    and 10 warps a row in K1; four sentinel layouts), 29 output rows over
+    37 values; then at the water shape through views at a 4-byte storage
+    offset (the scalar path).  K1 within 1e-5 of max(|ref|, 1) (f32 sums
+    of at most K products in another order), K2a bit-exact (a copy); each
+    gives the same bits on a second call."""
     import numpy as np
     rng = np.random.default_rng(SEED + 4)
     n, n_out = 37, 29
-    for f in (1, 3, 40, 128, 130):
+    for f in time_gather.GATHER_F:
         err_k1 = 0.0
-        for k_case in (1, 12, 40):
-            for layout in GATHER_LAYOUTS:
-                idx = torch.tensor(gather_index(np, rng, layout, n, n_out,
-                                                k_case), device=dev)
+        for k_case in time_gather.GATHER_K:
+            for layout in time_gather.GATHER_LAYOUTS:
+                idx = torch.tensor(time_gather.gather_index(
+                    rng, layout, n, n_out, k_case), device=dev)
                 v = torch.randn(n, f, device=dev, generator=gen)
                 w = torch.randn(n_out * k_case, f, device=dev, generator=gen)
                 got = gather._launch_gather_mul_reduce(v, w, idx, k_case)
@@ -284,9 +273,9 @@ def gather_phase(torch, dev, gen, gather, index, k, compare, records):
                     "K1 and K2a give the same bits on a second call")
                 err_k1 = max(err_k1, err)
         line(f"kernel gather_mul_reduce, table_gather F={f}: K = 1, 12, 40 x "
-             f"{len(GATHER_LAYOUTS)} sentinel layouts: K1 max_abs_err "
-             f"{err_k1:.3e} (tol 1e-5 of max(|ref|, 1)); K2a bit-equal; the "
-             f"same bits twice")
+             f"{len(time_gather.GATHER_LAYOUTS)} sentinel layouts: K1 "
+             f"max_abs_err {err_k1:.3e} (tol 1e-5 of max(|ref|, 1)); K2a "
+             f"bit-equal; the same bits twice")
         rec = records.setdefault("gather_mul_reduce", {})
         rec["max_abs_err"] = max(err_k1, rec.get("max_abs_err", 0.0))
     n, f = index.n, 128
@@ -302,6 +291,76 @@ def gather_phase(torch, dev, gen, gather, index, k, compare, records):
         v, w, index.idx, k), 1e-5)
     compare("table_gather", gather._launch_table_gather(v, index.idx),
             gather.table_gather_plain(v, index.idx), 0.0)
+
+
+def gather_lib_errs(torch, gather, time_gather, lib, s, k):
+    """Max abs error of ``lib``'s K1, K2a and K2b on set ``s`` against
+    their plain versions: K2a bit-exact, K1 and K2b within 1e-5 of
+    max(|ref|, 1)."""
+    for fn in time_gather.kernel_calls(lib, s, k).values():
+        fn()
+    torch.cuda.synchronize()
+    n = s["values"].shape[0]
+    refs = {"gather_mul_reduce": gather.gather_mul_reduce_plain(
+                s["values"], s["w"], s["idx"], k),
+            "table_gather": gather.table_gather_plain(s["values"], s["idx"]),
+            "table_scatter": gather.table_scatter_plain(s["g"], s["idx"], n)}
+    errs = {}
+    for name, ref in refs.items():
+        err, _, scale = max_errs(s[name], ref)
+        tol = 0.0 if name == "table_gather" else 1e-5 * max(scale, 1.0)
+        require(err <= tol, f"{name} of the library under test agrees with "
+                            f"its plain version ({err:.3e} > {tol:.3e})")
+        errs[name] = err
+    return errs
+
+
+def gather_ab(torch, _build, gather, time_gather, sources, sets, k, bounds,
+              smi):
+    """Phase 5b (see the module docstring): K1, K2a and K2b of each other
+    ``gather.cu`` in ``sources`` against this build's, in one process on
+    the same input sets; ``bounds`` {kernel: bound ms}."""
+    libs = {f"other{i}": _build.library((src,))
+            for i, src in enumerate(sources)}
+    libs["this"] = _build.library()
+    names = dict(zip(libs, [*sources, "csrc/gather.cu"]))
+    for tag, lib in libs.items():
+        errs = gather_lib_errs(torch, gather, time_gather, lib, sets[0], k)
+        line(f"gather a/b: {tag} ({names[tag]}) max_abs_err " + "  ".join(
+            f"{name} {err:.3e}" for name, err in errs.items()))
+    order = list(libs)
+    turns = (order + order[::-1]) * ROUNDS
+    runs = {tag: [] for tag in libs}
+    for i, tag in enumerate(turns):
+        r = time_gather.warm_cold(libs[tag], sets, k)
+        runs[tag].append(r)
+        line(f"gather a/b turn {i} {tag}: " + "  ".join(
+            f"{name} warm {r[name]['ms'] * 1e3:.2f} us cold "
+            f"{r[name]['cold_ms'] * 1e3:.2f} us"
+            for name in time_gather.KERNELS) + "  launch floor " + "  ".join(
+            f"{name} {t * 1e3:.2f} us"
+            for name, t in r["launch_floor"].items()))
+    median = {}
+    for tag, rs in runs.items():
+        median[tag] = {"launch_floor": {
+            name: statistics.median(r["launch_floor"][name] for r in rs)
+            for name in rs[0]["launch_floor"]}}
+        for name in time_gather.KERNELS:
+            warm = statistics.median(r[name]["ms"] for r in rs)
+            cold = statistics.median(r[name]["cold_ms"] for r in rs)
+            median[tag][name] = {"ms": warm, "cold_ms": cold,
+                                 "cold_share_of_bound": bounds[name] / cold}
+            line(f"gather a/b median {tag} {name}: warm {warm * 1e3:.2f} us"
+                 f"  cold {cold * 1e3:.2f} us  bound "
+                 f"{bounds[name] * 1e3:.3f} us (bytes)  cold share of bound "
+                 f"{bounds[name] / cold:.1%}")
+        line(f"gather a/b median {tag} launch floor (one row): " + "  ".join(
+            f"{name} {t * 1e3:.2f} us"
+            for name, t in median[tag]["launch_floor"].items()))
+    line(json.dumps({"gather_ab": {
+        "sources": names,
+        "rounds": ROUNDS, "sets": len(sets), "bound_ms": bounds,
+        "median": median, "runs": runs, "card": smi}}))
 
 
 def csr_cases(np, index):
@@ -752,6 +811,12 @@ def lj_times(mt, torch, dev, gen):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--against", action="append", default=[],
+                        metavar="OTHER.cu",
+                        help="time K1, K2a and K2b against this other "
+                             "version of csrc/gather.cu (may be repeated)")
+    args = parser.parse_args()
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -772,7 +837,8 @@ def main():
     _build.library()
     build_wall = time.perf_counter() - t0
     if _build.build_seconds is not None:
-        log = (_build.BUILD_DIR / "build.log").read_text().splitlines()
+        log = _build.library_path().with_suffix(".log").read_text()
+        log = log.splitlines()
         for ln in log:
             if "Function properties" in ln or "registers" in ln \
                     or "spill" in ln or "Compiling entry" in ln:
@@ -825,7 +891,8 @@ def main():
         gather._launch_gather_mul_reduce(values, w, index.idx, k),
         gather._launch_gather_mul_reduce(values, w, index.idx, k)),
         "K1 gives the same bits on every call (the replay needs it)")
-    gather_phase(torch, dev, gen, gather, index, k, compare, records)
+    gather_phase(torch, dev, gen, gather, time_gather, index, k, compare,
+                 records)
     csr_phase(torch, dev, gather, index, g_edges)
 
     obs = mt.observables.rdf(system, nbins=109, r_range=(1.8, 7.5),
@@ -1002,9 +1069,8 @@ def main():
     ct_t = torch.randn(n_bins, device=dev, generator=gen)
     # K1, K2a and K2b warm (one input set, resident in the L2 as on the MD
     # path) and cold (cycling over sets that together exceed the L2)
-    gather_times = time_gather.warm_cold(
-        _build.library(), time_gather.make_sets(index, k, time_gather.N_SETS,
-                                                gen), k)
+    gather_sets = time_gather.make_sets(index, k, time_gather.N_SETS, gen, f)
+    gather_times = time_gather.warm_cold(_build.library(), gather_sets, k)
     gather_bytes = time_gather.bound_bytes(n, f, n_edges, e_real)
     specs = {
         "gather_mul_reduce": dict(
@@ -1173,6 +1239,10 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    if args.against:
+        gather_ab(torch, _build, gather, time_gather, args.against,
+                  gather_sets, k, {name: bound_ms(b, 0)[0]
+                                   for name, b in gather_bytes.items()}, smi)
     line(f"total: {time.perf_counter() - t_start:.3f} s")
     line(f"nvidia-smi: {smi}")
     line(json.dumps({"kernels": kernels_json}))

@@ -67,26 +67,29 @@ def _sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def library_path():
+def library_path(sources=None):
+    """Where the library of ``sources`` (every ``csrc/*.cu`` by default)
+    lives: its name hashes the flags and each source's name and bytes."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in map(pathlib.Path, sources or _sources()):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libmdgrad_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def build(path):
-    """Compile every source into ``path``: one nvcc process per source, run
-    in parallel, then one link.  The compilers' output (``-Xptxas -v``:
-    registers, shared memory, spills per kernel) goes to ``build.log``
-    beside it."""
+def build(path, sources=None):
+    """Compile ``sources`` (every ``csrc/*.cu`` by default) into ``path``:
+    one nvcc process per source, run in parallel, then one link.  The
+    compilers' output (``-Xptxas -v``: registers, shared memory, spills
+    per kernel) goes to a ``.log`` of the same name beside it."""
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = list(map(pathlib.Path, sources or _sources()))
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     nvcc = _nvcc()
-    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-            for src, obj in zip(_sources(), objs)]
+            for src, obj in zip(sources, objs)]
     t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -102,7 +105,7 @@ def build(path):
     for obj in objs:
         obj.unlink(missing_ok=True)
     log = "".join(" ".join(cmd) + "\n" + out for cmd, out, _ in outputs)
-    (BUILD_DIR / "build.log").write_text(log)
+    path.with_suffix(".log").write_text(log)
     failed = [(cmd, out, code) for cmd, out, code in outputs if code != 0]
     if failed:
         tmp.unlink(missing_ok=True)
@@ -112,13 +115,18 @@ def build(path):
 
 
 @functools.cache
-def library():
-    """The loaded kernel library, built first if its sources changed."""
-    path = library_path()
+def library(sources=None):
+    """The loaded kernel library, built first if its sources changed;
+    ``sources``, a tuple of ``.cu`` paths, builds and loads another (to
+    time a kernel against another version of its source), with the entry
+    points that it defines."""
+    path = library_path(sources)
     if not path.exists():
-        build(path)
+        build(path, sources)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
+        if sources and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

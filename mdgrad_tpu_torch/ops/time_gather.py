@@ -1,66 +1,45 @@
-"""Time K1, K2a and K2b at the water shape, warm and cold, and compare
-them with another version of ``csrc/gather.cu`` in the same process.
+"""Inputs and timers of the gather kernels K1, K2a and K2b.
 
-    python -m mdgrad_tpu_torch.ops.time_gather [--against OTHER.cu ...]
-        [--rounds 2]
-
-The inputs are the main path's: the (512, 40) SchNet neighbor table of the
-512-site water box (perturbed by 0.05 A from a seed, ~30% sentinel
-slots), F = 128, seeded features.  Every kernel is called through the C
-entry points directly, on ``N_SETS`` sets of its own inputs and outputs.
-The warm reading replays one set (the inputs stay in the L2, as on the
-MD path); the cold one cycles through all the sets, more bytes than the
-50 MB L2 holds (:mod:`.timing`).
-
-Each ``--against`` source is built alone into a shared library of its own
-(under ``_build/``), each library's results are held against the plain
-versions, and the libraries are timed in turns -- the others, this, this,
-the others in reverse (A B B A for one other) -- ``--rounds`` times.  A
-third reading, the launch floor, times K1 and K2a on the first output row
-alone.  The last line is one JSON object with every reading, the bounds,
-and the card's name and power limit.  Needs a card and nvcc.
+The edge cases the kernels special-case (:func:`gather_index` over
+``GATHER_F`` x ``GATHER_K`` x ``GATHER_LAYOUTS``), held against the plain
+versions by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``; the bytes
+each kernel must move (:func:`bound_bytes`); and warm and cold device
+times (:func:`warm_cold`) on ``N_SETS`` sets of inputs and outputs at the
+index's shape, every kernel called through its C entry point.  The warm
+reading replays one set (the inputs stay in the L2, as on the MD path);
+the cold one cycles through all the sets, more bytes than the 50 MB L2
+holds (:mod:`.timing`).
 """
-
-import argparse
-import ctypes
-import hashlib
-import json
-import pathlib
-import statistics
-import subprocess
 
 import numpy as np
 import torch
 
-from . import _build, gather, timing
+from . import _build, timing
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-F = 128
-N_SETS = 12    # x ~8-11 MB a set: more than the 50 MB L2
-SEED = 0
+N_SETS = 12    # x ~8-11 MB a set at the water shape: more than the L2
 KERNELS = ("gather_mul_reduce", "table_gather", "table_scatter")
-_ENTRY_POINTS = ("mdg_gather_mul_reduce", "mdg_table_gather",
-                 "mdg_table_scatter")
+GATHER_F = (1, 3, 40, 128, 130)   # F % 4 != 0: scalar; F > 128: two passes
+GATHER_K = (1, 12, 40)            # 1, 3 and 10 warps a row in K1
+GATHER_LAYOUTS = ("suffix", "interleaved", "negative", "whole_rows")
 
 
-def water_index(dev):
-    """(TableIndex, K) of the water main path's table: 512 O sites on the
-    diamond lattice at 0.99749 g/cm^3, perturbed by 0.05 A, cutoff 6 A."""
-    import mdgrad_tpu_torch as mt
-    from mdgrad_tpu_torch.data.registry import get_unit_len
-    system = mt.System.from_lattice(
-        "diamond", 4, get_unit_len(0.99749, 18.01528, 8), symbol="O")
-    n = system.get_number_of_atoms()
-    gnn = mt.GNNPotentials(system, mt.SchNet({
-        "n_atom_basis": F, "n_filters": F, "n_gaussians": 40,
-        "n_convolutions": 2, "cutoff": 6.0}, seed=SEED), cutoff=6.0,
-        capacity_slack=1.25, device=dev)
-    rng = np.random.default_rng(SEED)
-    xyz = torch.tensor(system.positions + 0.05 * rng.standard_normal((n, 3)),
-                       dtype=torch.float32, device=dev)
-    table = gnn.aux_init(xyz)
-    idx = torch.where(table.mask, table.table, n).reshape(-1)
-    return gather.TableIndex(idx, n), gnn.k_max
+def gather_index(rng, layout, n, n_out, k):
+    """(n_out * k,) int32 index of an atom-major (n_out, k) table over n
+    rows, its sentinels laid out as in ``layout``: each row's real entries
+    first (the water table's order, some rows all sentinel), scattered
+    (30% == n), scattered below 0 and above n, or every third row."""
+    idx = rng.integers(0, n, size=(n_out, k))
+    if layout == "suffix":
+        real = rng.integers(0, k + 1, size=n_out)
+        idx[np.arange(k) >= real[:, None]] = n
+    elif layout == "interleaved":
+        idx[rng.random(idx.shape) < 0.3] = n
+    elif layout == "negative":
+        hole = rng.random(idx.shape) < 0.3
+        idx[hole] = rng.choice([-1, -7, n + 3], size=int(hole.sum()))
+    else:
+        idx[::3] = n
+    return idx.reshape(-1).astype(np.int32)
 
 
 def bound_bytes(n, f, n_edges, n_real):
@@ -74,7 +53,7 @@ def bound_bytes(n, f, n_edges, n_real):
     }
 
 
-def make_sets(index, k, n_sets, gen, f=F):
+def make_sets(index, k, n_sets, gen, f):
     """``n_sets`` independent input and output sets at the index's shape:
     values (n, f), w and g (E, f), the index and its CSR, and the three
     outputs."""
@@ -124,28 +103,6 @@ def kernel_calls(lib, s, k):
     return dict(zip(KERNELS, (k1, k2a, k2b)))
 
 
-def check(lib, s, k):
-    """Max abs error of each kernel on set ``s`` against its plain version:
-    K2a must be bit-exact, K1 and K2b within 1e-5 of max(|ref|, 1)."""
-    for fn in kernel_calls(lib, s, k).values():
-        fn()
-    torch.cuda.synchronize()
-    n = s["values"].shape[0]
-    refs = {"gather_mul_reduce": gather.gather_mul_reduce_plain(
-                s["values"], s["w"], s["idx"], k),
-            "table_gather": gather.table_gather_plain(s["values"], s["idx"]),
-            "table_scatter": gather.table_scatter_plain(s["g"], s["idx"], n)}
-    errs = {}
-    for name, ref in refs.items():
-        err = (s[name].double() - ref.double()).abs().max().item()
-        tol = 0.0 if name == "table_gather" else 1e-5 * max(
-            ref.abs().max().item(), 1.0)
-        if not err <= tol:
-            raise RuntimeError(f"{name}: max_abs_err {err:.3e} > {tol:.3e}")
-        errs[name] = err
-    return errs
-
-
 def warm_cold(lib, sets, k):
     """{kernel: {"ms": warm, "cold_ms": cold}} on the card, and under
     "launch_floor" the warm time of K1 and K2a on the first output row
@@ -158,89 +115,3 @@ def warm_cold(lib, sets, k):
     out["launch_floor"] = {name: timing.time_graph(one_row[name])
                            for name in KERNELS[:2]}
     return out
-
-
-def load_other(src):
-    """Build the single source ``src`` into its own shared library (named
-    by its hash, under ``_build/``) and load its gather entry points."""
-    src = pathlib.Path(src).resolve()
-    digest = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode()
-                            + src.read_bytes()).hexdigest()[:16]
-    path = _build.BUILD_DIR / f"other_gather_{digest}.so"
-    if not path.exists():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                        str(path), str(src)], check=True,
-                       capture_output=True)
-    lib = ctypes.CDLL(str(path))
-    for name in _ENTRY_POINTS:
-        fn = getattr(lib, name)
-        fn.argtypes = list(_build.SIGNATURES[name])
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def main():
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--against", action="append", default=[],
-                        help="another csrc/gather.cu (may be repeated)")
-    parser.add_argument("--rounds", type=int, default=2)
-    args = parser.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("time_gather needs a CUDA card")
-    dev = torch.device("cuda", 0)
-    libs = {pathlib.Path(src).stem: load_other(src) for src in args.against}
-    libs["this"] = _build.library()
-    index, k = water_index(dev)
-    n, e = index.n, index.idx.shape[0]
-    n_real = int((index.idx < n).sum())
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    sets = make_sets(index, k, N_SETS, gen)
-    for tag, lib in libs.items():
-        errs = check(lib, sets[0], k)
-        print(f"check {tag}: max_abs_err " + "  ".join(
-            f"{name} {err:.3e}" for name, err in errs.items()), flush=True)
-    order = list(libs)   # each round: the others, this, this, the others
-    turns = (order + order[::-1]) * args.rounds
-    runs = {tag: [] for tag in libs}
-    for i, tag in enumerate(turns):
-        r = warm_cold(libs[tag], sets, k)
-        runs[tag].append(r)
-        print(f"turn {i} {tag}: " + "  ".join(
-            f"{name} warm {r[name]['ms'] * 1e3:.2f} us cold "
-            f"{r[name]['cold_ms'] * 1e3:.2f} us" for name in KERNELS)
-            + "  launch floor " + "  ".join(
-            f"{name} {t * 1e3:.2f} us"
-            for name, t in r["launch_floor"].items()), flush=True)
-    bounds = {name: 1e3 * b / HBM_BYTES_PER_S
-              for name, b in bound_bytes(n, F, e, n_real).items()}
-    summary = {}
-    for tag, rs in runs.items():
-        summary[tag] = {}
-        for name in KERNELS:
-            warm = statistics.median(r[name]["ms"] for r in rs)
-            cold = statistics.median(r[name]["cold_ms"] for r in rs)
-            summary[tag][name] = {"ms": warm, "cold_ms": cold,
-                                  "cold_share_of_bound": bounds[name] / cold}
-            print(f"median {tag} {name}: warm {warm * 1e3:.2f} us  cold "
-                  f"{cold * 1e3:.2f} us  bound {bounds[name] * 1e3:.3f} us "
-                  f"(bytes)  cold share of bound "
-                  f"{bounds[name] / cold:.1%}", flush=True)
-        summary[tag]["launch_floor"] = {
-            name: statistics.median(r["launch_floor"][name] for r in rs)
-            for name in KERNELS[:2]}
-        print(f"median {tag} launch floor (one row): " + "  ".join(
-            f"{name} {t * 1e3:.2f} us"
-            for name, t in summary[tag]["launch_floor"].items()), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(f"nvidia-smi: {smi}")
-    print(json.dumps({"shape": {"n": n, "e": e, "real": n_real, "k": k,
-                                "f": F, "sets": N_SETS},
-                      "bound_ms": bounds, "median": summary, "runs": runs,
-                      "card": smi}))
-
-
-if __name__ == "__main__":
-    main()

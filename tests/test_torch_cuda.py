@@ -18,6 +18,8 @@ from mdgrad_tpu_torch import ops
 from mdgrad_tpu_torch.data.registry import get_unit_len
 from mdgrad_tpu_torch.ops import gather as tg
 from mdgrad_tpu_torch.ops import rdf as trdf
+from mdgrad_tpu_torch.ops.time_gather import (GATHER_F, GATHER_K,
+                                             GATHER_LAYOUTS, gather_index)
 
 pytestmark = pytest.mark.cuda
 
@@ -37,32 +39,6 @@ def csr_index_cases():
         ("water", water, 512),
     ]
     return [(name, idx.astype(np.int32), n) for name, idx, n in cases]
-
-
-# K1 and K2a's special cases: F % 4 != 0 takes the scalar path and F > 128
-# a second pass over the row; K = 1, 12, 40 give K1 1, 3 and 10 warps a row
-GATHER_F = (1, 3, 40, 128, 130)
-GATHER_K = (1, 12, 40)
-GATHER_LAYOUTS = ("suffix", "interleaved", "negative", "whole_rows")
-
-
-def gather_index(rng, layout, n, n_out, k):
-    """(n_out * k,) int32 index of an atom-major (n_out, k) table over n
-    rows, its sentinels laid out as in ``layout``: each row's real entries
-    first (the water table's order, some rows all sentinel), scattered
-    (30% == n), scattered below 0 and above n, or every third row."""
-    idx = rng.integers(0, n, size=(n_out, k))
-    if layout == "suffix":
-        real = rng.integers(0, k + 1, size=n_out)
-        idx[np.arange(k) >= real[:, None]] = n
-    elif layout == "interleaved":
-        idx[rng.random(idx.shape) < 0.3] = n
-    elif layout == "negative":
-        hole = rng.random(idx.shape) < 0.3
-        idx[hole] = rng.choice([-1, -7, n + 3], size=int(hole.sum()))
-    else:
-        idx[::3] = n
-    return idx.reshape(-1).astype(np.int32)
 
 
 def lj_edge_cases():

@@ -20,14 +20,16 @@ import torch
 from mdgrad_tpu.ops.pallas_gather import (gather_mul_reduce, table_gather,
                                           table_scatter)
 from mdgrad_tpu_torch.ops import counts, gather as tg, reset_counts
-from test_torch_cuda import (GATHER_F, GATHER_K, GATHER_LAYOUTS,
-                             csr_index_cases, gather_index)
+from mdgrad_tpu_torch.ops.time_gather import (GATHER_F, GATHER_K,
+                                             GATHER_LAYOUTS, gather_index)
+from test_torch_cuda import csr_index_cases
 
 N, F, K, NO = 37, 40, 12, 29
 
 
-@pytest.fixture
-def data():
+def _fixture_inputs():
+    """N values, NO output rows of K slots at F = 40, the index uniform
+    over [0, N]: about 1 slot in 38 is the sentinel N."""
     rng = np.random.default_rng(0)
     return {
         "vals": rng.normal(size=(N, F)).astype(np.float32),
@@ -37,6 +39,11 @@ def data():
         "g": rng.normal(size=(NO * K, F)).astype(np.float32),
         "ct": rng.normal(size=(NO, F)).astype(np.float32),
     }
+
+
+@pytest.fixture
+def data():
+    return _fixture_inputs()
 
 
 def _t(a, **kw):
@@ -52,14 +59,18 @@ ATOL = 2e-4
 
 
 # each (F, K) of the kernels' special cases once, the sentinel layouts in
-# turn; (128, 40) is the water shape with the water table's layout
+# turn; (128, 40) is the water shape with the water table's layout; and the
+# inputs of the ``data`` fixture
 GATHER_CASES = [(f, k, GATHER_LAYOUTS[i % len(GATHER_LAYOUTS)])
                 for i, (f, k) in enumerate(
                     itertools.product(GATHER_F, GATHER_K), start=1)]
+GATHER_CASES.append((F, K, "fixture"))
 
 
 def _case(f, k, layout):
     """Seeded inputs for a (F, K, layout) case: N values, NO output rows."""
+    if layout == "fixture":
+        return _fixture_inputs()
     rng = np.random.default_rng(7)
     return {
         "vals": rng.normal(size=(N, f)).astype(np.float32),
