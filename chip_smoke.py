@@ -20,7 +20,12 @@ its phases, printing one line as each check ends:
    K7 force and parameter sums) on perturbed FCC boxes of 108, 100 (the
    bounds mask), 1372 and 4000 atoms, powers (12, 6), (9, 6) and (12, 0),
    and K6 alone at 2 and 8788 atoms and on pairs at the minimum image's
-   edges (d = +-L/2 and one ulp around it, past a box length).
+   edges (d = +-L/2 and one ulp around it, past a box length); K3/K4 and
+   K3b/K4b at 1, 3 and 50 frames of the water box, each giving the same
+   bits twice, and on ``ops/time_rdf.py``'s edge cases (N = 2-1372, F =
+   1-10, 1500 bins, unsorted centres, an unbounded bin, pairs at the
+   cutoff and the image's edges); float32 exp on the card exactly +0 from
+   each bin's reach on, the terms those kernels skip.
 3. main    -- the water SchNet NVT sampling path at full width: 512 O sites
    on a diamond lattice at 0.99749 g/cm^3, Stack{SchNet(128/128/40, 2 convs,
    cutoff 6.0, (N, K) table), ExcludedVolume prior}, Nose-Hoover chain at
@@ -43,18 +48,24 @@ its phases, printing one line as each check ends:
    backprop, with the RDF kernels held against their plain versions on
    that epoch's frames; then 3 clipped-Adam steps on (sigma, eps).
 5. times   -- each kernel, its plain version and its library yardstick with
-   CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms; K2b's CSR
+   CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms; K3/K4 at 50
+   and 3 frames of 512 sites and at 10 of 1372, K3b/K4b at the last two,
+   with bounds that count the exponentials inside the reach on these
+   frames at the SFU's rate; K2b's CSR
    build against the plain build, K2b beside each; K1, K2a and K2b warm,
    their inputs in the L2 as on the MD path, and cold, cycling over input
    sets larger than the L2, with the cold share of the bound), MD and
    training steps/s, and the card's name and power limit.
-5b. gather a/b -- only with ``--against``: each OTHER.cu (another version
-   of ``csrc/gather.cu``) built alone into a library of its own, held
-   against the plain versions, and timed with this build's K1, K2a and
-   K2b on the same input sets, warm, cold and on one row, in turns -- the
-   others, this, this, the others in reverse (A B B A for one other) --
-   ``ROUNDS`` times; the medians and the cold share of the bound, then one
-   JSON line ``{"gather_ab": ...}`` with every reading.
+5b. a/b    -- only with ``--against``: each OTHER.cu, another version of
+   ``csrc/gather.cu`` (a file named ``gather*.cu``) or of ``csrc/rdf.cu``
+   (``rdf*.cu``), built alone into a library of its own, held against the
+   plain versions, and timed with this build's kernels on the same inputs
+   in turns -- the others, this, this, the others in reverse (A B B A for
+   one other) -- ``ROUNDS`` times.  Gather: K1, K2a and K2b warm, cold and
+   on one row, the medians and the cold share of the bound, one JSON line
+   ``{"gather_ab": ...}``.  RDF: K3/K4 and K3b/K4b at phase 5's shapes, an
+   older ``rdf.cu`` called through its own C interface
+   (``ops/time_rdf.py``), one JSON line ``{"rdf_ab": ...}``.
 
 Launch counts are zeroed just before phases 3, 3b, 4 and 4b and read just
 after each: phases 3 and 4 must launch every water kernel, the CSR build
@@ -66,6 +77,7 @@ check raises and the script exits non-zero.  Without a CUDA device it exits
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -73,12 +85,25 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, f32 outside tensor cores
+# exponentials a second on the SFU: compute capability 9.0 gives 16 results
+# of ex2 a clock an SM; 132 SMs at 1.98 GHz (the boost clock)
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 SEED = 0
 TARGET = "H20_0.997_298K"     # the fit's experimental O-O RDF
 LR, GRAD_CLIP = 1.839e-4, 10.0
 LJ_KERNELS = ("lj_energy_forces", "lj_force", "lj_force_vjp",
               "lj_force_param")       # K5, K6, K6b, K7
-ROUNDS = 3                    # A B B A rounds of the gather a/b
+ROUNDS = 3                    # A B B A rounds of the a/b phases
+RDF_REPLACES = {
+    "rdf_counts": "mdgrad_tpu/ops/pallas_rdf.py:194 (counts) + :267 "
+                  "(counts.frames)",
+    "rdf_counts_bwd": "mdgrad_tpu/ops/pallas_rdf.py:200 (counts_bwd) + :273 "
+                      "(counts_frames_bwd)"}
+# the shapes each RDF kernel runs at on a path: the sampling run's 50
+# frames (K3/K4 only), a training step's 3, the LJ fit's 10 of 1372 atoms
+RDF_SHAPES = {"rdf_counts": ("50x512", "3x512", "10x1372"),
+              "rdf_counts_bwd": ("3x512", "10x1372")}
+RDF_TRAIN_SHAPE = "3x512"     # the JSON row's own numbers: once a step
 
 
 def line(msg):
@@ -90,11 +115,22 @@ def require(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def bound_ms(n_bytes, n_ops):
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / FP32_FLOPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def bound_pipe(n_bytes, n_ops, n_exp=0):
+    """(least ms, the pipe that sets it: "hbm", "fp32" or "sfu") for
+    ``n_bytes`` moved once, ``n_ops`` f32 operations and ``n_exp``
+    exponentials on the SFU."""
+    times = {"hbm": n_bytes / HBM_BYTES_PER_S,
+             "fp32": n_ops / FP32_FLOPS_PER_S,
+             "sfu": n_exp / SFU_EXP_PER_S}
+    pipe = max(times, key=times.get)
+    return 1e3 * times[pipe], pipe
+
+
+def bound_ms(n_bytes, n_ops, n_exp=0):
+    """(least ms, "bytes" or "operations"): the exponentials count as
+    operations at the SFU's rate."""
+    ms, pipe = bound_pipe(n_bytes, n_ops, n_exp)
+    return ms, "bytes" if pipe == "hbm" else "operations"
 
 
 def max_errs(got, ref):
@@ -361,6 +397,149 @@ def gather_ab(torch, _build, gather, time_gather, sources, sets, k, bounds,
         "sources": names,
         "rounds": ROUNDS, "sets": len(sets), "bound_ms": bounds,
         "median": median, "runs": runs, "card": smi}}))
+
+
+def rdf_phase(torch, dev, gen, rdf_ops, time_rdf, op, frames_test, compare):
+    """K3/K4 and K3b/K4b against their plain versions at the water path's
+    shapes (1, 3 and 50 frames of 512), the same bits on a second call,
+    then on ``time_rdf.edge_cases``; and torch's float32 exp on the card
+    exactly +0 from each bin's reach on (the terms the kernels skip)."""
+    # K3/K4: f32 sums of ~1e4-1e6 exponentials per bin in another order
+    # -> ~1e-6 relative; 1e-4 of the largest bin leaves a wide margin.
+    # K3b/K4b: f32 sums of ~1e4-1e6 terms per site in another order; held
+    # to 1e-4 of the largest |dxyz|, with a random cotangent
+    ct_bins = torch.randn(op.mu.shape[0], device=dev, generator=gen)
+    args = (op.cell_len, op.mu, op.coeff, op.cutoff)
+    for f in (1, 3, 50):
+        x = frames_test[:f].contiguous()
+        got = rdf_ops._launch(x, *args)
+        line(f"  rdf_counts F={f}:")
+        compare("rdf_counts", got, rdf_ops.rdf_counts_plain(x, *args), 1e-4)
+        require(torch.equal(got, rdf_ops._launch(x, *args)),
+                "K3/K4 give the same bits on a second call")
+        got = rdf_ops._launch_bwd(x, *args, ct_bins)
+        line(f"  rdf_counts_bwd F={f}:")
+        compare("rdf_counts_bwd", got,
+                rdf_ops.rdf_counts_bwd_plain(x, *args, ct_bins), 1e-4,
+                floor=0.0)
+        require(torch.equal(got, rdf_ops._launch_bwd(x, *args, ct_bins)),
+                "K3b/K4b give the same bits on a second call")
+    for name, xyz, cell, mu, widths, cutoff, ct in time_rdf.edge_cases():
+        case = rdf_ops.RDFCounts(cell, mu, widths, cutoff, dev)
+        x = torch.tensor(xyz, device=dev)
+        ct = torch.tensor(ct, device=dev)
+        args = (case.cell_len, case.mu, case.coeff, case.cutoff)
+        line(f"  rdf edge case {name}: F={x.shape[0]} N={x.shape[1]} "
+             f"bins={mu.shape[0]}")
+        compare("rdf_counts", rdf_ops._launch(x, *args),
+                rdf_ops.rdf_counts_plain(x, *args), 1e-4)
+        compare("rdf_counts_bwd", rdf_ops._launch_bwd(x, *args, ct),
+                rdf_ops.rdf_counts_bwd_plain(x, *args, ct), 1e-4, floor=0.0)
+    for name in time_rdf.BIN_SETS:
+        mu, widths, cutoff = time_rdf.bin_set(name)
+        coeff = rdf_ops.RDFCounts((1.0,) * 3, mu, widths, cutoff, dev).coeff
+        top = time_rdf.exp_beyond_reach(coeff).abs().max().item()
+        line(f"  exp beyond the reach ({name} bins, on the card): largest "
+             f"{top!r}")
+        require(top == 0.0, "float32 exp on the card is +0 from the reach on")
+
+
+def rdf_times(torch, rdf_ops, time_rdf, timing, gen, inputs):
+    """{kernel: {shape: numbers}}: K3/K4 and K3b/K4b at ``RDF_SHAPES``
+    (``inputs`` {shape: (xyz (F, N, 3), RDFCounts)}), device times from
+    CUDA graphs, the plain versions' from host loops (they read masks on
+    the host), and the bound from ``time_rdf.work`` on these inputs: the
+    exponentials inside the reach at the SFU's rate, the f32 operations,
+    the bytes."""
+    out = {}
+    for name, shapes in RDF_SHAPES.items():
+        bwd = name == "rdf_counts_bwd"
+        for shape in shapes:
+            x, op = inputs[shape]
+            args = (op.cell_len, op.mu, op.coeff, op.cutoff)
+            ct = torch.randn(op.mu.shape[0], device=x.device, generator=gen)
+            if bwd:
+                ms = timing.time_graph(
+                    lambda: rdf_ops._launch_bwd(x, *args, ct), reps=20)
+                plain_ms = timing.time_loop(
+                    lambda: rdf_ops.rdf_counts_bwd_plain(x, *args, ct),
+                    reps=3)
+            else:
+                ms = timing.time_graph(lambda: rdf_ops._launch(x, *args),
+                                       reps=20)
+                plain_ms = timing.time_loop(
+                    lambda: rdf_ops.rdf_counts_plain(x, *args), reps=3)
+            work = time_rdf.work(x, op, bwd)
+            b_ms, pipe = bound_pipe(work["bytes"], work["ops"], work["exps"])
+            out.setdefault(name, {})[shape] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": "bytes" if pipe == "hbm" else "operations",
+                "bound_pipe": pipe, "share_of_bound": b_ms / ms, **work}
+            line(f"time {name} {shape}: kernel {ms * 1e3:.2f} us  plain "
+                 f"{plain_ms * 1e3:.2f} us  library none  bound "
+                 f"{b_ms * 1e3:.3f} us ({pipe}; {work['exps']} exp inside "
+                 f"the reach, {work['ops']} ops, {work['bytes']} B; "
+                 f"{work['pairs_inside']} i<j pairs inside {op.cutoff}), "
+                 f"{b_ms / ms:.1%} of it")
+    return out
+
+
+def rdf_ab(torch, _build, rdf_ops, time_rdf, timing, sources, inputs, gen,
+           smi):
+    """Phase 5b for ``rdf*.cu`` sources (see the module docstring): K3/K4
+    and K3b/K4b of each other ``rdf.cu`` in ``sources`` against this
+    build's, in one process on the same inputs (``inputs`` as for
+    :func:`rdf_times`), each library through its own C interface."""
+    libs = {f"other{i}": _build.library((src,))
+            for i, src in enumerate(sources)}
+    libs["this"] = _build.library()
+    names = dict(zip(libs, [*sources, "csrc/rdf.cu"]))
+    cts = {shape: torch.randn(op.mu.shape[0], device=x.device, generator=gen)
+           for shape, (x, op) in inputs.items()}
+    calls = {tag: {shape: time_rdf.calls(lib, x, op, cts[shape])
+                   for shape, (x, op) in inputs.items()}
+             for tag, lib in libs.items()}
+    for shape, (x, op) in inputs.items():
+        args = (op.cell_len, op.mu, op.coeff, op.cutoff)
+        refs = {"rdf_counts": rdf_ops.rdf_counts_plain(x, *args),
+                "rdf_counts_bwd": rdf_ops.rdf_counts_bwd_plain(
+                    x, *args, cts[shape])}
+        for tag in libs:
+            errs = []
+            for name, (fn, out) in calls[tag][shape].items():
+                fn()
+                torch.cuda.synchronize()
+                err, _, scale = max_errs(out, refs[name])
+                require(err <= 1e-4 * scale,
+                        f"{name} of {names[tag]} agrees with its plain "
+                        f"version at {shape} ({err:.3e} > {1e-4 * scale:.3e})")
+                errs.append(f"{name} {err:.3e}")
+            line(f"rdf a/b: {tag} ({names[tag]}) {shape} max_abs_err "
+                 + "  ".join(errs))
+    order = list(libs)
+    turns = (order + order[::-1]) * ROUNDS
+    runs = {tag: [] for tag in libs}
+    for i, tag in enumerate(turns):
+        r = {name: {shape: timing.time_graph(calls[tag][shape][name][0],
+                                             reps=20)
+                    for shape in shapes}
+             for name, shapes in RDF_SHAPES.items()}
+        runs[tag].append(r)
+        line(f"rdf a/b turn {i} {tag}: " + "  ".join(
+            f"{name} {shape} {t * 1e3:.2f} us"
+            for name, by in r.items() for shape, t in by.items()))
+    median = {tag: {name: {shape: statistics.median(r[name][shape]
+                                                    for r in rs)
+                           for shape in shapes}
+                    for name, shapes in RDF_SHAPES.items()}
+              for tag, rs in runs.items()}
+    for tag, by_name in median.items():
+        line(f"rdf a/b median {tag}: " + "  ".join(
+            f"{name} {shape} {t * 1e3:.2f} us"
+            for name, by in by_name.items() for shape, t in by.items()))
+    line(json.dumps({"rdf_ab": {
+        "sources": names, "rounds": ROUNDS, "median": median, "runs": runs,
+        "card": smi}}))
 
 
 def csr_cases(np, index):
@@ -665,7 +844,7 @@ def lj_fit_phase(mt, torch, dev, gen, compare, records):
             rdf_ops.rdf_counts_bwd_plain(x, op.cell_len, op.mu, op.coeff,
                                          op.cutoff, ct_bins), 1e-4,
             floor=0.0)
-    del x, frames
+    del x
     line(f"lj fit: N={system.get_number_of_atoms()}, loss {loss_k:.6f} (dense {loss_d:.6f}); "
          f"d/d(sigma, eps): kernels {g_k.tolist()}  dense {g_d.tolist()}  "
          f"direct {g_x.tolist()}")
@@ -730,11 +909,12 @@ def lj_fit_phase(mt, torch, dev, gen, compare, records):
                 f"(got {c})")
     require(sum(counts["plain_calls"].values()) == 0,
             "no plain version in the LJ fit")
-    for name in LJ_KERNELS:
+    for name in (*LJ_KERNELS, *RDF_REPLACES):
         records.setdefault(name, {})["launches_lj_fit"] = \
             counts["launches"][name]
     return {"steps_per_s": steps_per_s, "peak": peak, "wall": wall,
-            "epoch_peak": peak - resident}
+            "epoch_peak": peak - resident,
+            "rdf_frames": frames.contiguous(), "rdf_op": op}
 
 
 def lj_times(mt, torch, dev, gen):
@@ -814,9 +994,20 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--against", action="append", default=[],
                         metavar="OTHER.cu",
-                        help="time K1, K2a and K2b against this other "
-                             "version of csrc/gather.cu (may be repeated)")
+                        help="time the kernels of this other version of "
+                             "csrc/gather.cu (a file named gather*.cu: K1, "
+                             "K2a, K2b) or csrc/rdf.cu (rdf*.cu: K3/K4, "
+                             "K3b/K4b) against this build's (may be "
+                             "repeated)")
     args = parser.parse_args()
+    against = {"gather": [], "rdf": []}
+    for src in args.against:
+        kind = next((k for k in against
+                     if os.path.basename(src).startswith(k)), None)
+        if kind is None:
+            parser.error(f"--against {src}: the file name must start with "
+                         f"'gather' or 'rdf'")
+        against[kind].append(src)
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -827,7 +1018,7 @@ def main():
     import mdgrad_tpu_torch as mt
     from mdgrad_tpu_torch import ops, units
     from mdgrad_tpu_torch.ops import (_build, gather, rdf as rdf_ops,
-                                      time_gather, timing)
+                                      time_gather, time_rdf, timing)
     dev = torch.device("cuda", 0)
     line(f"device: {torch.cuda.get_device_name(0)}  torch {torch.__version__}"
          f"  cuda {torch.version.cuda}")
@@ -900,26 +1091,7 @@ def main():
     op = obs._counts
     frames_test = xyz0 + 0.1 * torch.randn((50, n, 3), device=dev,
                                            generator=gen)
-    # K3/K4: f32 sums of ~1e4-1e6 exponentials per bin in another order
-    # -> ~1e-6 relative; 1e-4 of the largest bin leaves a wide margin
-    for label, x in (("F=1", frames_test[:1]), ("F=50", frames_test)):
-        got = rdf_ops._launch(x.contiguous(), op.cell_len, op.mu, op.coeff,
-                              op.cutoff)
-        ref = rdf_ops.rdf_counts_plain(x, op.cell_len, op.mu, op.coeff,
-                                       op.cutoff)
-        line(f"  rdf_counts {label}:")
-        compare("rdf_counts", got, ref, 1e-4)
-    # K3b/K4b: f32 sums of ~1e4-1e6 terms per site in another order; held
-    # to 1e-4 of the largest |dxyz|, with a random cotangent
-    ct_bins = torch.randn(op.mu.shape[0], device=dev, generator=gen)
-    for label, x in (("F=1", frames_test[:1]), ("F=3", frames_test[:3]),
-                     ("F=50", frames_test)):
-        got = rdf_ops._launch_bwd(x.contiguous(), op.cell_len, op.mu,
-                                  op.coeff, op.cutoff, ct_bins)
-        ref = rdf_ops.rdf_counts_bwd_plain(x, op.cell_len, op.mu, op.coeff,
-                                           op.cutoff, ct_bins)
-        line(f"  rdf_counts_bwd {label}:")
-        compare("rdf_counts_bwd", got, ref, 1e-4, floor=0.0)
+    rdf_phase(torch, dev, gen, rdf_ops, time_rdf, op, frames_test, compare)
 
     # the SchNet force through the kernels vs the plain gather path, same
     # seeded weights: f32 through two convolutions in another order
@@ -1046,27 +1218,6 @@ def main():
     pad_values = torch.cat([values, values.new_zeros(1, f)])
     key = index.key()
     zero_table = torch.zeros(n + 1, f, device=dev)
-    xyz_f = frames.contiguous()
-    n_frames = xyz_f.shape[0]
-    cut_sq = torch.tensor(op.cutoff, dtype=torch.float32) ** 2
-    iu = torch.triu_indices(n, n, 1, device=dev)
-    L = torch.tensor(op.cell_len, device=dev)
-
-    def pairs_inside(xs):
-        """i < j pairs inside the RDF cutoff, summed over the frames."""
-        total = 0
-        for x in xs:
-            d = x[iu[1]] - x[iu[0]]
-            d = d - torch.round(d / L) * L
-            total += int(((d * d).sum(-1) < cut_sq.to(dev)).sum())
-        return total
-
-    pairs_in = pairs_inside(xyz_f)
-    n_bins = op.mu.shape[0]
-    # the backward at the training shapes: 3 frames of the trajectory
-    xyz_t = xyz_f[-3:].contiguous()
-    pairs_in_t = pairs_inside(xyz_t)
-    ct_t = torch.randn(n_bins, device=dev, generator=gen)
     # K1, K2a and K2b warm (one input set, resident in the L2 as on the MD
     # path) and cold (cycling over sets that together exceed the L2)
     gather_sets = time_gather.make_sets(index, k, time_gather.N_SETS, gen, f)
@@ -1092,44 +1243,12 @@ def main():
             plain=lambda: gather.table_scatter_plain(g_edges, index.idx, n),
             library=lambda: zero_table.index_add_(0, key, g_edges),
             bytes=gather_bytes["table_scatter"], ops=e_real * f),
-        "rdf_counts": dict(
-            source="mdgrad_tpu_torch/csrc/rdf.cu",
-            replaces="mdgrad_tpu/ops/pallas_rdf.py:194 (counts) + :267 "
-                     "(counts.frames)",
-            kernel=lambda: rdf_ops._launch(xyz_f, op.cell_len, op.mu,
-                                           op.coeff, op.cutoff),
-            plain=lambda: rdf_ops.rdf_counts_plain(
-                xyz_f, op.cell_len, op.mu, op.coeff, op.cutoff),
-            library=None,
-            bytes=4 * (n_frames * n * 3 + 2 * n_bins + n_bins),
-            # per i<j pair: 3 sub, 3 x (div, rint, fma) min image, 3 for
-            # r^2; per (pair inside the cutoff, bin): sub, 2 mul, exp, add
-            ops=15 * n_frames * n * (n - 1) // 2 + 5 * pairs_in * n_bins),
-        "rdf_counts_bwd": dict(
-            source="mdgrad_tpu_torch/csrc/rdf.cu",
-            replaces="mdgrad_tpu/ops/pallas_rdf.py:200 (counts_bwd) + :273 "
-                     "(counts_frames_bwd)",
-            kernel=lambda: rdf_ops._launch_bwd(xyz_t, op.cell_len, op.mu,
-                                               op.coeff, op.cutoff, ct_t),
-            plain=lambda: rdf_ops.rdf_counts_bwd_plain(
-                xyz_t, op.cell_len, op.mu, op.coeff, op.cutoff, ct_t),
-            library=None,
-            bytes=4 * (2 * 3 * n * 3 + 3 * n_bins),
-            # w(r_ij) = w(r_ji): per i<j pair the 15 distance operations; per
-            # (i<j pair inside the cutoff, bin): sub, mul, mul, exp, mul,
-            # fma; per i<j pair inside: w / r and +-w/r d to both sites (the
-            # kernel does the ordered pairs, twice this)
-            ops=15 * 3 * n * (n - 1) // 2 + (6 * n_bins + 10) * pairs_in_t),
     }
     kernels_json = []
     for name, s in specs.items():
-        rdf = name.startswith("rdf_counts")
-        warm_cold = gather_times.get(name)
-        ms = (warm_cold["ms"] if warm_cold
-              else timing.time_graph(s["kernel"], reps=20 if rdf else 100))
-        # the plain RDF versions read masks on the host: a loop, no graph
-        plain_ms = (timing.time_loop(s["plain"], reps=3) if rdf
-                    else timing.time_graph(s["plain"], reps=20))
+        warm_cold = gather_times[name]
+        ms = warm_cold["ms"]
+        plain_ms = timing.time_graph(s["plain"], reps=20)
         lib_ms = (None if s["library"] is None
                   else timing.time_graph(s["library"], reps=100))
         b_ms, b_by = bound_ms(s["bytes"], s["ops"])
@@ -1141,14 +1260,10 @@ def main():
             "launches_sampling": rec["launches_sampling"],
             "max_abs_err": rec["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
-        cold_text = ""
-        if warm_cold:
-            cold = warm_cold["cold_ms"]
-            kernels_json[-1].update(cold_ms=cold,
-                                    cold_share_of_bound=b_ms / cold)
-            cold_text = (f" warm, {cold * 1e3:.2f} us cold ("
-                         f"{b_ms / cold:.1%} of the bound)")
-        line(f"time {name}: kernel {ms * 1e3:.2f} us{cold_text}  plain "
+        cold = warm_cold["cold_ms"]
+        kernels_json[-1].update(cold_ms=cold, cold_share_of_bound=b_ms / cold)
+        line(f"time {name}: kernel {ms * 1e3:.2f} us warm, {cold * 1e3:.2f} "
+             f"us cold ({b_ms / cold:.1%} of the bound)  plain "
              f"{plain_ms * 1e3:.2f} us  library "
              f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}  "
              f"bound {b_ms * 1e3:.3f} us ({b_by}; {s['bytes']} B, "
@@ -1217,10 +1332,24 @@ def main():
          f"{csr['plain_with_scatter_ms'] * 1e3:.2f} us (graph); eager loop "
          f"{csr['eager_ms'] * 1e3:.2f} us, plain "
          f"{csr['plain_eager_ms'] * 1e3:.2f} us")
-    line(f"time rdf_counts: {n_frames} frames, {pairs_in} pairs inside "
-         f"{op.cutoff} A")
-    line(f"time rdf_counts_bwd: 3 frames, {pairs_in_t} pairs inside "
-         f"{op.cutoff} A")
+    # K3/K4 and K3b/K4b at every shape a path launches them
+    rdf_inputs = {"50x512": (frames.contiguous(), op),
+                  "3x512": (frames[-3:].contiguous(), op),
+                  "10x1372": (lj_fitted["rdf_frames"], lj_fitted["rdf_op"])}
+    for name, timed in rdf_times(torch, rdf_ops, time_rdf, timing, gen,
+                                 rdf_inputs).items():
+        rec = records[name]
+        kernels_json.append({
+            "name": name, "route": "cuda",
+            "source": "mdgrad_tpu_torch/csrc/rdf.cu",
+            "replaces": RDF_REPLACES[name], "launches": rec["launches"],
+            "launches_per_train_step": rec["launches_per_train_step"],
+            "launches_sampling": rec["launches_sampling"],
+            "launches_lj_fit": rec["launches_lj_fit"],
+            "max_abs_err": rec["max_abs_err"], "shape": RDF_TRAIN_SHAPE,
+            **{key: timed[RDF_TRAIN_SHAPE][key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "bound_pipe")},
+            "library_ms": None, "by_shape": timed})
     line(f"time md: {steps_per_s:.2f} steps/s (main phase wall clock, "
          f"{n_steps} steps + rdf)")
     line(f"time train: {trained['steps_per_s']:.2f} training steps/s (3 x "
@@ -1239,10 +1368,13 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    if args.against:
-        gather_ab(torch, _build, gather, time_gather, args.against,
+    if against["gather"]:
+        gather_ab(torch, _build, gather, time_gather, against["gather"],
                   gather_sets, k, {name: bound_ms(b, 0)[0]
                                    for name, b in gather_bytes.items()}, smi)
+    if against["rdf"]:
+        rdf_ab(torch, _build, rdf_ops, time_rdf, timing, against["rdf"],
+               rdf_inputs, gen, smi)
     line(f"total: {time.perf_counter() - t_start:.3f} s")
     line(f"nvidia-smi: {smi}")
     line(json.dumps({"kernels": kernels_json}))

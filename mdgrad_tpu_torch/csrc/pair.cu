@@ -65,6 +65,8 @@
 
 #include <cuda_runtime.h>
 
+#include "image.cuh"
+
 namespace {
 
 constexpr int kPairTile = 128;
@@ -98,28 +100,8 @@ constexpr int kWarpTile = 32;                 // atoms per warp tile
 constexpr int kForceTile = 2 * kWarpTile;     // atoms per block tile
 constexpr int kForceThreads = 4 * 32;         // 2 x 2 warps, one per tile pair
 
-// The minimum image of one axis, d - rint(fl(d / L)) L, without the
-// division: fl(d / L) is monotone in d, so for |d| < t2 the shift is 1
-// from d >= t1 on, -1 from d <= -t1 on (fl(-d / L) = -fl(d / L)) and 0
-// between, where t1 is the least float with fl(t1 / L) > 0.5 (rint takes
-// 0.5 to 0) and t2 the least with fl(t2 / L) >= 1.5 (ops/pair.py
-// image_thresholds).  d - L and d + L round once, as d - 1 * L does, so
-// the bits equal the IEEE formula's.
-__device__ __forceinline__ float image_exact(float d, float L, float t1) {
-  return fabsf(d) >= t1 ? d - copysignf(L, d) : d;
-}
-
-// The IEEE formula with no contraction, as the plain version rounds it:
-// taken only for |d| >= t2 (positions more than a box apart).
-__device__ __forceinline__ float image_ieee(float d, float L) {
-  return __fsub_rn(d, __fmul_rn(rintf(__fdiv_rn(d, L)), L));
-}
-
-struct Image {
-  float lx, ly, lz;   // the cell
-  float tx, ty, tz;   // t1 per axis
-  float ux, uy, uz;   // t2 per axis
-};
+// Image, image_exact and image_ieee: the division-free minimum image
+// (image.cuh).
 
 // The steps [s0, s1) of one warp's skewed walk over a 32 x 32 tile pair,
 // lanes below `lanes` taking part.  kFar: some |d| may reach t2 (the block

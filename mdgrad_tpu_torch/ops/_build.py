@@ -36,16 +36,19 @@ SIGNATURES = {
     "mdg_table_gather": (_P, _P, _P, _I, _I, _I, _P),
     "mdg_table_scatter": (_P, _P, _P, _P, _I, _I, _P),
     "mdg_table_index_csr": (_P, _I, _I, _P, _P, _P, _I, _P),
-    "mdg_rdf_tile": (),
-    "mdg_rdf_counts": (_P, _I, _I, _F, _F, _F, _F, _P, _P, _I, _P, _P, _P),
-    "mdg_rdf_counts_bwd": (_P, _I, _I, _F, _F, _F, _F, _P, _P, _P, _I, _P,
-                           _P, _P),
+    "mdg_rdf_scratch": (_I, _I, _I, _I),
+    "mdg_rdf_counts": (_P, _I, _I, *(_F,) * 10, _P, _P, _I, _P, _P, _P),
+    "mdg_rdf_counts_bwd": (_P, _I, _I, *(_F,) * 10, _P, _P, _P, _I, _P, _P,
+                           _P),
     "mdg_pair_tile": (),
     "mdg_force_tile": (),
     # the four LJ pair kernels, picked by the first argument (csrc/pair.cu)
     "mdg_lj_pair": (_I, _P, _P, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                     _P, _P, _I, _I, _P, _P, _P, _P, _P),
 }
+
+# entry points that return another type than int
+RESTYPES = {"mdg_rdf_scratch": ctypes.c_longlong}
 
 build_seconds = None   # wall time of the last build in this process
 
@@ -69,9 +72,11 @@ def _sources():
 
 def library_path(sources=None):
     """Where the library of ``sources`` (every ``csrc/*.cu`` by default)
-    lives: its name hashes the flags and each source's name and bytes."""
+    lives: its name hashes the flags and the name and bytes of each source
+    and of every ``csrc/*.cuh`` header, so an edited header rebuilds it."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in map(pathlib.Path, sources or _sources()):
+    headers = sorted(CSRC_DIR.glob("*.cuh"))
+    for src in map(pathlib.Path, [*(sources or _sources()), *headers]):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libmdgrad_kernels_{digest.hexdigest()[:16]}.so"
@@ -88,7 +93,10 @@ def build(path, sources=None):
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
     nvcc = _nvcc()
     objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    # -I: a source outside csrc/ (another version, timed against this
+    # one) finds the headers too
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(obj),
+             str(src)]
             for src, obj in zip(sources, objs)]
     t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -129,9 +137,10 @@ def library(sources=None):
             continue
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    lib.mdg_error_string.argtypes = [ctypes.c_int]
-    lib.mdg_error_string.restype = ctypes.c_char_p
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
+    if hasattr(lib, "mdg_error_string"):   # gather.cu's
+        lib.mdg_error_string.argtypes = [ctypes.c_int]
+        lib.mdg_error_string.restype = ctypes.c_char_p
     return lib
 
 

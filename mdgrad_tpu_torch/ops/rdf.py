@@ -19,13 +19,22 @@ frame axis F >= 1:
 
 both with the diagonal-cell minimum image ``d - round(d / L) L``.
 
-What bounds them on an H100: the exponentials, one per (i < j pair inside
-the cutoff, bin) in both, since w(r_ij) = w(r_ji); bytes are negligible.
-The backward kernel spends one per ordered pair, twice its bound.  Both
-kernels compact the pairs inside the cutoff of each 64 x 64 tile before
-the bin loop, so no exponential is spent outside the cutoff, and sum
-every partial in a fixed order: no (N, N, G) tensor, no atomics,
-deterministic.
+What bounds them on an H100: the exponentials, on the SFU, and only the
+ones that are not zero.  ``exp(coeff_g (r - mu_g)^2)`` is exactly +0 in
+float32 once ``|r - mu_g| >= reach_g`` (:func:`reach`, argument -110 where
+-103.97 already gives +0), so both kernels take a (pair, bin) term only
+inside that window -- ~24 of the water path's 109 bins per pair, ~19 of
+the LJ fit's 100 -- and no bit of any sum changes.  Both walk each i < j
+pair once, with a division-free minimum image, over tiles whose sites are
+taken in a strided order so that no tile pair is much denser than
+another; bytes are negligible.  The forward sorts each 64 x 64 tile's
+pairs by r^2 (a stable counting sort by warp ballots) so that a warp of 8
+bins walks one contiguous run, and splits the bins over more blocks at
+small frame counts; the backward gives each pair of a 32 x 32 tile to one
+thread, which sums w(r) over the pair's bins (found by binary search where
+the windows ascend, every bin where not), and the block sums +-(w / r) d
+by rows and columns.  Every partial is summed in a fixed order: no (N, N,
+G) tensor, no atomics, deterministic; any number of bins.
 
 The backward is first-order only, as the JAX ``custom_vjp`` is.
 """
@@ -35,6 +44,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from .pair import image_thresholds
+
+# -coeff reach^2: exp(-110) is +0 in float32 (it is from -103.97 down);
+# csrc/rdf.cu's kReachArg
+REACH_ARG = 110.0
 
 launches = {"rdf_counts": 0, "rdf_counts_bwd": 0}
 plain_calls = {"rdf_counts": 0, "rdf_counts_bwd": 0}
@@ -85,6 +99,15 @@ def rdf_counts_bwd_plain(xyz, cell_len, mu, coeff, cutoff, ct):
     return torch.stack(out).reshape(xyz.shape)
 
 
+def reach(coeff):
+    """Each bin's reach, float32 as the kernels compute it: ``sqrt(110 /
+    -coeff)``; for ``|r - mu| >= reach``, ``exp(coeff (r - mu)^2)`` is
+    exactly +0 in float32, so the kernels skip the term.  inf (or nan)
+    where coeff is not negative: such a bin meets every pair."""
+    coeff = torch.as_tensor(coeff, dtype=torch.float32)
+    return torch.sqrt(torch.tensor(REACH_ARG, dtype=torch.float32) / -coeff)
+
+
 def _check_inputs(name, xyz, *params):
     dev = xyz.device
     for t in (xyz, *params):
@@ -99,23 +122,33 @@ def _check_inputs(name, xyz, *params):
         raise ValueError(f"{name}: bin parameters must share one (G,) shape")
 
 
+def _cell_args(cell_len):
+    """The cell lengths, then each axis's image thresholds t1 and t2."""
+    cell_len = tuple(float(c) for c in cell_len)
+    t1, t2 = zip(*map(image_thresholds, cell_len))
+    return (*cell_len, *t1, *t2)
+
+
+def _scratch(lib, name, xyz, n_bins, backward):
+    f, n, _ = xyz.shape
+    size = lib.mdg_rdf_scratch(f, n, n_bins, int(backward))
+    if size < 0:
+        raise ValueError(f"{name}: no kernel for {f} frames of {n} sites "
+                         f"and {n_bins} bins")
+    return torch.empty(size, device=xyz.device, dtype=torch.float32)
+
+
 def _launch(xyz, cell_len, mu, coeff, cutoff):
     _check_inputs("rdf_counts", xyz, mu, coeff)
-    dev = xyz.device
     f, n, _ = xyz.shape
     g = mu.shape[0]
-    if not 1 <= g <= 1024:
-        raise ValueError(f"rdf_counts: {g} bins (1..1024 supported)")
     lib = _build.library()
-    tiles = -(-n // lib.mdg_rdf_tile())
-    partial = torch.empty(g * f * tiles * tiles, device=dev,
-                          dtype=torch.float32)
-    out = torch.empty(g, device=dev, dtype=torch.float32)
-    lx, ly, lz = (float(c) for c in cell_len)
+    partial = _scratch(lib, "rdf_counts", xyz, g, False)
+    out = torch.empty(g, device=xyz.device, dtype=torch.float32)
     code = lib.mdg_rdf_counts(
-        xyz.data_ptr(), f, n, lx, ly, lz, float(cutoff), mu.data_ptr(),
-        coeff.data_ptr(), g, partial.data_ptr(), out.data_ptr(),
-        _build.stream_of(xyz))
+        xyz.data_ptr(), f, n, *_cell_args(cell_len), float(cutoff),
+        mu.data_ptr(), coeff.data_ptr(), g, partial.data_ptr(),
+        out.data_ptr(), _build.stream_of(xyz))
     _build.check(code, "rdf_counts")
     launches["rdf_counts"] += 1
     return out
@@ -124,17 +157,15 @@ def _launch(xyz, cell_len, mu, coeff, cutoff):
 def _launch_bwd(xyz, cell_len, mu, coeff, cutoff, ct):
     """(F, N, 3) gradient of ``ct . counts`` from the K3b/K4b kernel."""
     _check_inputs("rdf_counts_bwd", xyz, mu, coeff, ct)
-    dev = xyz.device
     f, n, _ = xyz.shape
+    g = mu.shape[0]
     lib = _build.library()
-    tiles = -(-n // lib.mdg_rdf_tile())
-    partial = torch.empty(f * tiles * n * 3, device=dev, dtype=torch.float32)
+    partial = _scratch(lib, "rdf_counts_bwd", xyz, g, True)
     out = torch.empty_like(xyz)
-    lx, ly, lz = (float(c) for c in cell_len)
     code = lib.mdg_rdf_counts_bwd(
-        xyz.data_ptr(), f, n, lx, ly, lz, float(cutoff), mu.data_ptr(),
-        coeff.data_ptr(), ct.data_ptr(), mu.shape[0], partial.data_ptr(),
-        out.data_ptr(), _build.stream_of(xyz))
+        xyz.data_ptr(), f, n, *_cell_args(cell_len), float(cutoff),
+        mu.data_ptr(), coeff.data_ptr(), ct.data_ptr(), g,
+        partial.data_ptr(), out.data_ptr(), _build.stream_of(xyz))
     _build.check(code, "rdf_counts_bwd")
     launches["rdf_counts_bwd"] += 1
     return out

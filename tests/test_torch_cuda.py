@@ -20,6 +20,7 @@ from mdgrad_tpu_torch.ops import gather as tg
 from mdgrad_tpu_torch.ops import rdf as trdf
 from mdgrad_tpu_torch.ops.time_gather import (GATHER_F, GATHER_K,
                                              GATHER_LAYOUTS, gather_index)
+from mdgrad_tpu_torch.ops.time_rdf import edge_cases as rdf_edge_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -226,6 +227,32 @@ def test_rdf_backward_kernel_matches_plain(cuda):
     assert counts["plain_calls"]["rdf_counts_bwd"] == 0
     torch.testing.assert_close(g, ref, rtol=0,
                                atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("case", rdf_edge_cases(), ids=lambda c: c[0])
+def test_rdf_kernels_on_edge_cases(cuda, case):
+    """K3/K4 and K3b/K4b against their plain versions on the cases their
+    design special-cases (ops/time_rdf.py: N = 2, 33, 100, 1372; F = 1, 3,
+    10; 1500 bins; unsorted centres with uneven widths; an unbounded bin;
+    pairs at the cutoff, at +-L/2 and past a box), each giving the same
+    bits on a second call.  f32 sums in another order: the forward within
+    1e-4 of max(largest bin, 1), the backward within 1e-4 of the largest
+    |dxyz|, as in chip_smoke.py."""
+    _, xyz, cell, mu, widths, cutoff, ct = case
+    op = trdf.RDFCounts(cell, mu, widths, cutoff, cuda)
+    x = torch.tensor(xyz, device=cuda)
+    ct = torch.tensor(ct, device=cuda)
+    args = (op.cell_len, op.mu, op.coeff, op.cutoff)
+    got = trdf._launch(x, *args)
+    ref = trdf.rdf_counts_plain(x, *args)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * max(
+        ref.abs().max().item(), 1.0))
+    assert torch.equal(got, trdf._launch(x, *args))
+    got = trdf._launch_bwd(x, *args, ct)
+    ref = trdf.rdf_counts_bwd_plain(x, *args, ct)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-4 * ref.abs().max().item())
+    assert torch.equal(got, trdf._launch_bwd(x, *args, ct))
 
 
 def test_force_grad_of_grad_through_kernels_matches_plain_gather(cuda):

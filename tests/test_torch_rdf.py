@@ -16,9 +16,13 @@ from mdgrad_tpu.ops.pallas_rdf import make_pallas_rdf
 from mdgrad_tpu.system import System as SystemJ
 from mdgrad_tpu_torch import observables, ops
 from mdgrad_tpu_torch.ops import rdf as trdf
+from mdgrad_tpu_torch.ops import time_rdf
 from mdgrad_tpu_torch.system import System
 
 NBINS, R_RANGE = 48, (0.75, 2.0)
+# the edge cases small enough for the Pallas kernels in interpret mode
+_JAX_EDGE_CASES = ("n2_f1", "n33_f3", "unsorted_mu", "unbounded_bin",
+                   "edges_L5.0", "edges_L11.753")
 
 
 @pytest.fixture(scope="module")
@@ -145,3 +149,66 @@ def test_counts_backward_plain_matches_autograd_f64(frames):
     scale = ref.abs().max().item()
     assert scale > 0
     torch.testing.assert_close(got, ref, atol=1e-10 * scale, rtol=0)
+
+
+@pytest.mark.parametrize("name", list(time_rdf.BIN_SETS))
+def test_reach_leaves_out_only_exact_zeros(name):
+    """The kernels skip a (pair, bin) term where |r - mu| >= reach: at the
+    water bins (109 over 1.8-7.5, cutoff 8) and the LJ fit's (100 over
+    0.75-2.5, cutoff 3), float32 exp(coeff d^2) is exactly 0 for every
+    |d| from 1e-4 below the reach on (ulp steps, then out to 4 reaches),
+    and the reach stays within 3% of where exp first reaches 0."""
+    mu, widths, cutoff = time_rdf.bin_set(name)
+    op = trdf.RDFCounts((1.0,) * 3, mu, widths, cutoff, "cpu")
+    assert torch.count_nonzero(time_rdf.exp_beyond_reach(op.coeff)) == 0
+    reach = trdf.reach(op.coeff)
+    assert bool((torch.exp(op.coeff * (0.97 * reach) ** 2) > 0).all())
+    assert bool((reach < cutoff).all())
+
+
+def test_live_terms_count_every_nonzero_term(frames):
+    """chip_smoke.py's exponential count (time_rdf.live_terms): every
+    non-zero exp term of the plain sum lies inside the reach, and the terms
+    inside it are within 10% of the non-zero ones (the reach's margin)."""
+    _, port = _ops(frames)
+    x = torch.tensor(frames)
+    pairs, terms = time_rdf.live_terms(x, port.cell_len, port.mu,
+                                       port.coeff, port.cutoff)
+    n = x.shape[1]
+    iu = torch.triu_indices(n, n, 1)
+    L = torch.tensor(port.cell_len)
+    nonzero = inside = 0
+    for xf in x:
+        d = xf[iu[1]] - xf[iu[0]]
+        d = d - torch.round(d / L) * L
+        r_sq = (d * d).sum(-1)
+        r = torch.sqrt(r_sq[r_sq < port.cutoff ** 2])
+        inside += r.shape[0]
+        nonzero += int(torch.count_nonzero(
+            torch.exp(port.coeff * (r[:, None] - port.mu) ** 2)))
+    assert pairs == inside > 0
+    assert nonzero <= terms <= 1.1 * nonzero
+
+
+@pytest.mark.parametrize("case", [c for c in time_rdf.edge_cases()
+                                  if c[0] in _JAX_EDGE_CASES],
+                         ids=lambda c: c[0])
+def test_edge_cases_match_jax(case):
+    """The port on the kernels' edge cases (ops/time_rdf.py: non-uniform
+    widths with unsorted centres, an unbounded bin, pairs at the cutoff
+    and at the image's edges, N = 2 and 33) against make_pallas_rdf in
+    interpret mode, forward and vjp, at this file's bounds."""
+    _, xyz, cell, mu, widths, cutoff, ct = case
+    jax_counts = make_pallas_rdf(np.asarray(cell), mu, widths, cutoff,
+                                 interpret=True)
+    port = trdf.RDFCounts(cell, mu, widths, cutoff, "cpu")
+    ref, vjp = jax.vjp(jax_counts.frames, jnp.asarray(xyz))
+    x = torch.tensor(xyz, requires_grad=True)
+    got = port.frames(x)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               rtol=RTOL, atol=3 * ATOL)
+    (ref_g,) = vjp(jnp.asarray(ct))
+    ref_g = np.asarray(ref_g)
+    (got_g,) = torch.autograd.grad(got, x, torch.tensor(ct))
+    np.testing.assert_allclose(got_g.numpy(), ref_g,
+                               atol=1e-4 * np.abs(ref_g).max(), rtol=0)
