@@ -24,8 +24,8 @@ its phases, printing one line as each check ends:
    K3b/K4b at 1, 3 and 50 frames of the water box, each giving the same
    bits twice, and on ``ops/time_rdf.py``'s edge cases (N = 2-1372, F =
    1-10, 1500 bins, unsorted centres, an unbounded bin, pairs at the
-   cutoff and the image's edges); float32 exp on the card exactly +0 from
-   each bin's reach on, the terms those kernels skip.
+   cutoff and the image's edges); the library's reach argument equal to
+   ``ops/rdf.py``'s.
 3. main    -- the water SchNet NVT sampling path at full width: 512 O sites
    on a diamond lattice at 0.99749 g/cm^3, Stack{SchNet(128/128/40, 2 convs,
    cutoff 6.0, (N, K) table), ExcludedVolume prior}, Nose-Hoover chain at
@@ -46,7 +46,9 @@ its phases, printing one line as each check ends:
    (1372 atoms, frequency 50, dt 0.002) and the replay adjoint, K6 and K6b
    in every step, against the dense LennardJones path and against direct
    backprop, with the RDF kernels held against their plain versions on
-   that epoch's frames; then 3 clipped-Adam steps on (sigma, eps).
+   that epoch's frames; then 3 clipped-Adam steps on (sigma, eps).  Then
+   float32 exp on the card exactly +0 from each bin's reach on (the terms
+   the RDF kernels skip) at the bins of the three paths' RDF ops.
 5. times   -- each kernel, its plain version and its library yardstick with
    CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms; K3/K4 at 50
    and 3 frames of 512 sites and at 10 of 1372, K3b/K4b at the last two,
@@ -103,7 +105,10 @@ RDF_REPLACES = {
 # frames (K3/K4 only), a training step's 3, the LJ fit's 10 of 1372 atoms
 RDF_SHAPES = {"rdf_counts": ("50x512", "3x512", "10x1372"),
               "rdf_counts_bwd": ("3x512", "10x1372")}
-RDF_TRAIN_SHAPE = "3x512"     # the JSON row's own numbers: once a step
+# the shape of each RDF row's own numbers in the JSON line (every shape is
+# under its "by_shape"): K3/K4 at the sampling run's 50 frames, K3b/K4b at
+# a training step's 3
+RDF_ROW_SHAPE = {"rdf_counts": "50x512", "rdf_counts_bwd": "3x512"}
 
 
 def line(msg):
@@ -270,7 +275,7 @@ def train_phase(mt, torch, dev, records):
     for name, c in counts["plain_calls"].items():
         require(c == 0, f"plain version of {name} not used in training")
     return {"steps_per_s": steps_per_s, "wall": wall, "peak": peak,
-            "fwd_s": fwd}
+            "fwd_s": fwd, "rdf_op": obs._counts}
 
 
 def gather_phase(torch, dev, gen, gather, time_gather, index, k, compare,
@@ -402,8 +407,14 @@ def gather_ab(torch, _build, gather, time_gather, sources, sets, k, bounds,
 def rdf_phase(torch, dev, gen, rdf_ops, time_rdf, op, frames_test, compare):
     """K3/K4 and K3b/K4b against their plain versions at the water path's
     shapes (1, 3 and 50 frames of 512), the same bits on a second call,
-    then on ``time_rdf.edge_cases``; and torch's float32 exp on the card
-    exactly +0 from each bin's reach on (the terms the kernels skip)."""
+    then on ``time_rdf.edge_cases``; and the library's reach argument is
+    ``ops/rdf.py``'s ``REACH_ARG``."""
+    from mdgrad_tpu_torch.ops import _build
+    reach_arg = _build.library().mdg_rdf_reach_arg()
+    line(f"  rdf reach argument: csrc/rdf.cu {reach_arg!r}, ops/rdf.py "
+         f"{rdf_ops.REACH_ARG!r}")
+    require(reach_arg == rdf_ops.REACH_ARG,
+            "csrc/rdf.cu's kReachArg is ops/rdf.py's REACH_ARG")
     # K3/K4: f32 sums of ~1e4-1e6 exponentials per bin in another order
     # -> ~1e-6 relative; 1e-4 of the largest bin leaves a wide margin.
     # K3b/K4b: f32 sums of ~1e4-1e6 terms per site in another order; held
@@ -435,12 +446,16 @@ def rdf_phase(torch, dev, gen, rdf_ops, time_rdf, op, frames_test, compare):
                 rdf_ops.rdf_counts_plain(x, *args), 1e-4)
         compare("rdf_counts_bwd", rdf_ops._launch_bwd(x, *args, ct),
                 rdf_ops.rdf_counts_bwd_plain(x, *args, ct), 1e-4, floor=0.0)
-    for name in time_rdf.BIN_SETS:
-        mu, widths, cutoff = time_rdf.bin_set(name)
-        coeff = rdf_ops.RDFCounts((1.0,) * 3, mu, widths, cutoff, dev).coeff
-        top = time_rdf.exp_beyond_reach(coeff).abs().max().item()
-        line(f"  exp beyond the reach ({name} bins, on the card): largest "
-             f"{top!r}")
+
+
+def reach_phase(time_rdf, paths):
+    """torch's float32 exp on the card exactly +0 from each bin's reach on
+    (the terms the RDF kernels skip), at the bins of the ops the paths
+    built (``paths`` {name: RDFCounts})."""
+    for name, op in paths.items():
+        top = time_rdf.exp_beyond_reach(op.coeff).abs().max().item()
+        line(f"  exp beyond the reach ({name} bins, {op.mu.shape[0]} of "
+             f"them, on the card): largest {top!r}")
         require(top == 0.0, "float32 exp on the card is +0 from the reach on")
 
 
@@ -1212,6 +1227,8 @@ def main():
 
     # ---- 4b. the LJ differentiation path ---------------------------------
     lj_fitted = lj_fit_phase(mt, torch, dev, gen, compare, records)
+    reach_phase(time_rdf, {"water": op, "water fit": trained["rdf_op"],
+                           "lj fit": lj_fitted["rdf_op"]})
 
     # ---- 5. times ---------------------------------------------------------
     e_real = n_real
@@ -1346,8 +1363,8 @@ def main():
             "launches_per_train_step": rec["launches_per_train_step"],
             "launches_sampling": rec["launches_sampling"],
             "launches_lj_fit": rec["launches_lj_fit"],
-            "max_abs_err": rec["max_abs_err"], "shape": RDF_TRAIN_SHAPE,
-            **{key: timed[RDF_TRAIN_SHAPE][key] for key in (
+            "max_abs_err": rec["max_abs_err"], "shape": RDF_ROW_SHAPE[name],
+            **{key: timed[RDF_ROW_SHAPE[name]][key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_pipe")},
             "library_ms": None, "by_shape": timed})
     line(f"time md: {steps_per_s:.2f} steps/s (main phase wall clock, "

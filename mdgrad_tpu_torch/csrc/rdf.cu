@@ -42,9 +42,12 @@
 //     mod n, stride ~0.618 n and coprime with n, so that sites close in
 //     space (close in index on a lattice or along a trajectory) are spread
 //     over all tiles and no tile pair is much denser than another: at few
-//     blocks the slowest block sets the time.  (The backward keeps the
-//     sites' own order above ~1000 blocks, where sparse tile pairs that
-//     finish early pay for dense ones);
+//     blocks the slowest block sets the time.  The backward keeps the
+//     sites' own order above kSpreadBlocks blocks: measured on an H100
+//     (PERF.md), the strided order is the faster at 3 frames of 512 (408
+//     blocks) and 5.6% the slower at 10 frames of 1372 (9460 blocks), the
+//     two shapes a path runs it at; where between them the two cross is
+//     not measured.  The forward strides at both (measured likewise);
 //   * each warp compacts the pairs of its
 //     rows that lie inside the cutoff and can meet some bin (r_lo <= r <
 //     r_hi over the bins' windows) into its own segment, in row-major
@@ -109,7 +112,8 @@ constexpr int kStreams = 32 / kGroupBins;        // pairs a warp takes at once
 constexpr int kSliceGroups = 32;                 // groups a block, at most
 constexpr int kSliceBins = kSliceGroups * kGroupBins;
 constexpr int kTargetBlocks = 2 * 132;           // two a SM of an H100
-// above this many backward blocks the tiles keep the sites' own order
+// above this many backward blocks the tiles keep the sites' own order: a
+// point between the paths' 408 and 9460 blocks (see the note at the top)
 constexpr int kSpreadBlocks = 4 * kTargetBlocks;
 constexpr int kKeys = 128;                       // cells of the r^2 grid
 constexpr int kKeyBits = 7;
@@ -837,6 +841,10 @@ bool bad_shape(int n_frames, int n, int n_bins) {
 }  // namespace
 
 extern "C" {
+
+// kReachArg, so that the ops module's reach (ops/rdf.py REACH_ARG) can be
+// held to the kernels' own.
+float mdg_rdf_reach_arg() { return kReachArg; }
 
 // float32 scratch (partial sums) one call needs: the forward's
 // (backward = 0) or the backward's (backward = 1); -1 for a bad shape.

@@ -37,6 +37,7 @@ SIGNATURES = {
     "mdg_table_scatter": (_P, _P, _P, _P, _I, _I, _P),
     "mdg_table_index_csr": (_P, _I, _I, _P, _P, _P, _I, _P),
     "mdg_rdf_scratch": (_I, _I, _I, _I),
+    "mdg_rdf_reach_arg": (),
     "mdg_rdf_counts": (_P, _I, _I, *(_F,) * 10, _P, _P, _I, _P, _P, _P),
     "mdg_rdf_counts_bwd": (_P, _I, _I, *(_F,) * 10, _P, _P, _P, _I, _P, _P,
                            _P),
@@ -48,7 +49,8 @@ SIGNATURES = {
 }
 
 # entry points that return another type than int
-RESTYPES = {"mdg_rdf_scratch": ctypes.c_longlong}
+RESTYPES = {"mdg_rdf_scratch": ctypes.c_longlong,
+            "mdg_rdf_reach_arg": ctypes.c_float}
 
 build_seconds = None   # wall time of the last build in this process
 

@@ -47,7 +47,8 @@ from . import _build
 from .pair import image_thresholds
 
 # -coeff reach^2: exp(-110) is +0 in float32 (it is from -103.97 down);
-# csrc/rdf.cu's kReachArg
+# csrc/rdf.cu's kReachArg, which the library returns from
+# mdg_rdf_reach_arg() (held equal by chip_smoke.py and the tests)
 REACH_ARG = 110.0
 
 launches = {"rdf_counts": 0, "rdf_counts_bwd": 0}

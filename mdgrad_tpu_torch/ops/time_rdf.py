@@ -30,19 +30,6 @@ PARENT_SIGNATURES = {
 }
 
 
-# the two paths' bins as observables.rdf makes them: nbins Gaussians from
-# start to end, each as wide as their spacing; the cutoff end + 0.5
-BIN_SETS = {"water": (1.8, 7.5, 109), "lj_fit": (0.75, 2.5, 100)}
-
-
-def bin_set(name):
-    """(mu, widths, cutoff) of the path ``name``'s bins, float32 numpy."""
-    from ..nn.layers import GaussianSmearing
-    start, end, nbins = BIN_SETS[name]
-    smear = GaussianSmearing(start, end, nbins)
-    return smear.offsets.numpy(), smear.widths.numpy(), end + 0.5
-
-
 def exp_beyond_reach(coeff, n=2048):
     """float32 ``exp(coeff d^2)`` on ``coeff``'s device for each bin at
     |d| from 1e-4 below its :func:`rdf.reach` up, the first 64 steps one

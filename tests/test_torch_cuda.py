@@ -229,6 +229,13 @@ def test_rdf_backward_kernel_matches_plain(cuda):
                                atol=1e-4 * ref.abs().max().item())
 
 
+def test_rdf_reach_arg_is_the_kernels(cuda):
+    """The library's kReachArg, by which K3/K4 and K3b/K4b skip terms, is
+    the REACH_ARG that ops/rdf.py's reach (and the exact-zero checks) use."""
+    from mdgrad_tpu_torch.ops import _build
+    assert _build.library().mdg_rdf_reach_arg() == trdf.REACH_ARG
+
+
 @pytest.mark.parametrize("case", rdf_edge_cases(), ids=lambda c: c[0])
 def test_rdf_kernels_on_edge_cases(cuda, case):
     """K3/K4 and K3b/K4b against their plain versions on the cases their

@@ -151,19 +151,44 @@ def test_counts_backward_plain_matches_autograd_f64(frames):
     torch.testing.assert_close(got, ref, atol=1e-10 * scale, rtol=0)
 
 
-@pytest.mark.parametrize("name", list(time_rdf.BIN_SETS))
+def _path_rdf_op(name):
+    """The RDFCounts a path builds: the water fit's observable over its
+    target's range (109 bins), the LJ fit's as the README quickstart sets
+    it (100 bins over 0.75-2.5)."""
+    system = System.from_lattice("fcc", 3, 1.679)
+    if name == "water":
+        from mdgrad_tpu_torch.train import fit_rdf
+        obs = fit_rdf.get_observer(system, "H20_0.997_298K", 109,
+                                   backend="pallas", device="cpu")[2]
+    else:
+        obs = observables.rdf(system, 100, (0.75, 2.5), backend="pallas",
+                              device="cpu")
+    return obs._counts
+
+
+@pytest.mark.parametrize("name", ["water", "lj_fit"])
 def test_reach_leaves_out_only_exact_zeros(name):
     """The kernels skip a (pair, bin) term where |r - mu| >= reach: at the
-    water bins (109 over 1.8-7.5, cutoff 8) and the LJ fit's (100 over
-    0.75-2.5, cutoff 3), float32 exp(coeff d^2) is exactly 0 for every
-    |d| from 1e-4 below the reach on (ulp steps, then out to 4 reaches),
-    and the reach stays within 3% of where exp first reaches 0."""
-    mu, widths, cutoff = time_rdf.bin_set(name)
-    op = trdf.RDFCounts((1.0,) * 3, mu, widths, cutoff, "cpu")
+    bins of the water fit's and the LJ fit's RDF ops, float32 exp(coeff
+    d^2) is exactly 0 for every |d| from 1e-4 below the reach on (ulp
+    steps, then out to 4 reaches), and the reach stays within 3% of where
+    exp first reaches 0."""
+    op = _path_rdf_op(name)
     assert torch.count_nonzero(time_rdf.exp_beyond_reach(op.coeff)) == 0
     reach = trdf.reach(op.coeff)
     assert bool((torch.exp(op.coeff * (0.97 * reach) ** 2) > 0).all())
-    assert bool((reach < cutoff).all())
+    assert bool((reach < op.cutoff).all())
+
+
+def test_reach_arg_is_the_kernels():
+    """ops/rdf.py's REACH_ARG (the reach the tests and chip_smoke.py
+    check) is the kReachArg that csrc/rdf.cu's kernels skip terms by."""
+    import pathlib
+    import re
+    src = (pathlib.Path(trdf.__file__).parent.parent / "csrc"
+           / "rdf.cu").read_text()
+    (arg,) = re.findall(r"constexpr float kReachArg = ([0-9.]+)f;", src)
+    assert float(arg) == trdf.REACH_ARG
 
 
 def test_live_terms_count_every_nonzero_term(frames):
