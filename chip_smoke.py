@@ -19,8 +19,11 @@ its phases, printing one line as each check ends:
    then the LJ pair kernels (K5 energy and forces, K6 force, K6b its vjp,
    K7 force and parameter sums) on perturbed FCC boxes of 108, 100 (the
    bounds mask), 1372 and 4000 atoms, powers (12, 6), (9, 6) and (12, 0),
-   and K6 alone at 2 and 8788 atoms and on pairs at the minimum image's
-   edges (d = +-L/2 and one ulp around it, past a box length); K3/K4 and
+   and K5, K6 and K6b (the i < j walks) at 2 and 8788 atoms, on positions
+   unwrapped by whole cells, on pairs at the minimum image's edges (d =
+   +-L/2 and one ulp around it, past a box length) and on pairs whose r^2
+   lies within an ulp of cutoff^2, each giving the same bits twice, with
+   the library's scratch sizes equal to ``ops/pair.py``'s; K3/K4 and
    K3b/K4b at 1, 3 and 50 frames of the water box, each giving the same
    bits twice, and on ``ops/time_rdf.py``'s edge cases (N = 2-1372, F =
    1-10, 1500 bins, unsorted centres, an unbounded bin, pairs at the
@@ -59,15 +62,18 @@ its phases, printing one line as each check ends:
    sets larger than the L2, with the cold share of the bound), MD and
    training steps/s, and the card's name and power limit.
 5b. a/b    -- only with ``--against``: each OTHER.cu, another version of
-   ``csrc/gather.cu`` (a file named ``gather*.cu``) or of ``csrc/rdf.cu``
-   (``rdf*.cu``), built alone into a library of its own, held against the
-   plain versions, and timed with this build's kernels on the same inputs
-   in turns -- the others, this, this, the others in reverse (A B B A for
-   one other) -- ``ROUNDS`` times.  Gather: K1, K2a and K2b warm, cold and
-   on one row, the medians and the cold share of the bound, one JSON line
-   ``{"gather_ab": ...}``.  RDF: K3/K4 and K3b/K4b at phase 5's shapes, an
-   older ``rdf.cu`` called through its own C interface
-   (``ops/time_rdf.py``), one JSON line ``{"rdf_ab": ...}``.
+   ``csrc/gather.cu`` (a file named ``gather*.cu``), ``csrc/rdf.cu``
+   (``rdf*.cu``) or ``csrc/pair.cu`` (``pair*.cu``), built alone into a
+   library of its own, held against the plain versions, and timed with
+   this build's kernels on the same inputs in turns -- the others, this,
+   this, the others in reverse (A B B A for one other) -- ``ROUNDS``
+   times.  Gather: K1, K2a and K2b warm, cold and on one row, the medians
+   and the cold share of the bound, one JSON line ``{"gather_ab": ...}``.
+   RDF: K3/K4 and K3b/K4b at phase 5's shapes, an older ``rdf.cu`` called
+   through its own C interface (``ops/time_rdf.py``), one JSON line
+   ``{"rdf_ab": ...}``.  Pair: K5, K6, K6b and K7 at N = 1372 and 4000, an
+   older ``pair.cu`` with scratch sized by its own rule
+   (``ops/time_pair.py``), one JSON line ``{"pair_ab": ...}``.
 
 Launch counts are zeroed just before phases 3, 3b, 4 and 4b and read just
 after each: phases 3 and 4 must launch every water kernel, the CSR build
@@ -648,44 +654,61 @@ def lj_pairs_inside(torch, xyz, cell, cutoff, chunk=1024):
     return total
 
 
-def lj_edge_cases(np, pair):
-    """[(L, axis, xyz (36, 3) float32, cell, cutoff, sigma)]: 18 pairs
-    whose displacement along ``axis`` is +-L/2 exactly, one ulp on each
-    side, at K6's image thresholds t1 and t2 and one ulp below each, 1.5 L
-    and 1.6 L; the pairs sit L apart along the next axis, in a cell of 40
-    L there, with the cutoff 0.6 L: a wrong image flips a pair's force."""
-    out = []
-    for L in (1.0, 11.75, 16.79, 21.827):
-        L32 = np.float32(L)
-        h = np.float32(L32 / 2)
-        t1, t2 = (np.float32(t) for t in pair.image_thresholds(L))
-        down = [np.nextafter(t, np.float32(0)) for t in (h, t1, t2)]
-        ds = [h, np.nextafter(h, np.float32(np.inf)), t1, t2, *down,
-              np.float32(1.5) * L32, np.float32(1.6) * L32]
-        ds = np.array(ds + [-d for d in ds], dtype=np.float32)
-        for axis in range(3):
-            other = (axis + 1) % 3
-            xyz = np.zeros((2 * len(ds), 3), np.float32)
-            xyz[0::2, axis] = ds
-            xyz[0::2, other] = xyz[1::2, other] = L32 * np.arange(len(ds))
-            cell = np.full(3, 40 * L)
-            cell[axis] = L
-            out.append((L, axis, xyz, tuple(cell), 0.6 * L, 0.25 * L))
-    return out
+# each LJ kernel's scalar outputs, in the order it returns them
+LJ_SCALARS = {"lj_energy_forces": ("energy",), "lj_force": (),
+              "lj_force_vjp": ("d(W.F)/dsigma", "d(W.F)/deps"),
+              "lj_force_param": ("dU/dsigma", "U/eps")}
+LJ_SCRATCH_N = (1, 2, 63, 64, 65, 100, 1372, 4000, 8788)
 
 
 def lj_kernel_phase(mt, torch, dev, gen, compare, compare_scalar):
     """K5, K6, K6b and K7 against their plain versions on the card: FCC at
     N = 108 (less than one 128 tile), 100 of them (the bounds mask), 1372
     (not a multiple of the tile) and 4000, powers (12, 6), plus (9, 6) and
-    (12, 0) at 108; a seeded cotangent W for K6b."""
+    (12, 0) at 108; then K5, K6 and K6b, the i < j walks, at N = 2 and
+    8788, on positions unwrapped by whole cells (the IEEE image, kFar),
+    on pairs at the minimum image's edges and on pairs whose r^2 lies
+    within an ulp of cutoff^2 (``ops/time_pair.py``).  A seeded cotangent
+    W for K6b; every kernel gives the same bits on a second call.  The
+    library's tiles and scratch sizes are ``ops/pair.py``'s."""
     import numpy as np
-    from mdgrad_tpu_torch.ops import _build, pair
-    require(_build.library().mdg_pair_tile() == pair.PAIR_TILE
-            and _build.library().mdg_force_tile() == pair.FORCE_TILE,
+    from mdgrad_tpu_torch.ops import _build, pair, time_pair
+    lib = _build.library()
+    require(lib.mdg_pair_tile() == pair.PAIR_TILE
+            and lib.mdg_force_tile() == pair.FORCE_TILE,
             "ops/pair.py's PAIR_TILE and FORCE_TILE are csrc/pair.cu's")
+    for mode, name in enumerate(LJ_KERNELS):
+        for n in LJ_SCRATCH_N:
+            got = tuple(lib.mdg_lj_scratch(mode, n, which) for which in (0, 1))
+            require(got == pair.lj_scratch(name, n),
+                    f"mdg_lj_scratch of {name} at N={n} is ops/pair.py's "
+                    f"lj_scratch ({got} != {pair.lj_scratch(name, n)})")
+    line(f"  lj scratch: mdg_lj_scratch equals ops/pair.py's lj_scratch for "
+         f"the four kernels at N = {LJ_SCRATCH_N}")
     sigma = torch.tensor(0.95, device=dev)
     eps = torch.tensor(1.1, device=dev)
+
+    def check(xyz, w, args, names):
+        """``names`` against their plain versions (f32 sums of ~10^2-10^4
+        pair terms per row and of ~10^4-10^5 per scalar, in another
+        order: ~1e-6 relative), each the same bits twice; the results."""
+        out = {}
+        for name in names:
+            launch, plain = pair._KERNELS[name]
+            vec = (xyz, w) if name == "lj_force_vjp" else (xyz,)
+            got = time_pair.split(name, launch(*vec, *args))
+            ref = time_pair.split(name, plain(*vec, *args))
+            again = time_pair.split(name, launch(*vec, *args))
+            compare(name, got[0], ref[0], 1e-5)
+            for label, a, b in zip(LJ_SCALARS[name], got[1], ref[1]):
+                compare_scalar(name, label, a, b, 1e-4)
+            require(all(torch.equal(a, b) for a, b in
+                        zip((got[0], *got[1]), (again[0], *again[1]))),
+                    f"{name} gives the same bits on every call (the replay "
+                    f"needs it)")
+            out[name] = got[0], ref[0]
+        return out
+
     cases = [(3, None, 12, 6), (3, 100, 12, 6), (3, None, 9, 6),
              (3, None, 12, 0), (7, None, 12, 6), (10, None, 12, 6)]
     for n_cells, n_take, rep, attr in cases:
@@ -694,49 +717,38 @@ def lj_kernel_phase(mt, torch, dev, gen, compare, compare_scalar):
         xyz = torch.tensor(system.positions, dtype=torch.float32,
                            device=dev)[:n_take].contiguous()
         w = torch.randn(xyz.shape, device=dev, generator=gen)
-        args = (cell, LJ_CUTOFF, sigma, eps, rep, attr)
         line(f"  lj kernels: N={xyz.shape[0]} powers ({rep}, {attr})")
-        # f32 sums of ~10^2-10^4 pair terms per row and of ~10^4-10^5 per
-        # scalar, in another order: ~1e-6 relative
-        e, f = pair._launch_energy_forces(xyz, *args)
-        e_ref, f_ref = pair.lj_energy_forces_plain(xyz, *args)
-        compare("lj_energy_forces", f, f_ref, 1e-5)
-        compare_scalar("lj_energy_forces", "energy", e, e_ref, 1e-4)
-        f6 = pair._launch_force(xyz, *args)
-        compare("lj_force", f6, f_ref, 1e-5)
-        require(torch.equal(f6, pair._launch_force(xyz, *args)),
-                "K6 gives the same bits on every call (the replay needs it)")
-        got = pair._launch_force_vjp(xyz, w, *args)
-        ref = pair.lj_force_vjp_plain(xyz, w, *args)
-        compare("lj_force_vjp", got[0], ref[0], 1e-5)
-        compare_scalar("lj_force_vjp", "d(W.F)/dsigma", got[1], ref[1], 1e-4)
-        compare_scalar("lj_force_vjp", "d(W.F)/deps", got[2], ref[2], 1e-4)
-        got = pair._launch_force_param(xyz, *args)
-        ref = pair.lj_force_param_plain(xyz, *args)
-        compare("lj_force_param", got[0], ref[0], 1e-5)
-        compare_scalar("lj_force_param", "dU/dsigma", got[1], ref[1], 1e-4)
-        compare_scalar("lj_force_param", "U/eps", got[2], ref[2], 1e-4)
-    # K6's i < j walk alone: N = 2 and 8788, and the minimum image's edges
-    for n_cells, n_take in ((3, 2), (13, None)):
+        check(xyz, w, (cell, LJ_CUTOFF, sigma, eps, rep, attr), LJ_KERNELS)
+    half = LJ_KERNELS[:3]   # K5, K6, K6b: the i < j walks
+    for n_cells, n_take, unwrap in ((3, 2, False), (13, None, False),
+                                    (7, None, True)):
         system = lj_system(mt, n_cells, 1.2, SEED + n_cells)
         cell = tuple(np.diag(system.cell))
-        xyz = torch.tensor(system.positions, dtype=torch.float32,
-                           device=dev)[:n_take].contiguous()
-        args = (cell, LJ_CUTOFF, sigma, eps)
-        line(f"  lj force: N={xyz.shape[0]}")
-        f6 = pair._launch_force(xyz, *args)
-        compare("lj_force", f6, pair.lj_force_plain(xyz, *args), 1e-5)
-        require(torch.equal(f6, pair._launch_force(xyz, *args)),
-                "K6 gives the same bits on every call")
-    for L, axis, xyz_np, cell, cutoff, sig in lj_edge_cases(np, pair):
+        xyz_np = system.positions.astype(np.float32)[:n_take]
+        if unwrap:
+            xyz_np = time_pair.unwrapped(xyz_np, cell, SEED)
+        xyz = torch.tensor(xyz_np, device=dev)
+        w = torch.randn(xyz.shape, device=dev, generator=gen)
+        line(f"  lj i<j walks: N={xyz.shape[0]}"
+             + (" unwrapped by -2 to 2 cells" if unwrap else ""))
+        check(xyz, w, (cell, LJ_CUTOFF, sigma, eps), half)
+    for L, axis, xyz_np, cell, cutoff, sig in time_pair.lj_edge_cases():
         xyz = torch.tensor(xyz_np, device=dev)
         args = (cell, cutoff, torch.tensor(sig, dtype=torch.float32,
                                            device=dev), eps)
-        line(f"  lj force image edges: L={L} axis {axis}")
-        f6 = pair._launch_force(xyz, *args)
-        compare("lj_force", f6, pair.lj_force_plain(xyz, *args), 1e-5)
-        require(torch.equal(f6, pair._launch_force(xyz, *args)),
-                "K6 gives the same bits on every call")
+        line(f"  lj i<j walks, image edges: L={L} axis {axis}")
+        check(xyz, time_pair.pair_image_w(xyz, cell), args, half)
+    xyz_np, cell, n_out = time_pair.cutoff_edge_case(LJ_CUTOFF)
+    xyz = torch.tensor(xyz_np, device=dev)
+    line(f"  lj i<j walks, cutoff edge: {n_out} pairs with r^2 within an "
+         f"ulp of cutoff^2 (out by the stepwise sum, in by a fused one)")
+    res = check(xyz, time_pair.pair_image_w(xyz, cell),
+                (cell, LJ_CUTOFF, sigma, eps), half)
+    for name, (got, ref) in res.items():
+        require(torch.equal(got.abs().sum(1) > 0, ref.abs().sum(1) > 0)
+                and int((ref.abs().sum(1) > 0).sum()) == 2,
+                f"{name} leaves out exactly the pairs at the cutoff edge "
+                f"that its plain version leaves out")
     try:
         pair._launch_force(xyz.double(), cell, LJ_CUTOFF, sigma.double(),
                            eps.double())
@@ -745,6 +757,76 @@ def lj_kernel_phase(mt, torch, dev, gen, compare, compare_scalar):
         raised = True
     require(raised, "a float64 tensor on the card raises TypeError")
     torch.cuda.synchronize()
+
+
+def pair_ab(mt, torch, dev, _build, sources, gen, smi):
+    """Phase 5b for ``pair*.cu`` sources (see the module docstring): K5,
+    K6, K6b and K7 of each other ``pair.cu`` in ``sources`` against this
+    build's at N = 1372 and 4000, in one process on the same inputs, each
+    library's scratch sized by its own C interface (``time_pair.calls``).
+    Against a parent whose K6 differs only in how r^2 rounds, K6 is the
+    control."""
+    import numpy as np
+    from mdgrad_tpu_torch.ops import pair, time_pair, timing
+    libs = {f"other{i}": _build.library((src,))
+            for i, src in enumerate(sources)}
+    libs["this"] = _build.library()
+    names = dict(zip(libs, [*sources, "csrc/pair.cu"]))
+    sigma = torch.tensor(0.9, device=dev)
+    eps = torch.tensor(1.0, device=dev)
+    calls = {tag: {} for tag in libs}
+    sizes = []
+    for n_cells in (7, 10):
+        system = lj_system(mt, n_cells, 1.2, SEED)
+        n = system.get_number_of_atoms()
+        sizes.append(n)
+        cell = tuple(np.diag(system.cell))
+        xyz = torch.tensor(system.positions, dtype=torch.float32, device=dev)
+        w = torch.randn(xyz.shape, device=dev, generator=gen)
+        args = (cell, LJ_CUTOFF, sigma, eps)
+        refs = {name: time_pair.split(name, pair._KERNELS[name][1](
+                    *((xyz, w) if name == "lj_force_vjp" else (xyz,)), *args))
+                for name in time_pair.AB_KERNELS}
+        for tag, lib in libs.items():
+            calls[tag][n] = time_pair.calls(lib, xyz, w, *args)
+            errs = []
+            for name, (fn, (vec, scalars)) in calls[tag][n].items():
+                fn()
+                torch.cuda.synchronize()
+                err, _, scale = max_errs(vec, refs[name][0])
+                require(err <= 1e-5 * max(scale, 1.0),
+                        f"{name} of {names[tag]} agrees with its plain "
+                        f"version at N={n} ({err:.3e})")
+                for a, b in zip(() if scalars is None else scalars,
+                                refs[name][1]):
+                    rel = abs(a.item() - b.item()) / abs(b.item())
+                    require(rel <= 1e-4, f"{name} of {names[tag]}: a scalar "
+                                         f"agrees at N={n} ({rel:.3e})")
+                errs.append(f"{name} {err:.3e}")
+            line(f"pair a/b: {tag} ({names[tag]}) N={n} max_abs_err "
+                 + "  ".join(errs))
+    order = list(libs)
+    turns = (order + order[::-1]) * ROUNDS
+    runs = {tag: [] for tag in libs}
+    for i, tag in enumerate(turns):
+        r = {name: {n: timing.time_graph(calls[tag][n][name][0], reps=20)
+                    for n in sizes}
+             for name in time_pair.AB_KERNELS}
+        runs[tag].append(r)
+        line(f"pair a/b turn {i} {tag}: " + "  ".join(
+            f"{name} N={n} {t * 1e3:.2f} us"
+            for name, by in r.items() for n, t in by.items()))
+    median = {tag: {name: {n: statistics.median(r[name][n] for r in rs)
+                           for n in sizes}
+                    for name in time_pair.AB_KERNELS}
+              for tag, rs in runs.items()}
+    for tag, by_name in median.items():
+        line(f"pair a/b median {tag}: " + "  ".join(
+            f"{name} N={n} {t * 1e3:.2f} us"
+            for name, by in by_name.items() for n, t in by.items()))
+    line(json.dumps({"pair_ab": {
+        "sources": names, "rounds": ROUNDS, "median": median, "runs": runs,
+        "card": smi}}))
 
 
 def lj_sampling_phase(mt, torch, dev, records):
@@ -1011,17 +1093,17 @@ def main():
                         metavar="OTHER.cu",
                         help="time the kernels of this other version of "
                              "csrc/gather.cu (a file named gather*.cu: K1, "
-                             "K2a, K2b) or csrc/rdf.cu (rdf*.cu: K3/K4, "
-                             "K3b/K4b) against this build's (may be "
-                             "repeated)")
+                             "K2a, K2b), csrc/rdf.cu (rdf*.cu: K3/K4, "
+                             "K3b/K4b) or csrc/pair.cu (pair*.cu: K5-K7) "
+                             "against this build's (may be repeated)")
     args = parser.parse_args()
-    against = {"gather": [], "rdf": []}
+    against = {"gather": [], "rdf": [], "pair": []}
     for src in args.against:
         kind = next((k for k in against
                      if os.path.basename(src).startswith(k)), None)
         if kind is None:
             parser.error(f"--against {src}: the file name must start with "
-                         f"'gather' or 'rdf'")
+                         f"'gather', 'rdf' or 'pair'")
         against[kind].append(src)
     t_start = time.perf_counter()
     import torch
@@ -1392,6 +1474,8 @@ def main():
     if against["rdf"]:
         rdf_ab(torch, _build, rdf_ops, time_rdf, timing, against["rdf"],
                rdf_inputs, gen, smi)
+    if against["pair"]:
+        pair_ab(mt, torch, dev, _build, against["pair"], gen, smi)
     line(f"total: {time.perf_counter() - t_start:.3f} s")
     line(f"nvidia-smi: {smi}")
     line(json.dumps({"kernels": kernels_json}))

@@ -36,11 +36,16 @@ __device__ __forceinline__ float image_any(float d, float L, float t1,
   return fabsf(d) < t2 ? image_exact(d, L, t1) : image_ieee(d, L);
 }
 
-// x_a - x_b under the minimum image, per axis, and its square summed in
-// order, ((dx dx + dy dy) + dz dz), with no contraction: a pair with r^2
-// exactly cutoff^2 stays out, as in the plain versions.  kFar: some |d|
-// may reach t2 (positions not wrapped), so each axis checks for the IEEE
-// formula; without it the compares alone, a select per axis.
+// ((dx dx + dy dy) + dz dz) with no contraction, as the plain versions
+// round it: a pair with r^2 exactly cutoff^2 stays out.
+__device__ __forceinline__ float sum_sq(float dx, float dy, float dz) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
+}
+
+// x_a - x_b under the minimum image, per axis, and its sum_sq.  kFar:
+// some |d| may reach t2 (positions not wrapped), so each axis checks for
+// the IEEE formula; without it the compares alone, a select per axis.
 template <bool kFar>
 __device__ __forceinline__ float image_r2(const Image& im, float ax, float ay,
                                           float az, float bx, float by,
@@ -55,6 +60,5 @@ __device__ __forceinline__ float image_r2(const Image& im, float ax, float ay,
     dy = image_exact(ay - by, im.ly, im.ty);
     dz = image_exact(az - bz, im.lz, im.tz);
   }
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
+  return sum_sq(dx, dy, dz);
 }

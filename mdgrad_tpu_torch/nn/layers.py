@@ -8,6 +8,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._device import resolve_device
+
 
 def shifted_softplus(x):
     """softplus(x) - log(2)."""
@@ -31,7 +33,8 @@ class GaussianSmearing:
     float32, like the JAX package's."""
 
     def __init__(self, start, stop, n_gaussians, width=None, centered=False,
-                 device="cpu"):
+                 device="cuda"):
+        device = resolve_device(device)
         offsets = np.linspace(start, stop, n_gaussians)
         if width is None:
             widths = np.full(n_gaussians, offsets[1] - offsets[0])

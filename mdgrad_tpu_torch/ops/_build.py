@@ -43,6 +43,7 @@ SIGNATURES = {
                            _P),
     "mdg_pair_tile": (),
     "mdg_force_tile": (),
+    "mdg_lj_scratch": (_I, _I, _I),
     # the four LJ pair kernels, picked by the first argument (csrc/pair.cu)
     "mdg_lj_pair": (_I, _P, _P, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                     _P, _P, _I, _I, _P, _P, _P, _P, _P),
@@ -50,6 +51,7 @@ SIGNATURES = {
 
 # entry points that return another type than int
 RESTYPES = {"mdg_rdf_scratch": ctypes.c_longlong,
+            "mdg_lj_scratch": ctypes.c_longlong,
             "mdg_rdf_reach_arg": ctypes.c_float}
 
 build_seconds = None   # wall time of the last build in this process

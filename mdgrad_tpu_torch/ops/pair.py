@@ -25,13 +25,14 @@ versions, a tensor.
 
 What bounds them on an H100: operations -- the minimum image and r^2 of
 every i < j pair, the LJ terms of those inside the cutoff; bytes are 12
-to 24 per atom.  K5, K6b and K7 tile the ordered pairs 128 x 128 and keep
-each row's sums in one thread's registers.  K6, the force of every MD
-step, walks each i < j pair once in 32 x 32 warp tiles and gives the
-pair's force to both atoms, with a minimum image that needs no division
-(:func:`image_thresholds`).  Every partial is summed in a fixed order: no
-(N, N) tensor, no float atomics, the same force bits on every call, as
-the replay needs.
+to 24 per atom.  K5, K6 and K6b walk each i < j pair once in 32 x 32 warp
+tiles and give the pair's term to the row and its negative to the
+column, with a minimum image that needs no division
+(:func:`image_thresholds`) and r^2 rounded as the plain versions round
+it.  K7 tiles the ordered pairs 128 x 128 and keeps each row's sums in
+one thread's registers.  Every partial is summed in a fixed order: no
+(N, N) tensor, no float atomics, the same bits on every call, as the
+replay needs.  The library sizes its own scratch (``mdg_lj_scratch``).
 
 A wrapper launches its kernel for CUDA tensors (float32, contiguous; any
 other dtype raises ``TypeError`` where the JAX package casts) or raises;
@@ -165,9 +166,36 @@ def _check(t, name, device, shape):
 
 # the kernels' order in mdg_lj_pair's mode argument (csrc/pair.cu)
 _MODES = ("lj_energy_forces", "lj_force", "lj_force_vjp", "lj_force_param")
-# csrc/pair.cu's tiles, which size the partial-sum scratch: kPairTile
-# (K5, K6b, K7) and kForceTile (K6)
+# each kernel's scalar outputs: E; none; d/dsigma, d/deps; dU/dsigma, U/eps
+SCALARS = {"lj_energy_forces": 1, "lj_force": 0, "lj_force_vjp": 2,
+           "lj_force_param": 2}
+# csrc/pair.cu's tiles: kPairTile (K7's ordered-pair tile) and kForceTile
+# (the block tile of the i < j walks of K5, K6 and K6b)
 PAIR_TILE, FORCE_TILE = 128, 64
+
+
+def lj_scratch(name, n):
+    """(partial, block_partial) float counts that ``csrc/pair.cu``'s
+    ``mdg_lj_scratch`` gives kernel ``name`` at ``n`` atoms: tiles * n * 3
+    and scalars * blocks, where K7 runs tiles^2 blocks of PAIR_TILE and
+    the i < j walks tiles (tiles + 1) / 2 of FORCE_TILE.  The wrappers size
+    their buffers from the library; this mirror is what the tests and
+    ``chip_smoke.py`` hold the library to."""
+    k7 = name == "lj_force_param"
+    tiles = -(-n // (PAIR_TILE if k7 else FORCE_TILE))
+    blocks = tiles * tiles if k7 else tiles * (tiles + 1) // 2
+    return tiles * n * 3, SCALARS[name] * blocks
+
+
+def _scratch(lib, name, n, device):
+    """The (partial, block_partial) buffers of kernel ``name`` at ``n``
+    atoms, sized by the library (None for an empty one)."""
+    mode = _MODES.index(name)
+    sizes = [lib.mdg_lj_scratch(mode, n, which) for which in (0, 1)]
+    if min(sizes) < 0:
+        raise ValueError(f"{name}: no kernel for {n} atoms")
+    return [torch.empty(size, device=device, dtype=torch.float32)
+            if size else None for size in sizes]
 
 
 @functools.cache
@@ -177,8 +205,9 @@ def image_thresholds(L):
     from ``d <= -t1`` on and 0 between.  t1 is the least float32 with
     fl32(t1 / L) > 0.5 (rint takes 0.5 to 0, ties to even), t2 the least
     with fl32(t2 / L) >= 1.5; the division is monotone in d, so a
-    nextafter search from 0.5 L and 1.5 L finds them.  K6 takes the
-    minimum image from these compares, bit-equal to ``d - rint(d / L) L``.
+    nextafter search from 0.5 L and 1.5 L finds them.  K5, K6 and K6b take
+    the minimum image from these compares, bit-equal to ``d - rint(d / L)
+    L``.
     """
     L = np.float32(L)
     if not (np.isfinite(L) and L > 0):
@@ -197,9 +226,9 @@ def image_thresholds(L):
 
 
 def _launch(name, xyz, cell_len, cutoff, sigma, epsilon, rep_pow, attr_pow,
-            w=None, n_scalars=0):
+            w=None):
     """Run one of the four kernels: (out_vec (N, 3), out_scalars
-    (n_scalars,))."""
+    (SCALARS[name],) or None)."""
     dev = xyz.device
     if xyz.dim() != 2:
         raise ValueError(f"{name}: xyz must be (N, 3), got "
@@ -213,16 +242,14 @@ def _launch(name, xyz, cell_len, cutoff, sigma, epsilon, rep_pow, attr_pow,
     if rep_pow < 0 or attr_pow < 0:
         raise ValueError(f"{name}: powers must be >= 0, got ({rep_pow}, "
                          f"{attr_pow})")
-    tiles = -(-n // (FORCE_TILE if name == "lj_force" else PAIR_TILE))
-    partial = torch.empty(tiles * n * 3, device=dev, dtype=torch.float32)
-    block_partial = (torch.empty(n_scalars * tiles * tiles, device=dev,
-                                 dtype=torch.float32) if n_scalars else None)
+    lib = _build.library()
+    partial, block_partial = _scratch(lib, name, n, dev)
     out = torch.empty(n, 3, device=dev, dtype=torch.float32)
-    scalars = (torch.empty(n_scalars, device=dev, dtype=torch.float32)
-               if n_scalars else None)
+    scalars = (torch.empty(SCALARS[name], device=dev, dtype=torch.float32)
+               if SCALARS[name] else None)
     cell_len = tuple(float(c) for c in cell_len)
     t1, t2 = zip(*map(image_thresholds, cell_len))
-    code = _build.library().mdg_lj_pair(
+    code = lib.mdg_lj_pair(
         _MODES.index(name), xyz.data_ptr(),
         None if w is None else w.data_ptr(), n, *cell_len, *t1, *t2,
         float(cutoff),
@@ -239,7 +266,7 @@ def _launch(name, xyz, cell_len, cutoff, sigma, epsilon, rep_pow, attr_pow,
 def _launch_energy_forces(xyz, cell_len, cutoff, sigma, epsilon, rep_pow=12,
                           attr_pow=6):
     out, scalars = _launch("lj_energy_forces", xyz, cell_len, cutoff, sigma,
-                           epsilon, rep_pow, attr_pow, n_scalars=1)
+                           epsilon, rep_pow, attr_pow)
     return scalars[0], out
 
 
@@ -252,14 +279,14 @@ def _launch_force(xyz, cell_len, cutoff, sigma, epsilon, rep_pow=12,
 def _launch_force_vjp(xyz, w, cell_len, cutoff, sigma, epsilon, rep_pow=12,
                       attr_pow=6):
     out, scalars = _launch("lj_force_vjp", xyz, cell_len, cutoff, sigma,
-                           epsilon, rep_pow, attr_pow, w=w, n_scalars=2)
+                           epsilon, rep_pow, attr_pow, w=w)
     return out, scalars[0], scalars[1]
 
 
 def _launch_force_param(xyz, cell_len, cutoff, sigma, epsilon, rep_pow=12,
                         attr_pow=6):
     out, scalars = _launch("lj_force_param", xyz, cell_len, cutoff, sigma,
-                           epsilon, rep_pow, attr_pow, n_scalars=2)
+                           epsilon, rep_pow, attr_pow)
     return out, scalars[0], scalars[1]
 
 

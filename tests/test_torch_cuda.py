@@ -20,6 +20,8 @@ from mdgrad_tpu_torch.ops import gather as tg
 from mdgrad_tpu_torch.ops import rdf as trdf
 from mdgrad_tpu_torch.ops.time_gather import (GATHER_F, GATHER_K,
                                              GATHER_LAYOUTS, gather_index)
+from mdgrad_tpu_torch.ops.time_pair import (cutoff_edge_case, lj_edge_cases,
+                                           pair_image_w, split, unwrapped)
 from mdgrad_tpu_torch.ops.time_rdf import edge_cases as rdf_edge_cases
 
 pytestmark = pytest.mark.cuda
@@ -40,35 +42,6 @@ def csr_index_cases():
         ("water", water, 512),
     ]
     return [(name, idx.astype(np.int32), n) for name, idx, n in cases]
-
-
-def lj_edge_cases():
-    """[(L, axis, xyz (36, 3) float32, cell (3,), cutoff, sigma)]: 18
-    pairs whose displacement along ``axis`` is +-L/2 exactly, one ulp on
-    each side of it, at the image thresholds t1 and t2 and one ulp below
-    each, 1.5 L and 1.6 L (positions not wrapped); the pairs sit L apart
-    along the next axis, in a cell of 40 L there, so each pair sees only
-    itself inside the cutoff 0.6 L.  A wrong image decision flips the sign
-    of the pair's force."""
-    from mdgrad_tpu_torch.ops import pair as tp
-    out = []
-    for L in (1.0, 11.75, 16.79, 21.827):
-        L32 = np.float32(L)
-        h = np.float32(L32 / 2)
-        t1, t2 = (np.float32(t) for t in tp.image_thresholds(L))
-        down = [np.nextafter(t, np.float32(0)) for t in (h, t1, t2)]
-        ds = [h, np.nextafter(h, np.float32(np.inf)), t1, t2, *down,
-              np.float32(1.5) * L32, np.float32(1.6) * L32]
-        ds = np.array(ds + [-d for d in ds], dtype=np.float32)
-        for axis in range(3):
-            other = (axis + 1) % 3
-            xyz = np.zeros((2 * len(ds), 3), np.float32)
-            xyz[0::2, axis] = ds
-            xyz[0::2, other] = xyz[1::2, other] = L32 * np.arange(len(ds))
-            cell = np.full(3, 40 * L)
-            cell[axis] = L
-            out.append((L, axis, xyz, cell, 0.6 * L, 0.25 * L))
-    return out
 
 
 @pytest.fixture
@@ -447,38 +420,90 @@ def test_table_index_builds_its_csr_on_the_card(cuda):
     assert order.is_cuda and rowptr.shape == (513,)
 
 
-@pytest.mark.parametrize("n_cells,n", [(3, 2), (3, 100), (3, 108),
-                                       (7, 1372), (10, 4000)])
-def test_lj_force_kernel_matches_plain(cuda, n_cells, n):
-    """K6's i < j walk against its plain version within 1e-5 of
-    max(|F|, 1) (f32 sums of ~100 pair terms per atom in another order),
-    and the same bits on a second call."""
+# K5, K6 and K6b: the i < j walks on one template
+HALF_WALKS = ("lj_energy_forces", "lj_force", "lj_force_vjp")
+
+
+def _check_half_walks(xyz, w, args):
+    """K5, K6 and K6b against their plain versions: vectors within 1e-5
+    of max(|ref|, 1), scalars within 1e-4 relative (f32 sums of ~100 pair
+    terms per atom in another order), the same bits on a second call.
+    {name: (vector, plain vector)}."""
+    from mdgrad_tpu_torch.ops import pair as tp
+    out = {}
+    for name in HALF_WALKS:
+        launch, plain = tp._KERNELS[name]
+        vec = (xyz, w) if name == "lj_force_vjp" else (xyz,)
+        got = split(name, launch(*vec, *args))
+        ref = split(name, plain(*vec, *args))
+        again = split(name, launch(*vec, *args))
+        torch.testing.assert_close(
+            got[0], ref[0], rtol=0,
+            atol=1e-5 * max(ref[0].abs().max().item(), 1.0), msg=name)
+        for a, b in zip(got[1], ref[1]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=0, msg=name)
+        for a, b in zip((got[0], *got[1]), (again[0], *again[1])):
+            assert torch.equal(a, b), name
+        out[name] = got[0], ref[0]
+    return out
+
+
+@pytest.mark.parametrize("n_cells,n,unwrap", [
+    (3, 2, False), (3, 100, False), (3, 108, False), (7, 1372, False),
+    (10, 4000, False), (13, 8788, False), (7, 1372, True)])
+def test_lj_force_kernel_matches_plain(cuda, n_cells, n, unwrap):
+    """K6's i < j walk, and K5 and K6b on the same template, against their
+    plain versions (``_check_half_walks``), each giving the same bits on a
+    second call; unwrapped positions (moved by -2 to 2 cells) make the
+    blocks take the IEEE image."""
     from mdgrad_tpu_torch.ops import _build, pair as tp
     assert _build.library().mdg_force_tile() == tp.FORCE_TILE
-    _, cell, xyz, _ = _lj_inputs(cuda, n_cells)
-    xyz = xyz[:n].contiguous()
-    args = (cell, 2.5, torch.tensor(0.95, device=cuda),
-            torch.tensor(1.1, device=cuda))
-    f = tp._launch_force(xyz, *args)
-    ref = tp.lj_force_plain(xyz, *args)
-    torch.testing.assert_close(f, ref, rtol=0,
-                               atol=1e-5 * max(ref.abs().max().item(), 1.0))
-    assert torch.equal(f, tp._launch_force(xyz, *args))
+    _, cell, xyz, w = _lj_inputs(cuda, n_cells)
+    xyz, w = xyz[:n].contiguous(), w[:n].contiguous()
+    if unwrap:
+        xyz = torch.tensor(unwrapped(xyz.cpu().numpy(), cell), device=cuda)
+    _check_half_walks(xyz, w, (cell, 2.5, torch.tensor(0.95, device=cuda),
+                               torch.tensor(1.1, device=cuda)))
 
 
 @pytest.mark.parametrize("case", lj_edge_cases(),
                          ids=lambda c: f"L{c[0]}-axis{c[1]}")
 def test_lj_force_kernel_on_image_edges(cuda, case):
-    """K6 takes the same image decisions as the plain version at d = +-L/2,
-    one ulp on each side, at its thresholds and past a box length."""
-    from mdgrad_tpu_torch.ops import pair as tp
+    """K6, K5 and K6b take the same image decisions as the plain versions
+    at d = +-L/2, one ulp on each side, at the thresholds and past a box
+    length."""
     _, _, xyz_np, cell, cutoff, sigma = case
     xyz = torch.tensor(xyz_np, device=cuda)
-    args = (cell, cutoff, torch.tensor(sigma, dtype=torch.float32,
-                                       device=cuda),
-            torch.tensor(1.0, device=cuda))
-    f = tp._launch_force(xyz, *args)
-    ref = tp.lj_force_plain(xyz, *args)
-    torch.testing.assert_close(f, ref, rtol=0,
-                               atol=1e-5 * max(ref.abs().max().item(), 1.0))
-    assert torch.equal(f, tp._launch_force(xyz, *args))
+    _check_half_walks(xyz, pair_image_w(xyz, cell), (
+        cell, cutoff, torch.tensor(sigma, dtype=torch.float32, device=cuda),
+        torch.tensor(1.0, device=cuda)))
+
+
+def test_lj_half_walks_at_the_cutoff_edge(cuda):
+    """Pairs whose r^2 lies within an ulp of cutoff^2, out by the plain
+    versions' stepwise sum and in by a fused one: K5, K6 and K6b leave out
+    exactly the pairs the plain versions leave out (one pair counts)."""
+    xyz_np, cell, _ = cutoff_edge_case(2.5)
+    xyz = torch.tensor(xyz_np, device=cuda)
+    res = _check_half_walks(xyz, pair_image_w(xyz, cell), (
+        cell, 2.5, torch.tensor(0.9, device=cuda),
+        torch.tensor(1.0, device=cuda)))
+    for name, (got, ref) in res.items():
+        live = ref.abs().sum(1) > 0
+        assert int(live.sum()) == 2, name
+        assert torch.equal(got.abs().sum(1) > 0, live), name
+
+
+def test_lj_scratch_is_ops_pair_mirror(cuda):
+    """The library's mdg_lj_scratch, by which the wrappers size their
+    buffers, is ops/pair.py's lj_scratch for every kernel and size, and
+    refuses a bad mode, n or buffer."""
+    from mdgrad_tpu_torch.ops import _build, pair as tp
+    lib = _build.library()
+    for mode, name in enumerate(tp._MODES):
+        for n in (1, 2, 63, 64, 65, 100, 1372, 4000, 8788):
+            assert tuple(lib.mdg_lj_scratch(mode, n, which)
+                         for which in (0, 1)) == tp.lj_scratch(name, n)
+    assert lib.mdg_lj_scratch(4, 10, 0) == -1
+    assert lib.mdg_lj_scratch(0, 0, 0) == -1
+    assert lib.mdg_lj_scratch(0, 10, 2) == -1

@@ -1,7 +1,9 @@
 """The port's LJ pair kernels' plain versions (mdgrad_tpu_torch/ops/pair.py:
 K5 energy and forces, K6 force, K6b its vjp, K7 force and parameter sums)
 against the JAX package's Pallas kernels in interpret mode and its dense
-XLA path, on the perturbed 108-atom FCC box of tests/test_pallas.py.
+XLA path, on the perturbed 108-atom FCC box of tests/test_pallas.py; and
+the i < j decomposition that the CUDA kernels of K5, K6 and K6b walk (its
+sums, its block map, its scratch sizes), which runs here with no card.
 
 float32 comparisons run the same inputs through both packages; float64
 ones run the JAX side inside ``jax.enable_x64(True)`` (never the global
@@ -10,6 +12,7 @@ flag) against its dense autodiff force.
 
 import ast
 import pathlib
+import re
 
 import numpy as np
 import jax
@@ -25,7 +28,7 @@ from mdgrad_tpu.system import System as SystemJ
 import mdgrad_tpu_torch as mt
 from mdgrad_tpu_torch import ops
 from mdgrad_tpu_torch.ops import pair
-from test_torch_cuda import lj_edge_cases
+from mdgrad_tpu_torch.ops.time_pair import lj_edge_cases
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CUTOFF = 2.4
@@ -299,3 +302,171 @@ def test_force_on_image_edges_matches_jax(case):
     assert scale > 0
     np.testing.assert_allclose(f.numpy(), f_j, rtol=2e-3,
                                atol=2e-5 * scale)
+
+
+# ---- the i < j decomposition of K5, K6 and K6b (csrc/pair.cu) -----------
+
+def _half_walk(xyz, w, cell, cutoff, sigma, eps, rep, attr):
+    """K5's and K6b's sums as the CUDA kernels take them, over i < j pairs
+    only (float64 here): each pair's term T_ij = h (W_ij . d_ij) d_ij +
+    g W_ij to the row and -T_ij to the column, d(W.F)/dsigma and
+    d(W.F)/deps as +sum (dg/dsigma, g / eps) (W_ij . d_ij), the force -g d
+    to the row and +g d to the column, u once.  (E, F, vjp, dsigma,
+    deps)."""
+    n = xyz.shape[0]
+    i, j = torch.triu_indices(n, n, 1)
+    L = torch.tensor(np.asarray(cell), dtype=xyz.dtype)
+    d = xyz[i] - xyz[j]
+    d = d - torch.round(d / L) * L
+    keep = (d * d).sum(-1) < torch.tensor(cutoff, dtype=xyz.dtype) ** 2
+    i, j, d = i[keep], j[keep], d[keep]
+    inv_r2 = 1 / (d * d).sum(-1)
+    sr = sigma * torch.sqrt(inv_r2)
+    sr_r, sr_a = sr ** rep, sr ** attr
+    g0 = 4 * (-rep * sr_r + attr * sr_a) * inv_r2
+    g = eps * g0
+    h = 4 * eps * (rep * (rep + 2) * sr_r - attr * (attr + 2) * sr_a) \
+        * inv_r2 * inv_r2
+    dgds = 4 * eps * (-rep * rep * sr_r + attr * attr * sr_a) * inv_r2 / sigma
+    w_ij = w[j] - w[i]
+    wd = (w_ij * d).sum(-1)
+    t = (h * wd)[:, None] * d + g[:, None] * w_ij
+    zero = torch.zeros_like(xyz)
+    vjp = zero.index_add(0, i, t).index_add(0, j, -t)
+    gd = g[:, None] * d
+    f = zero.index_add(0, i, -gd).index_add(0, j, gd)
+    e = (4 * eps * (sr_r - sr_a)).sum()
+    return e, f, vjp, (dgds * wd).sum(), (g0 * wd).sum()
+
+
+@pytest.mark.parametrize("rep,attr", [(12, 6), (9, 6), (12, 0)])
+@pytest.mark.parametrize("n", [2, 100, 108])
+def test_half_walk_matches_plain_and_jax(fcc, n, rep, attr):
+    """The i < j sums reproduce the plain versions of K5 and K6b in
+    float64 (rel 1e-10) and the JAX lj_energy_forces and make_lj_force
+    vjp in interpret mode in float32 (the bounds of the tests above: f32
+    sums in another order)."""
+    cell, xyz = fcc
+    xyz = xyz[:n].astype(np.float32)
+    w = np.random.default_rng(7).normal(size=(n, 3)).astype(np.float32)
+    x64, w64 = _t(xyz, torch.float64), _t(w, torch.float64)
+    sigma, eps = _t(SIGMA, torch.float64), _t(EPS, torch.float64)
+    e, f, vjp, dsig, deps = _half_walk(x64, w64, cell, CUTOFF, sigma, eps,
+                                       rep, attr)
+    e_p, f_p = pair.lj_energy_forces_plain(x64, cell, CUTOFF, sigma, eps,
+                                           rep, attr)
+    ref = pair.lj_force_vjp_plain(x64, w64, cell, CUTOFF, sigma, eps, rep,
+                                  attr)
+    assert float(e_p) != 0 and float(ref[1]) != 0
+    for got, want in ((f, f_p), (vjp, ref[0])):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-10 * want.abs().max().item())
+    for got, want in ((e, e_p), (dsig, ref[1]), (deps, ref[2])):
+        np.testing.assert_allclose(got.item(), want.item(), rtol=1e-10)
+
+    e_j, f_j = lj_energy_forces_j(jnp.asarray(xyz), cell, CUTOFF, SIGMA, EPS,
+                                  rep_pow=rep, attr_pow=attr, interpret=True)
+    np.testing.assert_allclose(e.item(), float(e_j), rtol=1e-5)
+    f_j = np.asarray(f_j)
+    np.testing.assert_allclose(f.numpy(), f_j, rtol=0,
+                               atol=1e-4 * np.abs(f_j).max())
+    force_j = make_lj_force_j(jnp.asarray(cell), CUTOFF, rep_pow=rep,
+                              attr_pow=attr, interpret=True)
+    g_j = jax.grad(lambda x, s, e: (jnp.asarray(w) * force_j(x, s, e)).sum(),
+                   argnums=(0, 1, 2))(jnp.asarray(xyz), jnp.float32(SIGMA),
+                                      jnp.float32(EPS))
+    for a, b, name in zip((vjp, dsig, deps), g_j, ("xyz", "sigma", "eps")):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=2e-3,
+                                   atol=2e-5 * max(np.abs(b).max(), 1e-8),
+                                   err_msg=name)
+
+
+def _block_tiles(b):
+    """(R, C) of block b, R <= C, b = C (C + 1) / 2 + R, as lj_half_kernel
+    finds them: a float32 square root, then integer corrections."""
+    f = np.float32
+    C = int((np.sqrt(f(8) * f(b) + f(1)) - f(1)) * f(0.5))
+    while (C + 1) * (C + 2) // 2 <= b:
+        C += 1
+    while C * (C + 1) // 2 > b:
+        C -= 1
+    return b - C * (C + 1) // 2, C
+
+
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 65, 100, 1372, 4000])
+def test_half_walk_block_map_covers_each_pair_once(n):
+    """A model of lj_half_kernel's walk: block b takes the 64-atom tile
+    pair (R, C); warp (wr, wc) the 32-atom tile pair (2 R + wr, 2 C + wc),
+    warp (1, 0) idle on a diagonal block; lane a takes column (a + s) mod
+    32 at step s, steps 0-31, or on a diagonal tile steps 1-15 and step 16
+    from lanes 0-15.  Every unordered pair of real atoms is walked exactly
+    once and no atom with itself; at each step the lanes' columns differ
+    (one add per column); and each (slot, atom) of the vector scratch is
+    written by exactly one block."""
+    tile, wt = pair.FORCE_TILE, pair.FORCE_TILE // 2
+    tiles = -(-n // tile)
+    lanes = np.arange(wt)
+    keys, slots = [], []
+    for b in range(tiles * (tiles + 1) // 2):
+        R, C = _block_tiles(b)
+        assert 0 <= R <= C < tiles
+        for wr in (0, 1):
+            for wc in (0, 1):
+                if R == C and wr > wc:
+                    continue
+                diag = R == C and wr == wc
+                steps = ([(s, wt) for s in range(1, wt // 2)]
+                         + [(wt // 2, wt // 2)] if diag
+                         else [(s, wt) for s in range(wt)])
+                for s, active in steps:
+                    cols = (lanes[:active] + s) % wt
+                    assert len(set(cols)) == active
+                    row = R * tile + wr * wt + lanes[:active]
+                    col = C * tile + wc * wt + cols
+                    real = (row < n) & (col < n)
+                    row, col = row[real], col[real]
+                    assert (row != col).all()
+                    keys.append(np.minimum(row, col) * n
+                                + np.maximum(row, col))
+        atoms = np.arange(tile)
+        slots += [(C, p) for p in R * tile + atoms if p < n]
+        if R != C:
+            slots += [(R, p) for p in C * tile + atoms if p < n]
+    keys = np.concatenate(keys)
+    assert keys.size == n * (n - 1) // 2
+    assert np.unique(keys).size == keys.size
+    assert len(slots) == len(set(slots)) == tiles * n
+
+
+def test_lj_scratch_mirror_sizes_the_launch_buffers():
+    """``_launch`` takes its buffers from ``_scratch``, sized by the
+    library's mdg_lj_scratch: with a library that answers by ops/pair.py's
+    lj_scratch, every kernel's buffers hold exactly the mirror's float
+    counts (K6 none for scalars).  The mirror's tiles are csrc/pair.cu's
+    constants, and its block counts the ones the source states (253 at N =
+    1372 and 2016 at 4000 for the i < j walks, tiles^2 for K7)."""
+    src = (REPO / "mdgrad_tpu_torch/csrc/pair.cu").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", src))
+    warp_tile = int(const["kWarpTile"])
+    assert int(const["kPairTile"]) == pair.PAIR_TILE
+    assert const["kForceTile"] == "2 * kWarpTile"
+    assert 2 * warp_tile == pair.FORCE_TILE
+
+    class Library:
+        @staticmethod
+        def mdg_lj_scratch(mode, n, which):
+            return pair.lj_scratch(pair._MODES[mode], n)[which]
+
+    for name in pair._MODES:
+        for n in (1, 2, 63, 64, 65, 100, 1372, 4000):
+            part, block = pair._scratch(Library, name, n, "cpu")
+            want = pair.lj_scratch(name, n)
+            assert part.numel() == want[0]
+            assert (block is None) == (name == "lj_force")
+            assert want[1] == (0 if block is None else block.numel())
+    assert pair.lj_scratch("lj_force_vjp", 1372) == (22 * 1372 * 3, 2 * 253)
+    assert pair.lj_scratch("lj_energy_forces", 4000) == (63 * 4000 * 3, 2016)
+    assert pair.lj_scratch("lj_force", 4000) == (63 * 4000 * 3, 0)
+    assert pair.lj_scratch("lj_force_param", 4000) == (32 * 4000 * 3,
+                                                       2 * 32 * 32)
