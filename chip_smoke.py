@@ -24,8 +24,9 @@ its phases, printing one line as each check ends:
    +-L/2 and one ulp around it, past a box length) and on pairs whose r^2
    lies within an ulp of cutoff^2, each giving the same bits twice, with
    the library's scratch sizes equal to ``ops/pair.py``'s; K3/K4 and
-   K3b/K4b at 1, 3 and 50 frames of the water box, each giving the same
-   bits twice, and on ``ops/time_rdf.py``'s edge cases (N = 2-1372, F =
+   K3b/K4b at 1, 3 and 50 frames of the water box and K3/K4 at the fit's
+   inference shape (1 frame, 800 bins), each giving the same bits twice,
+   and on ``ops/time_rdf.py``'s edge cases (N = 2-1372, F =
    1-10, 1500 bins, unsorted centres, an unbounded bin, pairs at the
    cutoff and the image's edges); the library's reach argument equal to
    ``ops/rdf.py``'s.
@@ -51,16 +52,28 @@ its phases, printing one line as each check ends:
    backprop, with the RDF kernels held against their plain versions on
    that epoch's frames; then 3 clipped-Adam steps on (sigma, eps).  Then
    float32 exp on the card exactly +0 from each bin's reach on (the terms
-   the RDF kernels skip) at the bins of the three paths' RDF ops.
+   the RDF kernels skip) at the bins of the paths' RDF ops.
+4c. fit   -- the port's ``fit_rdf`` as ``scripts/run_water_torch.py``
+   calls it, at ``scripts/run_water.py``'s GNN assignments and defaults:
+   512 O sites (H20_298K_redd), SchNet "low" (128/128, 30 Gaussians, 2
+   convolutions, cutoff 6.0, K = 48 at slack 1.6), the ExcludedVolume
+   prior, opt_freq 52, 109 bins, lr 1.839e-4, dt 0.5 fs, Q 50, the pallas
+   RDF backend.  A fresh fit of 3 epochs with a checkpoint after each,
+   one 100-step inference rollout and the 800-bin RDF; its resume to 4
+   epochs (one epoch run); a 2-epoch fit whose K = 16 table overflows at
+   epoch 0 and regrows to K = 72, whose CSR build takes the grid kernel.
+   Each call launches K1, K2a, K2b, the CSR build, K3/K4 and K3b/K4b, no
+   LJ kernel and no plain version.
 5. times   -- each kernel, its plain version and its library yardstick with
    CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms; K3/K4 at 50
-   and 3 frames of 512 sites and at 10 of 1372, K3b/K4b at the last two,
+   and 3 frames of 512 sites, at 10 of 1372 and at 1 of 512 with 800
+   bins, K3b/K4b at 3 x 512 and 10 x 1372,
    with bounds that count the exponentials inside the reach on these
    frames at the SFU's rate; K2b's CSR
    build against the plain build, K2b beside each; K1, K2a and K2b warm,
    their inputs in the L2 as on the MD path, and cold, cycling over input
-   sets larger than the L2, with the cold share of the bound), MD and
-   training steps/s, and the card's name and power limit.
+   sets larger than the L2, with the cold share of the bound), MD,
+   training and fit steps/s, and the card's name and power limit.
 5b. a/b    -- only with ``--against``: each OTHER.cu, another version of
    ``csrc/gather.cu`` (a file named ``gather*.cu``), ``csrc/rdf.cu``
    (``rdf*.cu``) or ``csrc/pair.cu`` (``pair*.cu``), built alone into a
@@ -75,9 +88,9 @@ its phases, printing one line as each check ends:
    older ``pair.cu`` with scratch sized by its own rule
    (``ops/time_pair.py``), one JSON line ``{"pair_ab": ...}``.
 
-Launch counts are zeroed just before phases 3, 3b, 4 and 4b and read just
-after each: phases 3 and 4 must launch every water kernel, the CSR build
-included, and call no plain version.  The line before the last is a JSON object with one record per
+Launch counts are zeroed just before phases 3, 3b, 4 and 4b and each
+call of 4c, and read just after each: phases 3, 4 and 4c must launch
+every water kernel, the CSR build included, and call no plain version.  The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits non-zero.  Without a CUDA device it exits
 1 and prints no result.
@@ -108,8 +121,9 @@ RDF_REPLACES = {
     "rdf_counts_bwd": "mdgrad_tpu/ops/pallas_rdf.py:200 (counts_bwd) + :273 "
                       "(counts_frames_bwd)"}
 # the shapes each RDF kernel runs at on a path: the sampling run's 50
-# frames (K3/K4 only), a training step's 3, the LJ fit's 10 of 1372 atoms
-RDF_SHAPES = {"rdf_counts": ("50x512", "3x512", "10x1372"),
+# frames (K3/K4 only), a training step's 3, the LJ fit's 10 of 1372 atoms,
+# and the fit's inference, one frame at 800 bins (K3/K4 only)
+RDF_SHAPES = {"rdf_counts": ("50x512", "3x512", "10x1372", "1x512x800"),
               "rdf_counts_bwd": ("3x512", "10x1372")}
 # the shape of each RDF row's own numbers in the JSON line (every shape is
 # under its "by_shape"): K3/K4 at the sampling run's 50 frames, K3b/K4b at
@@ -284,6 +298,207 @@ def train_phase(mt, torch, dev, records):
             "fwd_s": fwd, "rdf_op": obs._counts}
 
 
+# the water fit of scripts/run_water.py: its GNN assignments and
+# sys_params at full width (512 sites), cut to 3 epochs and one 100-step
+# inference rollout; the pallas RDF backend, so that K3/K4 and K3b/K4b run
+FIT_ASSIGNMENTS = {
+    "cutoff": 6.0, "epsilon": 0.010637550996566496,
+    "gaussian_width": 0.195, "lr": 0.0001839, "mse_weight": 3.2,
+    "n_atom_basis": "low", "n_filters": "low", "n_convolutions": 2,
+    "nbins": 109, "opt_freq": 52, "sigma": 2.61227614490785,
+    "rdf_backend": "pallas", "compute_dtype": "float32"}
+FIT_SYS_PARAMS = {
+    "dt": 0.5, "n_epochs": 3, "n_sim": 1, "data": ["H20_298K_redd"],
+    "val": None, "size": 4, "anneal_flag": "False", "pair_flag": False,
+    "tpair_flag": False, "topology_update_freq": 1, "adjoint": True,
+    "share_prior_aux": False, "gnn_skin": 0.0, "capacity_slack": 1.6,
+    "nbr_mode": "table", "mts_inner": 0, "frame_skip": 20,
+    "overflow_policy": "warn", "regrow_factor": 1.5, "prior_mode": "auto",
+    "init_pkl": None, "test_nbins": 800, "ckpt_every": 1}
+# the regrow call: a table of K = 16 (slack 0.5 of the lattice's 28
+# neighbors) overflows at once and regrows to K = 72 (36864 edges), past
+# the one-block CSR build's 32768
+FIT_REGROW = {"n_epochs": 2, "n_sim": 0, "capacity_slack": 0.5,
+              "overflow_policy": "regrow", "regrow_factor": 4.5}
+WATER_KERNELS = ("gather_mul_reduce", "table_gather", "table_scatter",
+                 "table_index_csr", "rdf_counts", "rdf_counts_bwd")
+
+
+class CsrWidths:
+    """Records the (edges, rows) of every CSR build while it is entered:
+    wraps ``gather._launch_table_index_csr``, which ``TableIndex.csr``
+    calls, and puts it back on exit."""
+
+    def __init__(self, gather):
+        self.gather = gather
+        self.seen = {}
+
+    def __enter__(self):
+        self.real = self.gather._launch_table_index_csr
+
+        def record(idx, n, one_block=True):
+            key = (idx.shape[0], n)
+            self.seen[key] = self.seen.get(key, 0) + 1
+            return self.real(idx, n, one_block)
+
+        self.gather._launch_table_index_csr = record
+        return self
+
+    def __exit__(self, *exc):
+        self.gather._launch_table_index_csr = self.real
+
+    def describe(self):
+        return ", ".join(
+            f"K={e // n} ({e} edges): {c} builds, "
+            f"{self.gather.table_index_csr_path(e, n)}"
+            for (e, n), c in sorted(self.seen.items()))
+
+
+def fit_call(torch, fit_rdf, ops, gather, model_path, **sys_params):
+    """One ``fit_rdf`` call on the card at the water fit's settings plus
+    ``sys_params``; returns (result, log lines, per-epoch marks (time,
+    counts) taken at each epoch's log line, CsrWidths, wall seconds)."""
+    import numpy as np
+    msgs, marks = [], []
+
+    def log(msg):
+        msgs.append(str(msg))
+        if " | loss" in str(msg):
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), ops.counts()))
+
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    with CsrWidths(gather) as widths:
+        out = fit_rdf.fit_rdf(FIT_ASSIGNMENTS, {**FIT_SYS_PARAMS,
+                                                **sys_params},
+                              model_path=model_path, log=log,
+                              rng=np.random.default_rng(SEED),
+                              device=torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    marks = [(t - t0, c) for t, c in marks]
+    return out, msgs, marks, widths, wall
+
+
+def check_fit_counts(counts, what):
+    """Every water kernel launched, no LJ kernel, no plain version."""
+    for name in WATER_KERNELS:
+        require(counts["launches"][name] > 0,
+                f"kernel {name} launched in the {what}")
+    for name in LJ_KERNELS:
+        require(counts["launches"][name] == 0,
+                f"the {what} launches no {name}")
+    for name, c in counts["plain_calls"].items():
+        require(c == 0, f"plain version of {name} not used in the {what}")
+
+
+def fit_phase(mt, torch, dev, records):
+    """Phase 4c: the port's ``fit_rdf`` (see the module docstring): a fresh
+    3-epoch fit with checkpoints, its resume to 4 epochs, and a fit whose
+    table overflows and regrows.  Fills ``records[name]['launches_fit_*']``
+    and returns the fresh fit's numbers."""
+    import tempfile
+    import numpy as np
+    from mdgrad_tpu_torch import ops
+    from mdgrad_tpu_torch.ops import gather
+    from mdgrad_tpu_torch.train import fit_rdf
+    initial = fit_rdf._build_net_and_prior(FIT_ASSIGNMENTS)[0].state_dict()
+
+    def moved(params):
+        return max((params[k] - v).abs().max().item()
+                   for k, v in initial.items())
+
+    with tempfile.TemporaryDirectory() as model_path:
+        torch.cuda.reset_peak_memory_stats()
+        out, msgs, marks, widths, wall = fit_call(torch, fit_rdf, ops, gather,
+                                                  model_path)
+        peak = torch.cuda.max_memory_allocated()
+        counts = ops.counts()
+        losses = out["loss_log"]
+        n_epochs, n_steps = FIT_SYS_PARAMS["n_epochs"], \
+            FIT_ASSIGNMENTS["opt_freq"] - 1
+        for msg in msgs:
+            line(f"fit: {msg}")
+        line(f"fit: losses {losses}  objective {out.get('objective')!r}  "
+             f"parameters moved by up to {moved(out['params']):.3e}")
+        require(not out.get("nan_bailout") and len(losses) == n_epochs
+                and bool(np.isfinite(losses).all()), "3 finite losses")
+        require(np.isfinite(out["objective"]), "a finite objective")
+        require(out["final"]["H20_298K_redd"]["g_sim"].shape == (800,),
+                "the inference RDF has 800 bins")
+        require(moved(out["params"]) > 0, "the parameters moved")
+        require(not any("overflow" in m for m in msgs),
+                "no neighbor-table overflow in the fit")
+        check_fit_counts(counts, "fit")
+        per_epoch = []
+        prev = {name: 0 for name in counts["launches"]}
+        for _, c in marks:
+            per_epoch.append({name: c["launches"][name] - prev[name]
+                              for name in prev})
+            prev = c["launches"]
+        inference = {name: counts["launches"][name] - prev[name]
+                     for name in prev}
+        for i, c in enumerate(per_epoch):
+            line(f"fit: launches in epoch {i}: {c}")
+        line(f"fit: launches in the inference phase: {inference}")
+        line(f"fit: CSR builds {widths.describe()}")
+        require(inference["rdf_counts"] == 2
+                and inference["rdf_counts_bwd"] == 0,
+                "inference: one 800-bin K3 launch per frame, no backward")
+        for name in WATER_KERNELS:
+            records.setdefault(name, {})["launches_fit_per_epoch"] = \
+                per_epoch[-1][name]
+            records[name]["launches_fit_inference"] = inference[name]
+        epochs_s = marks[-1][0]
+        steady_s = (marks[-1][0] - marks[0][0]) / (n_epochs - 1)
+        infer_s = wall - marks[-1][0]
+
+        # the resume: one more epoch from the checkpoint of epoch 2
+        out2, msgs2, marks2, _, wall2 = fit_call(torch, fit_rdf, ops, gather,
+                                                 model_path, n_epochs=4)
+        for msg in msgs2:
+            line(f"fit resume: {msg}")
+        require("resumed from checkpoint at epoch 2" in msgs2,
+                "the fit resumed from its epoch-2 checkpoint")
+        epoch_lines = [m for m in msgs2 if " | loss" in m]
+        require(len(epoch_lines) == 1 and epoch_lines[0].startswith(
+            "epoch 3 |"), "the resume ran exactly one epoch, epoch 3")
+        require(out2["loss_log"][:3] == losses and len(out2["loss_log"]) == 4
+                and np.isfinite(out2["objective"]),
+                "the resumed log extends the fresh one")
+        check_fit_counts(ops.counts(), "resumed fit")
+        line(f"fit resume: {wall2:.3f} s, the epoch {marks2[0][0]:.3f} s in "
+             f"the call; objective {out2['objective']!r}")
+
+    # the regrow: epoch 0 overflows, its update is skipped, the table grows
+    out3, msgs3, marks3, widths3, wall3 = fit_call(torch, fit_rdf, ops,
+                                                   gather, None, **FIT_REGROW)
+    for msg in msgs3:
+        line(f"fit regrow: {msg}")
+    line(f"fit regrow: CSR builds {widths3.describe()}")
+    ks = sorted({e // n for e, n in widths3.seen})
+    require(any("capacity grown" in m for m in msgs3)
+            and "epoch 0: parameter update skipped (overflow_policy='regrow')"
+            in msgs3, "epoch 0 overflowed and the table regrew")
+    require(not any(m.startswith("epoch 1: parameter update skipped")
+                    for m in msgs3) and len(out3["loss_log"]) == 2
+            and moved(out3["params"]) > 0,
+            "the last epoch applied its update")
+    require(ks == [16, 72], f"the CSR builds ran at K = 16, then 72 ({ks})")
+    require(gather.table_index_csr_path(72 * 512, 512) == "grid",
+            "the regrown table's CSR build takes the grid kernel")
+    check_fit_counts(ops.counts(), "regrown fit")
+    line(f"fit regrow: k_max {ks[0]} -> {ks[-1]}; {wall3:.3f} s")
+    return {"wall": wall, "epochs_s": epochs_s, "steady_s": steady_s,
+            "infer_s": infer_s, "peak": peak,
+            "steps_per_s": n_epochs * n_steps / epochs_s,
+            "epochs_per_s": n_epochs / epochs_s,
+            "per_epoch": per_epoch[-1], "inference": inference,
+            "resume_s": wall2, "regrow_s": wall3}
+
+
 def gather_phase(torch, dev, gen, gather, time_gather, index, k, compare,
                  records):
     """K1 and K2a against their plain versions on the cases their kernels
@@ -410,11 +625,13 @@ def gather_ab(torch, _build, gather, time_gather, sources, sets, k, bounds,
         "median": median, "runs": runs, "card": smi}}))
 
 
-def rdf_phase(torch, dev, gen, rdf_ops, time_rdf, op, frames_test, compare):
+def rdf_phase(torch, dev, gen, rdf_ops, time_rdf, op, op_infer, frames_test,
+              compare):
     """K3/K4 and K3b/K4b against their plain versions at the water path's
-    shapes (1, 3 and 50 frames of 512), the same bits on a second call,
-    then on ``time_rdf.edge_cases``; and the library's reach argument is
-    ``ops/rdf.py``'s ``REACH_ARG``."""
+    shapes (1, 3 and 50 frames of 512), the same bits on a second call;
+    K3/K4 likewise at the fit's inference shape (``op_infer``: 1 frame, 800
+    bins); then on ``time_rdf.edge_cases``; and the library's reach
+    argument is ``ops/rdf.py``'s ``REACH_ARG``."""
     from mdgrad_tpu_torch.ops import _build
     reach_arg = _build.library().mdg_rdf_reach_arg()
     line(f"  rdf reach argument: csrc/rdf.cu {reach_arg!r}, ops/rdf.py "
@@ -441,6 +658,14 @@ def rdf_phase(torch, dev, gen, rdf_ops, time_rdf, op, frames_test, compare):
                 floor=0.0)
         require(torch.equal(got, rdf_ops._launch_bwd(x, *args, ct_bins)),
                 "K3b/K4b give the same bits on a second call")
+    x = frames_test[:1].contiguous()
+    args = (op_infer.cell_len, op_infer.mu, op_infer.coeff, op_infer.cutoff)
+    got = rdf_ops._launch(x, *args)
+    line(f"  rdf_counts F=1 bins={op_infer.mu.shape[0]} (the fit's "
+         f"inference):")
+    compare("rdf_counts", got, rdf_ops.rdf_counts_plain(x, *args), 1e-4)
+    require(torch.equal(got, rdf_ops._launch(x, *args)),
+            "K3/K4 give the same bits on a second call at 800 bins")
     for name, xyz, cell, mu, widths, cutoff, ct in time_rdf.edge_cases():
         case = rdf_ops.RDFCounts(cell, mu, widths, cutoff, dev)
         x = torch.tensor(xyz, device=dev)
@@ -1186,9 +1411,13 @@ def main():
     obs = mt.observables.rdf(system, nbins=109, r_range=(1.8, 7.5),
                              backend="pallas", device=dev)
     op = obs._counts
+    # the fit's inference RDF: 800 bins over the same range
+    op_infer = mt.observables.rdf(system, nbins=800, r_range=(1.8, 7.5),
+                                  backend="pallas", device=dev)._counts
     frames_test = xyz0 + 0.1 * torch.randn((50, n, 3), device=dev,
                                            generator=gen)
-    rdf_phase(torch, dev, gen, rdf_ops, time_rdf, op, frames_test, compare)
+    rdf_phase(torch, dev, gen, rdf_ops, time_rdf, op, op_infer, frames_test,
+              compare)
 
     # the SchNet force through the kernels vs the plain gather path, same
     # seeded weights: f32 through two convolutions in another order
@@ -1309,8 +1538,12 @@ def main():
 
     # ---- 4b. the LJ differentiation path ---------------------------------
     lj_fitted = lj_fit_phase(mt, torch, dev, gen, compare, records)
+
+    # ---- 4c. the fit driver -------------------------------------------------
+    fitted = fit_phase(mt, torch, dev, records)
     reach_phase(time_rdf, {"water": op, "water fit": trained["rdf_op"],
-                           "lj fit": lj_fitted["rdf_op"]})
+                           "lj fit": lj_fitted["rdf_op"],
+                           "fit inference": op_infer})
 
     # ---- 5. times ---------------------------------------------------------
     e_real = n_real
@@ -1357,6 +1590,8 @@ def main():
             "replaces": s["replaces"], "launches": rec["launches"],
             "launches_per_train_step": rec["launches_per_train_step"],
             "launches_sampling": rec["launches_sampling"],
+            "launches_fit_per_epoch": rec["launches_fit_per_epoch"],
+            "launches_fit_inference": rec["launches_fit_inference"],
             "max_abs_err": rec["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
         cold = warm_cold["cold_ms"]
@@ -1394,7 +1629,9 @@ def main():
         "bound_ms": csr_b_ms, "bound_by": csr_b_by,
         "launches_sampling": records["table_index_csr"]["launches_sampling"],
         "launches_per_train_step":
-            records["table_index_csr"]["launches_per_train_step"]}
+            records["table_index_csr"]["launches_per_train_step"],
+        "launches_fit_per_epoch":
+            records["table_index_csr"]["launches_fit_per_epoch"]}
     k2b = next(r for r in kernels_json if r["name"] == "table_scatter")
     k2b.update({f"csr_{key}": v for key, v in csr.items()})
     lj_timed = lj_times(mt, torch, dev, gen)
@@ -1434,7 +1671,8 @@ def main():
     # K3/K4 and K3b/K4b at every shape a path launches them
     rdf_inputs = {"50x512": (frames.contiguous(), op),
                   "3x512": (frames[-3:].contiguous(), op),
-                  "10x1372": (lj_fitted["rdf_frames"], lj_fitted["rdf_op"])}
+                  "10x1372": (lj_fitted["rdf_frames"], lj_fitted["rdf_op"]),
+                  "1x512x800": (frames[-1:].contiguous(), op_infer)}
     for name, timed in rdf_times(torch, rdf_ops, time_rdf, timing, gen,
                                  rdf_inputs).items():
         rec = records[name]
@@ -1445,6 +1683,8 @@ def main():
             "launches_per_train_step": rec["launches_per_train_step"],
             "launches_sampling": rec["launches_sampling"],
             "launches_lj_fit": rec["launches_lj_fit"],
+            "launches_fit_per_epoch": rec["launches_fit_per_epoch"],
+            "launches_fit_inference": rec["launches_fit_inference"],
             "max_abs_err": rec["max_abs_err"], "shape": RDF_ROW_SHAPE[name],
             **{key: timed[RDF_ROW_SHAPE[name]][key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_pipe")},
@@ -1456,6 +1696,14 @@ def main():
          f"{trained['wall']:.3f} s); replay epoch peak memory "
          f"{trained['peak']} B")
 
+    line(f"time fit: {fitted['epochs_per_s']:.4f} fit epochs/s, "
+         f"{fitted['steps_per_s']:.2f} training MD steps/s (3 x 51 steps in "
+         f"{fitted['epochs_s']:.3f} s from the call, build included; "
+         f"{fitted['steady_s']:.3f} s an epoch over epochs 1-2); inference "
+         f"(1 rollout of 100 steps, 800-bin RDF of 2 frames) "
+         f"{fitted['infer_s']:.3f} s; call {fitted['wall']:.3f} s; peak "
+         f"memory {fitted['peak']} B; resume call {fitted['resume_s']:.3f} "
+         f"s, regrow call {fitted['regrow_s']:.3f} s")
     line(f"time lj sampling: {lj_sampled['steps_per_s']:.2f} steps/s (N=4000 "
          f"NVE, 950 steps, energy drift {lj_sampled['drift']:.3e})")
     line(f"time lj fit: {lj_fitted['steps_per_s']:.2f} fwd+bwd MD steps/s "

@@ -415,6 +415,36 @@ __global__ void csr_sort_kernel(const int* __restrict__ rowptr, int e, int n,
   if (len > 1) block_sort(order + s, len);
 }
 
+// The dynamic shared memory csr_one_block_kernel may take: the card's
+// opt-in limit less the kernel's static shared memory, granted once.
+cudaError_t csr_shared_limit(int* limit) {
+  static int granted = -1;
+  if (granted < 0) {
+    int dev = 0, optin = 0;
+    cudaFuncAttributes attr;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    cudaFuncGetAttributes(&attr, csr_one_block_kernel);
+    const int dynamic = optin - static_cast<int>(attr.sharedSizeBytes);
+    const cudaError_t err = cudaFuncSetAttribute(
+        csr_one_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dynamic);
+    if (err != cudaSuccess) return err;
+    granted = dynamic;
+  }
+  *limit = granted;
+  return cudaSuccess;
+}
+
+// One block when e <= 32768 and its shared memory, 4 e + 260 (n + 1)
+// bytes, fits in max_shared bytes and in limit.
+bool csr_one_block(int e, int n, int max_shared, int limit) {
+  const long long bytes = 4LL * ((2 * kCsrWarps + 1) * (n + 1LL) + e);
+  return e <= kCsrSteps * kCsrThreads && bytes <= max_shared &&
+         bytes <= limit;
+}
+
 }  // namespace
 
 extern "C" {
@@ -487,25 +517,11 @@ int mdg_table_index_csr(const int* idx, int e, int n, int* order,
     return static_cast<int>(
         cudaMemsetAsync(rowptr, 0, sizeof(int) * (n + 1), s));
   }
-  // the dynamic shared memory csr_one_block_kernel may take: the card's
-  // opt-in limit less the kernel's static shared memory, granted once
-  static int limit = -1;
-  if (limit < 0) {
-    int dev = 0, optin = 0;
-    cudaFuncAttributes attr;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    cudaFuncGetAttributes(&attr, csr_one_block_kernel);
-    const int dynamic = optin - static_cast<int>(attr.sharedSizeBytes);
-    const cudaError_t err = cudaFuncSetAttribute(
-        csr_one_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        dynamic);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    limit = dynamic;
-  }
-  const long long bytes = 4LL * ((2 * kCsrWarps + 1) * (n + 1LL) + e);
-  if (e <= kCsrSteps * kCsrThreads && bytes <= max_shared && bytes <= limit) {
+  int limit = 0;
+  const cudaError_t limit_err = csr_shared_limit(&limit);
+  if (limit_err != cudaSuccess) return static_cast<int>(limit_err);
+  if (csr_one_block(e, n, max_shared, limit)) {
+    const int bytes = 4 * ((2 * kCsrWarps + 1) * (n + 1) + e);
     csr_one_block_kernel<<<1, kCsrThreads, bytes, s>>>(idx, e, n, order,
                                                        rowptr);
     return static_cast<int>(cudaGetLastError());
@@ -520,6 +536,16 @@ int mdg_table_index_csr(const int* idx, int e, int n, int* order,
                                                      order);
   csr_sort_kernel<<<n + 1, kCsrGridThreads, 0, s>>>(rowptr, e, n, order);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Which build mdg_table_index_csr takes for e edges over n rows when its
+// max_shared allows any size: 1 the one-block build, 0 the grid build; a
+// negative CUDA error code if the shared-memory limit cannot be read.
+int mdg_table_index_csr_one_block(int e, int n) {
+  int limit = 0;
+  const cudaError_t err = csr_shared_limit(&limit);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return csr_one_block(e, n, 0x7fffffff, limit) ? 1 : 0;
 }
 
 }  // extern "C"

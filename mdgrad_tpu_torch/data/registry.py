@@ -1,12 +1,18 @@
-"""Lattice constants and the water RDF targets (port of the part of
-``mdgrad_tpu/data/registry.py`` that the water SchNet fit reads).
+"""Lattice constants and the RDF targets of the fitting workloads (port of
+``mdgrad_tpu/data/registry.py``: ``exp_rdf_data_dict`` -- a-Si, water O-O
+and argon -- and the lazily scanned ``pair_data_dict`` of simulated pair
+targets).
 
 The target files are read in place from the JAX package's vendored copy,
 ``mdgrad_tpu/data/targets/``, by file path: they are never copied, and
-nothing of that package is imported.
+nothing of that package is imported.  The angle targets come with the
+angle observables.
 """
 
+import functools
+import os
 import pathlib
+import re
 
 import numpy as np
 
@@ -26,6 +32,20 @@ def get_unit_len(rho, mass, N_unitcell):
     return (N_unitcell / n_dens) ** (1 / 3)
 
 
+def number_density_unit_len(rho, N_unitcell):
+    """Lattice constant of a cubic cell holding ``N_unitcell`` particles
+    at *number* density ``rho`` (LJ reduced units)."""
+    return (N_unitcell / rho) ** (1 / 3)
+
+
+def load_target(fn):
+    """The rows of a target file, comma-delimited or, as the argon target
+    is, whitespace-delimited."""
+    with open(fn) as f:
+        first = f.readline()
+    return np.loadtxt(fn, delimiter="," if "," in first else None)
+
+
 def get_exp_rdf(data, nbins, r_range, dim=3):
     """Interpolate a target RDF onto the fitting grid and re-normalise it
     by shell volumes.  ``data``: (2, M) or (M, 2) [r, g(r)].  Returns
@@ -43,6 +63,141 @@ def get_exp_rdf(data, nbins, r_range, dim=3):
     return xnew, g_obs
 
 
+# ---------------------------------------------------------------------------
+# pair_data_dict: simulated pair targets, discovered from the data files
+# ---------------------------------------------------------------------------
+
+# directory -> (key prefix, r_range, target potential (name, kwargs))
+_FAMILY_SPECS = {
+    "LJ_data": ("lj", (0.75, 3.3), ("LennardJones", {})),
+    "softsphere_data": ("softsphere", (0.75, 3.3),
+                        ("ExcludedVolume", {"power": 12})),
+    "Yukawa_data": ("yukawa", (0.5, 3.0), ("Yukawa", {})),
+    "Morse_data": ("morse", (0.5, 3.0), ("Morse", {})),
+    "LJfam_data": ("ljfam", (0.75, 3.3), ("LJFamily", {})),
+}
+
+_RDF_RE = re.compile(r"rdf_(?P<extra>.*?)rho(?P<rho>[\d.]+)_T(?P<T>[\d.]+)"
+                     r"_dt[\d.]+\.csv$")
+_STRIPE_RE = re.compile(r"overalp_(?P<rho>[\d.]+)_k(?P<k>[\d.]+)"
+                        r"_V0(?P<v0>[\d.]+)_(?P<T>[\d.]+)"
+                        r"(?:_cutoff(?P<cut>[\d.]+))?\.csv$")
+
+
+def _scan_family(dirname, prefix, r_range, target_pot):
+    d = DATA_DIR / dirname
+    entries = {}
+    if not d.is_dir():
+        return entries
+    for fn in sorted(os.listdir(d)):
+        m = _RDF_RE.match(fn)
+        if not m:
+            continue
+        rho, T = float(m.group("rho")), float(m.group("T"))
+        extra = m.group("extra").strip("_")
+        key = f"{prefix}_{rho:g}_{T:g}" + (f"_{extra}" if extra else "")
+        vacf = d / fn.replace("rdf_", "vacf_")
+        entries[key] = {
+            "rdf_fn": str(d / fn),
+            "vacf_fn": str(vacf) if vacf.exists() else None,
+            "rho": rho, "T": T, "start": r_range[0], "end": r_range[1],
+            "element": "H", "mass": 1.0, "N_unitcell": 4, "cell": "fcc",
+            "reduced_units": True,
+            "target_pot": (target_pot[0], dict(target_pot[1])),
+        }
+    return entries
+
+
+def _scan_stripes():
+    """The 2-D stripe-phase systems: size-25 square lattice, RDF over
+    (0.5, 7.5), fit cutoff 8; the cutoff-12 variant size 24, (0.6, 9.75)."""
+    d = DATA_DIR / "stripe_data"
+    entries = {}
+    if not d.is_dir():
+        return entries
+    for fn in sorted(os.listdir(d)):
+        m = _STRIPE_RE.match(fn)
+        if not m:
+            continue
+        rho, T, cut = float(m.group("rho")), float(m.group("T")), \
+            m.group("cut")
+        key = (f"overlap_{rho:g}_T{T:g}"
+               + (f"_cut{float(cut):g}" if cut else ""))
+        entries[key] = {
+            "rdf_fn": str(d / fn), "vacf_fn": None,
+            "rho": rho, "T": T, "dim": 2, "size": 24 if cut else 25,
+            "start": 0.6 if cut else 0.5, "end": 9.75 if cut else 7.5,
+            "cutoff": float(cut) if cut else 8.0,
+            "element": "H", "mass": 1.0, "reduced_units": True,
+            "target_pot": ("SplineOverlap", {"K": float(m.group("k")),
+                                             "V0": float(m.group("v0"))}),
+        }
+    return entries
+
+
+@functools.cache
+def _pair_data_dict():
+    out = {}
+    for dirname, spec in _FAMILY_SPECS.items():
+        out.update(_scan_family(dirname, *spec))
+    out.update(_scan_stripes())
+    return out
+
+
+class _LazyDict(dict):
+    """A dict filled by ``loader`` on its first read, so that importing the
+    registry scans no directory."""
+
+    def __init__(self, loader):
+        super().__init__()
+        self._loader = loader
+        self._loaded = False
+
+    def _ensure(self):
+        if not self._loaded:
+            self.update(self._loader())
+            self._loaded = True
+
+    def __getitem__(self, k):
+        self._ensure()
+        return super().__getitem__(k)
+
+    def __contains__(self, k):
+        self._ensure()
+        return super().__contains__(k)
+
+    def keys(self):
+        self._ensure()
+        return super().keys()
+
+    def items(self):
+        self._ensure()
+        return super().items()
+
+    def __iter__(self):
+        self._ensure()
+        return super().__iter__()
+
+    def __len__(self):
+        self._ensure()
+        return super().__len__()
+
+
+pair_data_dict = _LazyDict(_pair_data_dict)
+
+
+# ---------------------------------------------------------------------------
+# exp_rdf_data_dict: experimental and published-simulation targets
+# ---------------------------------------------------------------------------
+
+def _si(fn, rho, T, end=7.9, **kw):
+    e = {"fn": str(DATA_DIR / "a-Si" / fn), "rho": rho, "T": T,
+         "start": 1.8, "end": end, "element": "Si", "mass": 28.0855,
+         "N_unitcell": 8, "cell": "diamond"}
+    e.update(kw)
+    return e
+
+
 def _water(sub, fn, rho, T, **kw):
     e = {"fn": str(DATA_DIR / sub / fn), "rho": rho, "T": T,
          "start": 1.8, "end": 7.5, "element": "O", "mass": 18.01528,
@@ -51,8 +206,11 @@ def _water(sub, fn, rho, T, **kw):
     return e
 
 
-# the water O-O entries of the JAX package's exp_rdf_data_dict
 exp_rdf_data_dict = {
+    "Si_2.293_100K": _si("100K_2.293.csv", 2.293, 100.0),
+    "Si_2.287_83K": _si("83K_2.287_exp.csv", 2.287, 83.0, end=10.0),
+    "Si_2.327_102K_cry": _si("102K_2.327_exp.csv", 2.3267, 102.0, end=8.0,
+                             anneal_flag=True),
     "H20_0.997_298K": _water("water_exp", "water_exp_pccp.csv",
                              0.997, 298.0, pressure=1.0),
     "H20_0.978_342K": _water("water_exp",
@@ -80,4 +238,8 @@ exp_rdf_data_dict = {
                             0.98103, 338.0),
     "H20_388K_spce": _water("water_sim", "H2O_388K_spce.csv",
                             0.94508, 388.0),
+    "Argon_1.417_298k": {
+        "fn": str(DATA_DIR / "argon_exp" / "argon_exp.csv"),
+        "rho": 1.417, "T": 298.0, "start": 2.0, "end": 9.0,
+        "element": "Ar", "mass": 39.948, "N_unitcell": 4, "cell": "fcc"},
 }

@@ -11,6 +11,8 @@ interaction is an ``nn.Module`` that owns its parameters:
     ``aux_update(xyz, aux)   -> aux``     refresh of that state
     ``energy(xyz, aux)       -> scalar``  differentiable in xyz and the
                                           module's parameters
+    ``grow_capacity(factor)  -> bool``    enlarge a fixed neighbor capacity
+                                          after an overflow
 
 Each interaction takes ``device`` (default ``"cuda"``; a CUDA device
 without a card raises) and moves itself there.
@@ -38,6 +40,13 @@ class Interaction(nn.Module):
 
     def energy(self, xyz, aux):
         raise NotImplementedError
+
+    def grow_capacity(self, factor=1.5):
+        """Enlarge the fixed neighbor capacity in place after an overflow;
+        True if it grew.  The caller rebuilds aux with ``aux_init``, whose
+        tables then take the new size.  An interaction with no capacity
+        (dense mode) returns False."""
+        return False
 
     def _register_cell(self, name, system):
         """Register the cell as (3,) lengths when diagonal (the elementwise
@@ -145,6 +154,16 @@ class GNNPotentials(Interaction):
         self.k_max = min(k_max, n)
         self.to(device)
 
+    def grow_capacity(self, factor=1.5):
+        """``k_max`` times ``factor``, rounded up to a multiple of 8 and
+        capped at N; True if it grew."""
+        n = int(self.z.shape[0])
+        new_k = min(int(np.ceil(self.k_max * factor / 8) * 8), n)
+        if new_k > self.k_max:
+            self.k_max = new_k
+            return True
+        return False
+
     def aux_init(self, xyz):
         return topology.generate_neighbor_table(
             xyz, self.cutoff, self._cell("cell_len", xyz), self.k_max,
@@ -171,6 +190,10 @@ class Stack(Interaction):
 
     def aux_update(self, xyz, aux):
         return {k: m.aux_update(xyz, aux[k]) for k, m in self.models.items()}
+
+    def grow_capacity(self, factor=1.5):
+        """Grow every child's capacity; True if any grew."""
+        return any([m.grow_capacity(factor) for m in self.models.values()])
 
     def energy(self, xyz, aux):
         total = 0.0

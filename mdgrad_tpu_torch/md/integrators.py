@@ -1,8 +1,9 @@
 """NVE and Nose-Hoover chain NVT integration with a cached force.
 
 Port of ``mdgrad_tpu/md/integrators.py``: the ``_MDIntegrator`` force
-dispatch, ``prime_state`` and the cached symplectic step, ``NVE`` and
-``NoseHooverChain``.  An interaction with a ``force`` method (the fused
+dispatch, ``prime_state`` and the cached symplectic step, ``NVE``,
+``NoseHooverChain`` with ``update_T``, and ``rethermalize``.  An
+interaction with a ``force`` method (the fused
 pair kernels' :class:`~mdgrad_tpu_torch.ops.pair.PallasLJPair`) supplies
 the force itself; for any other, forces are ``-dU/dq`` from
 ``torch.autograd.grad``.  With ``create_graph=False`` (the sampling path)
@@ -21,11 +22,12 @@ waits for the device.
 
 import typing
 
+import numpy as np
 import torch
 
 from .. import units
 from .._device import resolve_device
-from ..system import check_system
+from ..system import check_system, maxwell_boltzmann_velocities
 
 
 class NVEStateF(typing.NamedTuple):
@@ -157,6 +159,13 @@ class NoseHooverChain(_MDIntegrator):
             q = [Q] + [Q / n] * (num_chains - 1)
         self.Q = torch.tensor(q, dtype=dtype, device=self.device)
 
+    def update_T(self, T):
+        """Set the bath temperature ``T`` (Kelvin) and return the new
+        ``default_ctrl()``, for annealing; the chain masses keep their
+        construction temperature."""
+        self.T = T
+        return self.default_ctrl()
+
     def default_ctrl(self):
         return {"kT": torch.tensor(self.T * units.kB, dtype=self.dtype,
                                    device=self.device)}
@@ -181,3 +190,25 @@ class NoseHooverChain(_MDIntegrator):
                    - pv[2:] * pv[1:-1] / Q[2:])
         dpv_last = pv[-2] ** 2 / Q[-2] - kT
         return dvdt, torch.cat([dpv0[None], dpv_mid, dpv_last[None]])
+
+
+def rethermalize(state, kT, masses, rng=None, dim=3):
+    """``state`` with fresh Maxwell-Boltzmann velocities at ``kT`` (energy
+    units) drawn from the numpy Generator ``rng``, the bath momenta zeroed
+    and the force cache marked stale; positions are kept.
+
+    The fit's NaN recovery restores a finite snapshot and retries: a Nose-
+    Hoover trajectory is deterministic, so a blowup driven by the state
+    would otherwise recur on every retry.  The draws are the JAX
+    package's, so the same ``rng`` gives the same velocities.
+    """
+    v = maxwell_boltzmann_velocities(np.asarray(masses), float(kT), rng=rng)
+    if dim < 3:
+        v[:, dim:] = 0.0
+    upd = {"v": torch.as_tensor(v, dtype=state.v.dtype,
+                                device=state.v.device)}
+    if hasattr(state, "pv"):
+        upd["pv"] = torch.zeros_like(state.pv)
+    if hasattr(state, "fv"):
+        upd["fv"] = False    # prime_state refills the cache
+    return state._replace(**upd)

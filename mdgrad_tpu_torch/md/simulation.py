@@ -141,24 +141,28 @@ class Simulation:
 
     def check_flags(self):
         """Read (one host sync) and reset the flags ORed since the last
-        call; sets ``overflowed`` / ``drifted`` and warns once each."""
-        overflow, drift = self._flags
+        call; sets ``overflowed`` / ``drifted`` and warns once each.
+        Returns ``(overflow, drift)``, the bools of the epochs since the
+        last call."""
+        overflow, drift = (flag is not None and bool(flag)
+                           for flag in self._flags)
         self._flags = [None, None]
-        if overflow is not None and bool(overflow):
+        if overflow:
             if not self.overflowed:
                 warnings.warn(
-                    "neighbor capacity overflow during Simulation.simulate: "
+                    "neighbor capacity overflow in a simulated epoch: "
                     "neighbors were dropped and forces are incomplete -- "
                     "raise k_max/capacity_slack on the interaction",
                     stacklevel=3)
             self.overflowed = True
-        if drift is not None and bool(drift):
+        if drift:
             if not self.drifted:
                 warnings.warn(
                     "positions drifted outside single-image minimum-image "
-                    "validity during Simulation.simulate: distances may be "
+                    "validity in a simulated epoch: distances may be "
                     "wrong -- run with wrap=True", stacklevel=3)
             self.drifted = True
+        return overflow, drift
 
     def simulate(self, steps=1, dt=1.0 * units.fs, frequency=1, ctrl=None):
         """Run ``steps // frequency`` epochs; returns the final epoch's

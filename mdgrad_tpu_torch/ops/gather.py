@@ -201,6 +201,16 @@ def _launch_table_index_csr(idx, n, one_block=True):
     return order, rowptr
 
 
+def table_index_csr_path(e, n):
+    """The build the CSR kernel takes on the card for ``e`` edges over
+    ``n`` rows: "one block" while its shared memory fits the card's
+    limit, else "grid"."""
+    code = _build.library().mdg_table_index_csr_one_block(e, n)
+    if code < 0:
+        _build.check(-code, "table_index_csr_path")
+    return "one block" if code else "grid"
+
+
 def _launch_table_scatter(g, index):
     dev = g.device
     _check(g, "g", dev, torch.float32, 2)

@@ -1,0 +1,45 @@
+"""Plots of the fitting driver (port of ``plot_rdfs`` and ``plot_loss``
+from ``mdgrad_tpu/train/plots.py``): headless matplotlib, and nothing at
+all where matplotlib is not installed."""
+
+import numpy as np
+
+
+def _plt():
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return None
+    return plt
+
+
+def plot_rdfs(bins, g_target, g_sim, fname, path, pname=None):
+    """``path/fname.jpg``: the simulated g(r) over the target."""
+    plt = _plt()
+    if plt is None:
+        return
+    plt.figure()
+    plt.title(f"epoch {pname}")
+    plt.plot(bins, np.asarray(g_sim), linewidth=4, alpha=0.6, label="sim.")
+    plt.plot(bins, np.asarray(g_target), linewidth=2, linestyle="--",
+             c="black", label="target")
+    plt.xlabel("r [A]")
+    plt.ylabel("g(r)")
+    plt.legend()
+    plt.savefig(f"{path}/{fname}.jpg", bbox_inches="tight")
+    plt.close()
+
+
+def plot_loss(loss_log, path, fname="loss"):
+    """``path/fname.jpg``: the loss per epoch on a log scale."""
+    plt = _plt()
+    if plt is None:
+        return
+    plt.figure()
+    plt.semilogy(np.asarray(loss_log))
+    plt.xlabel("epoch")
+    plt.ylabel("loss")
+    plt.savefig(f"{path}/{fname}.jpg", bbox_inches="tight")
+    plt.close()

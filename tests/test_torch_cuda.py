@@ -420,6 +420,20 @@ def test_table_index_builds_its_csr_on_the_card(cuda):
     assert order.is_cuda and rowptr.shape == (513,)
 
 
+def test_table_index_csr_path(cuda):
+    """The build the CSR kernel reports: one block at the water table of
+    K = 40 (20480 edges, 215,300 bytes of shared memory), the grid past
+    32768 edges; both builds equal the plain one at a table regrown to
+    K = 72 (36864 edges)."""
+    assert tg.table_index_csr_path(512 * 40, 512) == "one block"
+    assert tg.table_index_csr_path(512 * 72, 512) == "grid"
+    idx = torch.tensor(np.random.default_rng(5).integers(
+        0, 513, size=512 * 72), dtype=torch.int32, device=cuda)
+    ref = tg.table_index_csr_plain(idx, 512)
+    got = tg._launch_table_index_csr(idx, 512)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
 # K5, K6 and K6b: the i < j walks on one template
 HALF_WALKS = ("lj_energy_forces", "lj_force", "lj_force_vjp")
 
