@@ -29,7 +29,10 @@ its phases, printing one line as each check ends:
    and on ``ops/time_rdf.py``'s edge cases (N = 2-1372, F =
    1-10, 1500 bins, unsorted centres, an unbounded bin, pairs at the
    cutoff and the image's edges); the library's reach argument equal to
-   ``ops/rdf.py``'s.
+   ``ops/rdf.py``'s; then the bf16 instantiations of K1, K2a and K2b
+   (``split=False``) against their plain versions on the same edge cases
+   (F % 8 != 0 their scalar path), at the water shape and through views at
+   a 2-byte offset, each giving the same bits twice.
 3. main    -- the water SchNet NVT sampling path at full width: 512 O sites
    on a diamond lattice at 0.99749 g/cm^3, Stack{SchNet(128/128/40, 2 convs,
    cutoff 6.0, (N, K) table), ExcludedVolume prior}, Nose-Hoover chain at
@@ -64,6 +67,21 @@ its phases, printing one line as each check ends:
    epoch 0 and regrows to K = 72, whose CSR build takes the grid kernel.
    Each call launches K1, K2a, K2b, the CSR build, K3/K4 and K3b/K4b, no
    LJ kernel and no plain version.
+4d. bf16  -- ``bench.py:33-69`` as it is: phase 3's model with SchNet
+   ``compute_dtype="bf16"`` at ``capacity_slack=1.25`` (K = 40).  The
+   dense layers' bf16 GEMMs on cuBLAS against an f32-accumulated product
+   (one bf16 ulp at most); the bf16 force against the f32 force of the same
+   weights and against the port's bf16 force on the CPU (the plain
+   versions); then phase 3's sampling run (1000 steps and the RDF) and 3
+   optimizer steps of ``bench.py``'s loss (a tau = 52 epoch through the
+   replay adjoint, mean((g - 1)^2) of the 109-bin g(r) of every 10th frame,
+   here through K3/K4; clipped Adam), and the same 3 steps in f32.  The bf16
+   runs launch the bf16 K1, K2a and K2b, no f32 gather kernel, and no plain
+   version.
+4e. mixed and skin -- ``fit_rdf`` at phase 4c's settings in ``'mixed'``
+   (the f32 gather kernels, a bf16 node filter) for one epoch, then with
+   ``gnn_skin`` 0.5 and ``topology_update_freq`` 3 for two; K, the
+   launches an epoch and epochs/s beside 4c's skinless fit.
 5. times   -- each kernel, its plain version and its library yardstick with
    CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms; K3/K4 at 50
    and 3 frames of 512 sites, at 10 of 1372 and at 1 of 512 with 800
@@ -72,8 +90,10 @@ its phases, printing one line as each check ends:
    frames at the SFU's rate; K2b's CSR
    build against the plain build, K2b beside each; K1, K2a and K2b warm,
    their inputs in the L2 as on the MD path, and cold, cycling over input
-   sets larger than the L2, with the cold share of the bound), MD,
-   training and fit steps/s, and the card's name and power limit.
+   sets larger than the L2, with the cold share of the bound, in f32 and
+   in bf16), MD, training and fit steps/s, bf16 against f32 from phase
+   4d, the skinned fit against the skinless, and the card's name and power
+   limit.
 5b. a/b    -- only with ``--against``: each OTHER.cu, another version of
    ``csrc/gather.cu`` (a file named ``gather*.cu``), ``csrc/rdf.cu``
    (``rdf*.cu``) or ``csrc/pair.cu`` (``pair*.cu``), built alone into a
@@ -88,9 +108,10 @@ its phases, printing one line as each check ends:
    older ``pair.cu`` with scratch sized by its own rule
    (``ops/time_pair.py``), one JSON line ``{"pair_ab": ...}``.
 
-Launch counts are zeroed just before phases 3, 3b, 4 and 4b and each
-call of 4c, and read just after each: phases 3, 4 and 4c must launch
-every water kernel, the CSR build included, and call no plain version.  The line before the last is a JSON object with one record per
+Launch counts are zeroed just before phases 3, 3b, 4 and 4b, each call
+of 4c and 4e and each run of 4d, and read just after each: phases 3, 4,
+4c and 4e must launch every water kernel, the CSR build included, 4d the
+bf16 gather kernels in their place, and none may call a plain version.  The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits non-zero.  Without a CUDA device it exits
 1 and prints no result.
@@ -164,7 +185,7 @@ def max_errs(got, ref):
     return err, err / max(scale, 1e-30), scale
 
 
-def build_water(mt, device, gather_mode="auto"):
+def build_water(mt, device, gather_mode="auto", compute_dtype="float32"):
     import numpy as np
     from mdgrad_tpu_torch import potentials
     from mdgrad_tpu_torch.data.registry import get_unit_len
@@ -174,7 +195,8 @@ def build_water(mt, device, gather_mode="auto"):
     system.set_temperature(298.0, rng=np.random.default_rng(SEED))
     gnn = mt.SchNet({"n_atom_basis": 128, "n_filters": 128,
                      "n_gaussians": 40, "n_convolutions": 2, "cutoff": 6.0,
-                     "compute_dtype": "float32", "gather_mode": gather_mode},
+                     "compute_dtype": compute_dtype,
+                     "gather_mode": gather_mode},
                     seed=SEED)
     stack = mt.Stack({
         "nn": mt.GNNPotentials(system, gnn, cutoff=6.0, capacity_slack=1.25,
@@ -322,6 +344,7 @@ FIT_REGROW = {"n_epochs": 2, "n_sim": 0, "capacity_slack": 0.5,
               "overflow_policy": "regrow", "regrow_factor": 4.5}
 WATER_KERNELS = ("gather_mul_reduce", "table_gather", "table_scatter",
                  "table_index_csr", "rdf_counts", "rdf_counts_bwd")
+GATHER_KERNELS = WATER_KERNELS[:3]    # K1, K2a, K2b: f32 and bf16
 
 
 class CsrWidths:
@@ -354,10 +377,12 @@ class CsrWidths:
             for (e, n), c in sorted(self.seen.items()))
 
 
-def fit_call(torch, fit_rdf, ops, gather, model_path, **sys_params):
+def fit_call(torch, fit_rdf, ops, gather, model_path, assignments=None,
+             **sys_params):
     """One ``fit_rdf`` call on the card at the water fit's settings plus
-    ``sys_params``; returns (result, log lines, per-epoch marks (time,
-    counts) taken at each epoch's log line, CsrWidths, wall seconds)."""
+    ``assignments`` and ``sys_params``; returns (result, log lines,
+    per-epoch marks (time, counts) taken at each epoch's log line,
+    CsrWidths, wall seconds)."""
     import numpy as np
     msgs, marks = [], []
 
@@ -371,8 +396,8 @@ def fit_call(torch, fit_rdf, ops, gather, model_path, **sys_params):
     ops.reset_counts()
     t0 = time.perf_counter()
     with CsrWidths(gather) as widths:
-        out = fit_rdf.fit_rdf(FIT_ASSIGNMENTS, {**FIT_SYS_PARAMS,
-                                                **sys_params},
+        out = fit_rdf.fit_rdf({**FIT_ASSIGNMENTS, **(assignments or {})},
+                              {**FIT_SYS_PARAMS, **sys_params},
                               model_path=model_path, log=log,
                               rng=np.random.default_rng(SEED),
                               device=torch.device("cuda", 0))
@@ -383,15 +408,20 @@ def fit_call(torch, fit_rdf, ops, gather, model_path, **sys_params):
 
 
 def check_fit_counts(counts, what):
-    """Every water kernel launched, no LJ kernel, no plain version."""
+    """Every water kernel launched (the f32 gather kernels: the fits run
+    float32 or 'mixed'), no bf16 instantiation, no LJ kernel, no plain
+    version."""
     for name in WATER_KERNELS:
         require(counts["launches"][name] > 0,
                 f"kernel {name} launched in the {what}")
     for name in LJ_KERNELS:
         require(counts["launches"][name] == 0,
                 f"the {what} launches no {name}")
-    for name, c in counts["plain_calls"].items():
-        require(c == 0, f"plain version of {name} not used in the {what}")
+    for name, c in counts["launches_bf16"].items():
+        require(c == 0, f"the {what} launches no bf16 {name}")
+    for group in ("plain_calls", "plain_calls_bf16"):
+        for name, c in counts[group].items():
+            require(c == 0, f"plain version of {name} not used in the {what}")
 
 
 def fit_phase(mt, torch, dev, records):
@@ -444,6 +474,7 @@ def fit_phase(mt, torch, dev, records):
             line(f"fit: launches in epoch {i}: {c}")
         line(f"fit: launches in the inference phase: {inference}")
         line(f"fit: CSR builds {widths.describe()}")
+        k_fresh = sorted({e // n for e, n in widths.seen})[0]
         require(inference["rdf_counts"] == 2
                 and inference["rdf_counts_bwd"] == 0,
                 "inference: one 800-bin K3 launch per frame, no backward")
@@ -492,11 +523,287 @@ def fit_phase(mt, torch, dev, records):
     check_fit_counts(ops.counts(), "regrown fit")
     line(f"fit regrow: k_max {ks[0]} -> {ks[-1]}; {wall3:.3f} s")
     return {"wall": wall, "epochs_s": epochs_s, "steady_s": steady_s,
-            "infer_s": infer_s, "peak": peak,
+            "infer_s": infer_s, "peak": peak, "k": k_fresh,
             "steps_per_s": n_epochs * n_steps / epochs_s,
             "epochs_per_s": n_epochs / epochs_s,
             "per_epoch": per_epoch[-1], "inference": inference,
             "resume_s": wall2, "regrow_s": wall3}
+
+
+# the fits of phase 4e: 'mixed' for one epoch at the fit's settings; the
+# Verlet skin with the table refreshed every 3rd step for 2 epochs
+# (VERDICT.md's measured next lever)
+FIT_MIXED = {"n_epochs": 1, "n_sim": 0}
+FIT_SKIN = {"n_epochs": 2, "n_sim": 0, "gnn_skin": 0.5,
+            "topology_update_freq": 3}
+
+
+def mixed_and_skin_phase(torch, records, fitted):
+    """Phase 4e (see the module docstring): ``fit_rdf`` in 'mixed' for one
+    epoch, then with ``gnn_skin`` 0.5 and ``topology_update_freq`` 3 for
+    two, beside the skinless fit of phase 4c (``fitted``)."""
+    import numpy as np
+    from mdgrad_tpu_torch import ops, topology
+    from mdgrad_tpu_torch.ops import gather
+    from mdgrad_tpu_torch.train import fit_rdf
+    out, msgs, marks, widths, wall = fit_call(
+        torch, fit_rdf, ops, gather, None, {"compute_dtype": "mixed"},
+        **FIT_MIXED)
+    for msg in msgs:
+        line(f"fit mixed: {msg}")
+    require(len(out["loss_log"]) == 1 and np.isfinite(out["loss_log"][0])
+            and np.isfinite(out["objective"]),
+            "the 'mixed' fit epoch gives a finite loss")
+    require(not any("overflow" in m for m in msgs),
+            "no neighbor-table overflow in the 'mixed' fit")
+    counts = ops.counts()
+    check_fit_counts(counts, "'mixed' fit")
+    line(f"fit mixed: launches {counts['launches']}; one epoch "
+         f"{marks[0][0]:.3f} s from the call, build included")
+
+    builds = []
+    real_build = topology.generate_neighbor_table
+
+    def counted(*args, **kwargs):
+        builds.append(1)
+        return real_build(*args, **kwargs)
+
+    topology.generate_neighbor_table = counted
+    try:
+        out, msgs, marks, widths, wall = fit_call(torch, fit_rdf, ops, gather,
+                                                  None, **FIT_SKIN)
+    finally:
+        topology.generate_neighbor_table = real_build
+    for msg in msgs:
+        line(f"fit skin: {msg}")
+    require(len(out["loss_log"]) == 2
+            and bool(np.isfinite(out["loss_log"]).all())
+            and np.isfinite(out["objective"]),
+            "the skinned fit gives 2 finite losses")
+    require(not any("overflow" in m for m in msgs),
+            "no neighbor-table overflow in the skinned fit")
+    counts = ops.counts()
+    check_fit_counts(counts, "skinned fit")
+    ks = sorted({e // n for e, n in widths.seen})
+    require(len(ks) == 1, f"one table width in the skinned fit ({ks})")
+    per_epoch = {name: marks[1][1]["launches"][name]
+                 - marks[0][1]["launches"][name]
+                 for name in WATER_KERNELS}
+    tables = len(builds)
+    steady_s = marks[1][0] - marks[0][0]
+    line(f"fit skin: K = {ks[0]} (skin 0.5, a table every 3rd step) against "
+         f"K = {fitted['k']} (no skin, a table every step); "
+         f"{tables} neighbor-table builds in the 2-epoch call")
+    line(f"fit skin: launches in epoch 1: {per_epoch}; without the skin: "
+         f"{fitted['per_epoch']}")
+    line(f"fit skin: {2 / marks[-1][0]:.4f} fit epochs/s from the call "
+         f"(build included), epoch 1 {steady_s:.3f} s; without the skin "
+         f"{fitted['epochs_per_s']:.4f} epochs/s, {fitted['steady_s']:.3f} "
+         f"s an epoch over epochs 1-2")
+    # a table every 3rd of 2 x 51 steps, the entry primes and the final
+    # evaluation's: 2 x 17 + a few, against one a step without the skin
+    require(tables <= 2 * 51 // 3 + 6,
+            f"the skinned fit builds a table every 3rd step ({tables})")
+    return {"k": ks[0], "per_epoch": per_epoch, "steady_s": steady_s,
+            "epochs_per_s": 2 / marks[-1][0], "tables": tables}
+
+
+def bench_loss_steps(torch, fit_rdf, sim, obs, stack, n_epochs):
+    """``n_epochs`` optimizer steps of bench.py's loss: one tau = 52 epoch
+    through the replay adjoint, the 109-bin g(r) of every 10th frame,
+    mean((g - 1)^2), clipped Adam; each epoch restarts from the last
+    state.  Returns (losses, wall s, peak bytes of the first epoch)."""
+    from mdgrad_tpu_torch import units
+    train = fit_rdf.fit_parameters(stack)
+    update = fit_rdf.FitUpdate(train, LR, GRAD_CLIP)
+    ode = sim.epoch_fn(0.5 * units.fs, 52)
+    ctrl = sim.integrator.default_ctrl()
+    state, aux = sim.initial_state()
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for epoch in range(n_epochs):
+        traj, aux = ode(state, aux, ctrl)
+        _, _, g = obs(traj.q[::10])
+        loss = ((g - 1.0) ** 2).mean()
+        loss.backward()
+        if epoch == 0:
+            peak = torch.cuda.max_memory_allocated()
+        update()
+        sim.check_flags()
+        state = traj._replace(**{
+            k: getattr(traj, k)[-1].detach() for k in traj._fields
+            if torch.is_tensor(getattr(traj, k))})
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    return losses, time.perf_counter() - t0, peak
+
+
+def dense_bf16_check(torch, layer, x):
+    """(outputs that differ, outputs, largest difference over its bound)
+    between the bf16 product ``x W^T`` of cuBLAS (as ``nn.schnet.linear``
+    computes it, before the bias) and the same bf16 operands multiplied in
+    f32 (TF32 off) and rounded once.  The bound: one bf16 ulp, 2^-7 |ref|,
+    plus 2^-20 of sum |x_k W_jk|, the f32 sums' order over K terms (a
+    reduction in bf16 would differ by ~2^-8 of that sum)."""
+    xb = x.detach().to(torch.bfloat16)
+    wb = layer.weight.detach().to(torch.bfloat16)
+    got = (xb @ wb.T).float()
+    ref = (xb.float() @ wb.float().T).to(torch.bfloat16).float()
+    terms = xb.float().abs() @ wb.float().abs().T
+    diff = (got - ref).abs()
+    bound = 2.0 ** -7 * ref.abs() + 2.0 ** -20 * terms
+    ratio = (diff / bound.clamp_min(1e-30)).max().item()
+    return int((diff > 0).sum()), diff.numel(), ratio
+
+
+def bf16_phase(mt, torch, dev, records, main):
+    """Phase 4d: bench.py:33-69 in bf16 (see the module docstring).  Fills
+    ``records[name + '.bf16']`` with the bf16 gather kernels' launches and
+    returns the phase's numbers beside the f32 ones of the same loss."""
+    import numpy as np
+    from mdgrad_tpu_torch import ops, units
+    from mdgrad_tpu_torch.nn.layers import gaussian_smearing, shifted_softplus
+    from mdgrad_tpu_torch.nn.schnet import linear
+    from mdgrad_tpu_torch.train import fit_rdf
+    system, stack = build_water(mt, dev, compute_dtype="bf16")
+    gnn_pot = stack.models["nn"]
+    require(gnn_pot.k_max == 40, f"bench.py's K = 40 at slack 1.25 "
+                                 f"({gnn_pot.k_max})")
+    _, stack32 = build_water(mt, dev)
+    _, stack_cpu = build_water(mt, "cpu", compute_dtype="bf16")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    xyz0 = torch.tensor(system.get_positions(), dtype=torch.float32,
+                        device=dev)
+    xyz = xyz0 + 0.05 * torch.randn(xyz0.shape, device=dev, generator=gen)
+
+    # the dense layers' bf16 GEMMs on cuBLAS against an f32-accumulated
+    # product of the same operands, at the shapes of the first convolution
+    conv = gnn_pot.gnn.convs[0]
+    aux = stack.aux_init(xyz)
+    table = aux["nn"]
+    with torch.no_grad():
+        d = xyz[:, None, :] - torch.cat([xyz, xyz.new_zeros(1, 3)])[
+            table.table.long()]
+        cell = gnn_pot.cell
+        d = d - torch.round(d / cell) * cell
+        e = torch.sqrt((d ** 2).sum(-1) + 1e-20)[..., None]
+        ef = gaussian_smearing(e, conv.offsets, conv.widths)
+        h = shifted_softplus(
+            linear(conv.filter_in, ef.to(torch.bfloat16), torch.bfloat16))
+        r = gnn_pot.gnn.embedding(gnn_pot.z)
+    for label, layer, x in (("filter_in", conv.filter_in, ef),
+                            ("filter_out", conv.filter_out, h),
+                            ("node_filter", conv.node_filter, r)):
+        n_diff, n_all, ratio = dense_bf16_check(torch, layer,
+                                                x.reshape(-1, x.shape[-1]))
+        line(f"bf16 dense {label} {tuple(x.shape)}: cuBLAS vs the f32-"
+             f"accumulated product: {n_diff} of {n_all} outputs differ, "
+             f"largest {ratio:.3f} of the bound (one bf16 ulp + 2^-20 of "
+             f"sum |x w|)")
+        require(ratio <= 1.0, f"the bf16 {label} GEMM accumulates in f32")
+
+    # the bf16 force on the card against the f32 force of the same weights
+    # and against the port's own bf16 force on the CPU (the split=False
+    # plain versions and the CPU's GEMMs)
+    def force(stk, device, x):
+        integ = mt.NoseHooverChain(stk, system, T=298.0, Q=50.0,
+                                   num_chains=5, device=device)
+        return integ.force(x, stk.aux_init(x))
+
+    f16 = force(stack, dev, xyz)
+    f32 = force(stack32, dev, xyz)
+    ops.reset_counts()
+    f_cpu = force(stack_cpu, "cpu", xyz.cpu())
+    cpu_calls = ops.counts()["plain_calls_bf16"]
+    err32, _, scale = max_errs(f16, f32)
+    err_cpu, _, _ = max_errs(f16.cpu(), f_cpu)
+    # bf16's own error: 4.7% of max |F| on an H100 (PERF.md); the card's
+    # bf16 against the CPU's, the same roundings in other orders: 0.6%
+    # (6.5% while the card subtracted log(2) unrounded)
+    line(f"bf16 force (card) vs f32 force: max_abs_err {err32:.3e} (max "
+         f"|F| {scale:.3e}, tol {1e-1 * scale:.3e}); vs the bf16 force on "
+         f"the CPU through the plain versions ({cpu_calls}): max_abs_err "
+         f"{err_cpu:.3e} (tol {err32:.3e}, the bf16 - f32 difference)")
+    require(scale > 0 and err32 <= 1e-1 * scale,
+            "the bf16 force is within 10% of the f32 force")
+    require(err_cpu <= err32, "the card's bf16 force is closer to the "
+                              "CPU's bf16 force than bf16 is to f32")
+    del stack_cpu, stack32, f_cpu
+
+    # the sampling run: as phase 3's, at bf16
+    obs = mt.observables.rdf(system, nbins=109, r_range=(1.8, 7.5),
+                             backend="pallas", device=dev)
+    integ = mt.NoseHooverChain(stack, system, T=298.0, Q=50.0, num_chains=5,
+                               adjoint=True, device=dev)
+    sim = mt.Simulation(system, integ)
+    n_epochs, frequency = 50, 21
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    sim.simulate(steps=n_epochs * frequency, dt=0.5 * units.fs,
+                 frequency=frequency)
+    frames = torch.stack(sim.log["positions"])
+    _, _, g_r = obs(frames)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    sampled = ops.counts()
+    n_steps = n_epochs * (frequency - 1)
+    line(f"bf16 main: {n_steps} steps + rdf on {frames.shape[0]} frames in "
+         f"{sample_s:.3f} s; T_final {system.temperature():.2f} K; g(r) max "
+         f"{g_r.max().item():.4f}; launches {sampled['launches']} bf16 "
+         f"{sampled['launches_bf16']}")
+    require(bool(torch.isfinite(frames).all())
+            and bool(torch.isfinite(g_r).all()), "bf16 sampling is finite")
+    require(not sim.overflowed and not sim.drifted,
+            "no overflow or drift in bf16 sampling")
+
+    # bench.py's training step, in bf16 and in f32 from the same call
+    system16, stack16 = build_water(mt, dev, compute_dtype="bf16")
+    sim16 = mt.Simulation(system16, mt.NoseHooverChain(
+        stack16, system16, T=298.0, Q=50.0, num_chains=5, adjoint=True,
+        device=dev))
+    ops.reset_counts()
+    losses, wall, peak = bench_loss_steps(torch, fit_rdf, sim16, obs,
+                                          stack16, 3)
+    trained = ops.counts()
+    line(f"bf16 train: losses {losses}; 3 x 51 steps in {wall:.3f} s; "
+         f"launches {trained['launches']} bf16 {trained['launches_bf16']}")
+    require(bool(np.isfinite(losses).all()), "the bf16 losses are finite")
+    require(not sim16.overflowed and not sim16.drifted,
+            "no overflow or drift in bf16 training")
+    system32, stack32 = build_water(mt, dev)
+    sim32 = mt.Simulation(system32, mt.NoseHooverChain(
+        stack32, system32, T=298.0, Q=50.0, num_chains=5, adjoint=True,
+        device=dev))
+    losses32, wall32, peak32 = bench_loss_steps(torch, fit_rdf, sim32, obs,
+                                                stack32, 3)
+    line(f"f32 train (bench.py's loss): losses {losses32}; 3 x 51 steps in "
+         f"{wall32:.3f} s")
+    for label, c in (("sampling", sampled), ("training", trained)):
+        for name in GATHER_KERNELS:
+            require(c["launches_bf16"][name] > 0,
+                    f"bf16 {name} launched in bf16 {label}")
+            require(c["launches"][name] == 0,
+                    f"bf16 {label} launches no f32 {name}")
+        for name in ("table_index_csr", "rdf_counts"):
+            require(c["launches"][name] > 0,
+                    f"{name} launched in bf16 {label}")
+        for group in ("plain_calls", "plain_calls_bf16"):
+            require(sum(c[group].values()) == 0,
+                    f"no plain version in bf16 {label} ({c[group]})")
+    for name in GATHER_KERNELS:
+        records[f"{name}.bf16"] = {
+            **records.get(f"{name}.bf16", {}),
+            "launches": trained["launches_bf16"][name],
+            "launches_per_train_step": trained["launches_bf16"][name] / 3,
+            "launches_sampling": sampled["launches_bf16"][name]}
+    return {"sample_steps_per_s": n_steps / sample_s,
+            "train_steps_per_s": 3 * 51 / wall, "peak": peak,
+            "train32_steps_per_s": 3 * 51 / wall32, "peak32": peak32,
+            "f32_sample_steps_per_s": main["steps_per_s"],
+            "err32": err32, "err_cpu": err_cpu}
 
 
 def gather_phase(torch, dev, gen, gather, time_gather, index, k, compare,
@@ -553,6 +860,90 @@ def gather_phase(torch, dev, gen, gather, time_gather, index, k, compare,
         v, w, index.idx, k), 1e-5)
     compare("table_gather", gather._launch_table_gather(v, index.idx),
             gather.table_gather_plain(v, index.idx), 0.0)
+
+
+def gather_bf16_phase(torch, dev, gen, gather, time_gather, index, k,
+                      records):
+    """K1, K2a and K2b's bf16 instantiations (``split=False``) against
+    their plain versions on ``time_gather``'s edge cases (F % 8 != 0 takes
+    the scalar path) and at the water shape, there also through views at a
+    2-byte storage offset (the scalar path).  K1 (f32 sums of the same
+    products in another order, rounded once to bf16) within one bf16 ulp,
+    2^-7 |ref|, plus 1e-5 of max(|ref|, 1); K2a bit-exact; K2b (f32 sums
+    of bf16 rows, f32 out) within 1e-5 of max(|ref|, 1).  Each gives the
+    same bits on a second call."""
+    import numpy as np
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(SEED + 5)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(bf16)
+
+    errs = {name: 0.0 for name in GATHER_KERNELS}
+
+    def check(v, w, g, idx, idx_index, kk, what):
+        n = v.shape[0]
+        got = gather._launch_gather_mul_reduce(v, w, idx, kk, False)
+        ref = gather.gather_mul_reduce_plain(v, w, idx, kk, False)
+        err, _, scale = max_errs(got, ref)
+        require(got.dtype == bf16 and bool(
+            ((got.float() - ref.float()).abs()
+             <= 2.0 ** -7 * ref.float().abs() + 1e-5 * max(scale, 1.0))
+            .all()), f"bf16 K1 agrees with its plain version at {what}")
+        out = gather._launch_table_gather(v, idx, False)
+        require(out.dtype == bf16 and torch.equal(
+            out, gather.table_gather_plain(v, idx, False)),
+            f"bf16 K2a is bit-exact at {what}")
+        sc = gather._launch_table_scatter(g, idx_index, False)
+        ref_sc = gather.table_scatter_plain(g.float(), idx, n, False)
+        err_sc, _, scale_sc = max_errs(sc, ref_sc)
+        require(sc.dtype == torch.float32
+                and err_sc <= 1e-5 * max(scale_sc, 1.0),
+                f"bf16 K2b agrees with its plain version at {what}")
+        require(torch.equal(got, gather._launch_gather_mul_reduce(
+            v, w, idx, kk, False)) and torch.equal(
+            out, gather._launch_table_gather(v, idx, False)) and torch.equal(
+            sc, gather._launch_table_scatter(g, idx_index, False)),
+            f"the bf16 kernels give the same bits twice at {what}")
+        for name, e in zip(GATHER_KERNELS, (err, 0.0, err_sc)):
+            errs[name] = max(errs[name], e)
+
+    n, n_out = 37, 29
+    for f in time_gather.GATHER_F:
+        for k_case in time_gather.GATHER_K:
+            for layout in time_gather.GATHER_LAYOUTS:
+                idx = torch.tensor(time_gather.gather_index(
+                    rng, layout, n, n_out, k_case), device=dev)
+                check(randn(n, f), randn(n_out * k_case, f),
+                      randn(n_out * k_case, f), idx,
+                      gather.TableIndex(idx, n), k_case,
+                      f"F={f}, K={k_case}, {layout}")
+    n, f = index.n, 128
+    e = index.idx.shape[0]
+    check(randn(n, f), randn(e, f), randn(e, f), index.idx, index, k,
+          "the water shape")
+    buf = randn(1 + n * f + 2 * e * f)
+    v = buf[1:1 + n * f].view(n, f)
+    w = buf[1 + n * f:1 + n * f + e * f].view(e, f)
+    g = buf[1 + n * f + e * f:].view(e, f)
+    require(v.data_ptr() % 16 != 0 and w.data_ptr() % 16 != 0,
+            "the bf16 views break 16-byte alignment")
+    check(v, w, g, index.idx, index, k, "the water shape, 2-byte offset")
+    require(torch.equal(gather._launch_gather_mul_reduce(v, w, index.idx, k,
+                                                         False),
+                        gather._launch_gather_mul_reduce(
+                            v.clone(), w.clone(), index.idx, k, False)),
+            "bf16 K1's scalar path gives the 16-byte path's bits")
+    line(f"kernel gather bf16 (split=False): F = "
+         f"{', '.join(map(str, time_gather.GATHER_F))} x K = 1, 12, 40 x "
+         f"{len(time_gather.GATHER_LAYOUTS)} sentinel layouts, the water "
+         f"shape and a 2-byte offset: K1 max_abs_err "
+         f"{errs['gather_mul_reduce']:.3e} (tol one bf16 ulp + 1e-5 of "
+         f"max(|ref|, 1)), K2a bit-equal, K2b max_abs_err "
+         f"{errs['table_scatter']:.3e} (tol 1e-5 of max(|ref|, 1)); the same "
+         f"bits twice")
+    for name, err in errs.items():
+        records.setdefault(f"{name}.bf16", {})["max_abs_err"] = err
 
 
 def gather_lib_errs(torch, gather, time_gather, lib, s, k):
@@ -1407,6 +1798,8 @@ def main():
     gather_phase(torch, dev, gen, gather, time_gather, index, k, compare,
                  records)
     csr_phase(torch, dev, gather, index, g_edges)
+    gather_bf16_phase(torch, dev, gen, gather, time_gather, index, k,
+                      records)
 
     obs = mt.observables.rdf(system, nbins=109, r_range=(1.8, 7.5),
                              backend="pallas", device=dev)
@@ -1541,6 +1934,13 @@ def main():
 
     # ---- 4c. the fit driver -------------------------------------------------
     fitted = fit_phase(mt, torch, dev, records)
+
+    # ---- 4d. bench.py's bf16 configuration --------------------------------
+    bf16_run = bf16_phase(mt, torch, dev, records,
+                          {"steps_per_s": steps_per_s})
+
+    # ---- 4e. 'mixed' and the Verlet skin through the fit driver -----------
+    skinned = mixed_and_skin_phase(torch, records, fitted)
     reach_phase(time_rdf, {"water": op, "water fit": trained["rdf_op"],
                            "lj fit": lj_fitted["rdf_op"],
                            "fit inference": op_infer})
@@ -1602,6 +2002,55 @@ def main():
              f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}  "
              f"bound {b_ms * 1e3:.3f} us ({b_by}; {s['bytes']} B, "
              f"{s['ops']} ops)")
+    # the bf16 instantiations (split=False), timed the same way on bf16
+    # sets; their bound moves 2 bytes a feature (K2b writes f32 sums)
+    bf16 = torch.bfloat16
+    values16, w16, g16 = values.to(bf16), w.to(bf16), g_edges.to(bf16)
+    pad16 = torch.cat([values16, values16.new_zeros(1, f)])
+    zero16 = torch.zeros(n + 1, f, device=dev, dtype=bf16)
+    sets16 = time_gather.make_sets(index, k, time_gather.N_SETS, gen, f,
+                                   bf16)
+    times16 = time_gather.warm_cold(_build.library(), sets16, k)
+    bytes16 = time_gather.bound_bytes(n, f, n_edges, e_real, elem=2)
+    del sets16
+    specs16 = {
+        "gather_mul_reduce": dict(
+            plain=lambda: gather.gather_mul_reduce_plain(
+                values16, w16, index.idx, k, False),
+            library=None, ops=2 * e_real * f),
+        "table_gather": dict(
+            plain=lambda: gather.table_gather_plain(values16, index.idx,
+                                                    False),
+            library=lambda: torch.index_select(pad16, 0, key), ops=0),
+        # the library call sums in bf16 (one call, not the same rounding)
+        "table_scatter": dict(
+            plain=lambda: gather.table_scatter_plain(g16, index.idx, n,
+                                                     False),
+            library=lambda: zero16.index_add_(0, key, g16), ops=e_real * f),
+    }
+    for name, s16 in specs16.items():
+        ms, cold = times16[name]["ms"], times16[name]["cold_ms"]
+        plain_ms = timing.time_graph(s16["plain"], reps=20)
+        lib_ms = (None if s16["library"] is None
+                  else timing.time_graph(s16["library"], reps=100))
+        b_ms, b_by = bound_ms(bytes16[name], s16["ops"])
+        rec = records[f"{name}.bf16"]
+        kernels_json.append({
+            "name": f"{name}.bf16", "route": "cuda",
+            "source": "mdgrad_tpu_torch/csrc/gather.cu",
+            "replaces": specs[name]["replaces"] + " (split=False)",
+            "launches": rec["launches"],
+            "launches_per_train_step": rec["launches_per_train_step"],
+            "launches_sampling": rec["launches_sampling"],
+            "max_abs_err": rec["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "cold_ms": cold, "cold_share_of_bound": b_ms / cold})
+        line(f"time {name}.bf16: kernel {ms * 1e3:.2f} us warm, "
+             f"{cold * 1e3:.2f} us cold ({b_ms / cold:.1%} of the bound)  "
+             f"plain {plain_ms * 1e3:.2f} us  library "
+             f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}  "
+             f"bound {b_ms * 1e3:.3f} us ({b_by}; {bytes16[name]} B, "
+             f"{s16['ops']} ops)")
     # K2b's CSR inverse, rebuilt with each new TableIndex (once per SchNet
     # energy): the kernel (one-block and grid builds) and the plain build,
     # K2b with each, and both builds called eagerly back to back (host
@@ -1704,6 +2153,19 @@ def main():
          f"{fitted['infer_s']:.3f} s; call {fitted['wall']:.3f} s; peak "
          f"memory {fitted['peak']} B; resume call {fitted['resume_s']:.3f} "
          f"s, regrow call {fitted['regrow_s']:.3f} s")
+    line(f"time bf16 (bench.py's configuration, K = 40): sampling "
+         f"{bf16_run['sample_steps_per_s']:.2f} steps/s against f32 "
+         f"{bf16_run['f32_sample_steps_per_s']:.2f} (1000 steps + rdf each); "
+         f"training {bf16_run['train_steps_per_s']:.2f} steps/s against f32 "
+         f"{bf16_run['train32_steps_per_s']:.2f} (3 x 51 steps of bench.py's "
+         f"loss each); replay epoch peak memory {bf16_run['peak']} B against "
+         f"f32 {bf16_run['peak32']} B")
+    line(f"time skin fit: K = {skinned['k']}, {skinned['epochs_per_s']:.4f} "
+         f"fit epochs/s from the call, epoch 1 {skinned['steady_s']:.3f} s, "
+         f"{skinned['tables']} neighbor-table builds in 2 epochs; without "
+         f"the skin K = {fitted['k']}, {fitted['epochs_per_s']:.4f} "
+         f"epochs/s, {fitted['steady_s']:.3f} s an epoch, a table every "
+         f"step")
     line(f"time lj sampling: {lj_sampled['steps_per_s']:.2f} steps/s (N=4000 "
          f"NVE, 950 steps, energy drift {lj_sampled['drift']:.3e})")
     line(f"time lj fit: {lj_fitted['steps_per_s']:.2f} fwd+bwd MD steps/s "

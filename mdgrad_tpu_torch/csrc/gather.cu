@@ -50,10 +50,19 @@
 // the smaller value at the lower index, so the padding past the segment
 // never moves), which undoes the atomics' run-to-run order.
 //
+// bf16 (the JAX package's split=False, mdg_*_bf16): the same three kernels
+// instantiated over bf16 rows, 8 to a 16-byte lane (uint4) where F % 8 == 0
+// and the rows are aligned, else one at a time (unsigned short, the bf16
+// bits).  K1 widens each bf16 to f32 (exact: the top 16 bits), so each
+// product is exact in f32, sums over K in f32 in the same fixed order as
+// the f32 kernel and rounds once to bf16 (round to nearest even); K2a
+// copies the bf16 bits; K2b sums bf16 rows in f32 and writes f32.
+//
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() so that a refused
 // launch is raised by the Python wrapper.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -62,12 +71,38 @@
 namespace {
 
 // ---- K1 and K2a ------------------------------------------------------------
-// A row of F floats moves as T = float4 (16 bytes a lane) when F % 4 == 0
-// and every row pointer is 16-byte aligned, else as T = float: the same
-// kernels, instantiated twice.  fv is the row length in T.
+// A row of F elements moves as a lane type T: float4 (4 f32, 16 bytes)
+// when F % 4 == 0 and every row pointer is 16-byte aligned, else float;
+// for bf16 rows uint4 (8 bf16, 16 bytes) when F % 8 == 0 and aligned, else
+// unsigned short (one bf16's bits).  The same kernels are instantiated
+// four times; fv is the row length in T.  K1 accumulates a lane in f32:
+// Acc<T> is float4, float, Float8 (8 f32) and float.
+
+using bf16_bits = unsigned short;
+
+struct Float8 {
+  float v[8];
+};
+
+template <typename T>
+struct AccOf {
+  using type = T;
+};
+template <>
+struct AccOf<uint4> {
+  using type = Float8;
+};
+template <>
+struct AccOf<bf16_bits> {
+  using type = float;
+};
 
 __device__ __forceinline__ float4 load(const float4* p) { return __ldg(p); }
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ uint4 load(const uint4* p) { return __ldg(p); }
+__device__ __forceinline__ bf16_bits load(const bf16_bits* p) {
+  return __ldg(p);
+}
 
 template <typename T>
 __device__ __forceinline__ T zero();
@@ -77,6 +112,37 @@ __device__ __forceinline__ float4 zero<float4>() {
 }
 template <>
 __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ uint4 zero<uint4>() {
+  return make_uint4(0u, 0u, 0u, 0u);
+}
+template <>
+__device__ __forceinline__ bf16_bits zero<bf16_bits>() { return 0; }
+template <>
+__device__ __forceinline__ Float8 zero<Float8>() {
+  Float8 a;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) a.v[i] = 0.f;
+  return a;
+}
+
+// bf16 -> f32 is exact: the bf16 bits are the top half of the f32's
+__device__ __forceinline__ float widen(bf16_bits b) {
+  return __uint_as_float(static_cast<unsigned>(b) << 16);
+}
+__device__ __forceinline__ float widen_lo(unsigned word) {
+  return __uint_as_float(word << 16);
+}
+__device__ __forceinline__ float widen_hi(unsigned word) {
+  return __uint_as_float(word & 0xffff0000u);
+}
+__device__ __forceinline__ bf16_bits round_bf16(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ unsigned round_pair(float lo, float hi) {
+  return static_cast<unsigned>(round_bf16(lo)) |
+         (static_cast<unsigned>(round_bf16(hi)) << 16);
+}
 
 __device__ __forceinline__ void fma_into(float4& acc, float4 a, float4 b) {
   acc.x = fmaf(a.x, b.x, acc.x);
@@ -87,6 +153,21 @@ __device__ __forceinline__ void fma_into(float4& acc, float4 a, float4 b) {
 __device__ __forceinline__ void fma_into(float& acc, float a, float b) {
   acc = fmaf(a, b, acc);
 }
+// a product of two bf16 is exact in f32, so the FMA rounds only the sum
+__device__ __forceinline__ void fma_into(Float8& acc, uint4 a, uint4 b) {
+  const unsigned aw[4] = {a.x, a.y, a.z, a.w};
+  const unsigned bw[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc.v[2 * i] = fmaf(widen_lo(aw[i]), widen_lo(bw[i]), acc.v[2 * i]);
+    acc.v[2 * i + 1] =
+        fmaf(widen_hi(aw[i]), widen_hi(bw[i]), acc.v[2 * i + 1]);
+  }
+}
+__device__ __forceinline__ void fma_into(float& acc, bf16_bits a,
+                                         bf16_bits b) {
+  acc = fmaf(widen(a), widen(b), acc);
+}
 __device__ __forceinline__ void add_into(float4& acc, float4 a) {
   acc.x += a.x;
   acc.y += a.y;
@@ -94,6 +175,25 @@ __device__ __forceinline__ void add_into(float4& acc, float4 a) {
   acc.w += a.w;
 }
 __device__ __forceinline__ void add_into(float& acc, float a) { acc += a; }
+__device__ __forceinline__ void add_into(Float8& acc, const Float8& a) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc.v[i] += a.v[i];
+}
+
+// K1's f32 sums in the lane type of its output (bf16 rounded once)
+template <typename T>
+__device__ __forceinline__ T narrow(const typename AccOf<T>::type& a) {
+  return a;
+}
+template <>
+__device__ __forceinline__ uint4 narrow<uint4>(const Float8& a) {
+  return make_uint4(round_pair(a.v[0], a.v[1]), round_pair(a.v[2], a.v[3]),
+                    round_pair(a.v[4], a.v[5]), round_pair(a.v[6], a.v[7]));
+}
+template <>
+__device__ __forceinline__ bf16_bits narrow<bf16_bits>(const float& a) {
+  return round_bf16(a);
+}
 
 __device__ __forceinline__ bool real_row(int j, int n) {
   return static_cast<unsigned>(j) < static_cast<unsigned>(n);
@@ -114,7 +214,8 @@ __global__ void __launch_bounds__(32 * kMaxRowWarps) gather_mul_reduce_kernel(
     const T* __restrict__ values, const T* __restrict__ w,
     const int* __restrict__ idx, T* __restrict__ out, int n_values, int k,
     int fv) {
-  __shared__ T part[kMaxRowWarps][32];
+  using Acc = typename AccOf<T>::type;
+  __shared__ Acc part[kMaxRowWarps][32];
   const int lane = threadIdx.x;
   const int q = threadIdx.y;
   const int n_warps = blockDim.y;
@@ -122,7 +223,7 @@ __global__ void __launch_bounds__(32 * kMaxRowWarps) gather_mul_reduce_kernel(
   for (int c0 = 0; c0 < fv; c0 += 32) {   // one pass at F = 128
     const int c = c0 + lane;
     const bool in_row = c < fv;
-    T acc = zero<T>();
+    Acc acc = zero<Acc>();
     for (int s0 = q; s0 < k; s0 += n_warps * kSlotsPerWarp) {
       int j[kSlotsPerWarp];
 #pragma unroll
@@ -145,9 +246,9 @@ __global__ void __launch_bounds__(32 * kMaxRowWarps) gather_mul_reduce_kernel(
     part[q][lane] = acc;
     __syncthreads();
     if (q == 0 && in_row) {
-      T sum = part[0][lane];
+      Acc sum = part[0][lane];
       for (int p = 1; p < n_warps; ++p) add_into(sum, part[p][lane]);
-      out[static_cast<long long>(blockIdx.x) * fv + c] = sum;
+      out[static_cast<long long>(blockIdx.x) * fv + c] = narrow<T>(sum);
     }
     __syncthreads();
   }
@@ -200,8 +301,12 @@ bool aligned16(const void* p) {
 
 constexpr int kRowsPerBlock = 2;
 
+// K2b.  In is float or bf16_bits; the sums are f32, in ascending edge order.
+__device__ __forceinline__ float widen(float x) { return x; }
+
+template <typename In>
 __global__ void table_scatter_kernel(
-    const float* __restrict__ g, const int* __restrict__ order,
+    const In* __restrict__ g, const int* __restrict__ order,
     const int* __restrict__ rowptr, float* __restrict__ out,
     int n_out, int f) {
   const int i = blockIdx.x * blockDim.y + threadIdx.y;
@@ -211,7 +316,8 @@ __global__ void table_scatter_kernel(
   for (int c = threadIdx.x; c < f; c += blockDim.x) {
     float acc = 0.f;
     for (int p = p0; p < p1; ++p) {
-      acc += __ldg(g + static_cast<long long>(__ldg(order + p)) * f + c);
+      acc += widen(
+          __ldg(g + static_cast<long long>(__ldg(order + p)) * f + c));
     }
     out[static_cast<long long>(i) * f + c] = acc;
   }
@@ -445,6 +551,63 @@ bool csr_one_block(int e, int n, int max_shared, int limit) {
          bytes <= limit;
 }
 
+// K1 with Vec (kLanes elements a 16-byte lane) where F and the pointers
+// allow it, else Scalar.
+template <typename Vec, typename Scalar, int kLanes>
+int launch_gather_mul_reduce(const Scalar* values, const Scalar* w,
+                             const int* idx, Scalar* out, int n_values,
+                             int n_out, int k, int f, void* stream) {
+  if (n_out == 0) return 0;
+  if (k < 1 || f < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int warps = std::min(kMaxRowWarps,
+                             (k + kSlotsPerWarp - 1) / kSlotsPerWarp);
+  const dim3 block(32, warps);
+  if (f % kLanes == 0 && aligned16(values) && aligned16(w) &&
+      aligned16(out)) {
+    gather_mul_reduce_kernel<Vec><<<n_out, block, 0, s>>>(
+        reinterpret_cast<const Vec*>(values),
+        reinterpret_cast<const Vec*>(w), idx, reinterpret_cast<Vec*>(out),
+        n_values, k, f / kLanes);
+  } else {
+    gather_mul_reduce_kernel<Scalar><<<n_out, block, 0, s>>>(
+        values, w, idx, out, n_values, k, f);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Vec, typename Scalar, int kLanes>
+int launch_table_gather(const Scalar* values, const int* idx, Scalar* out,
+                        int n_values, int n_edges, int f, void* stream) {
+  if (n_edges == 0) return 0;
+  if (f < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int rows_per_block = kGatherWarps * kGatherRowsPerWarp;
+  const int grid =
+      static_cast<int>((n_edges + rows_per_block - 1LL) / rows_per_block);
+  if (f % kLanes == 0 && aligned16(values) && aligned16(out)) {
+    table_gather_kernel<Vec><<<grid, kGatherThreads, 0, s>>>(
+        reinterpret_cast<const Vec*>(values), idx,
+        reinterpret_cast<Vec*>(out), n_values, n_edges, f / kLanes);
+  } else {
+    table_gather_kernel<Scalar><<<grid, kGatherThreads, 0, s>>>(
+        values, idx, out, n_values, n_edges, f);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename In>
+int launch_table_scatter(const In* g, const int* order, const int* rowptr,
+                         float* out, int n_out, int f, void* stream) {
+  if (n_out == 0) return 0;
+  const dim3 block = feature_block(f);
+  const dim3 grid((n_out + kRowsPerBlock - 1) / kRowsPerBlock);
+  table_scatter_kernel<In><<<grid, block, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      g, order, rowptr, out, n_out, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -456,51 +619,45 @@ const char* mdg_error_string(int code) {
 int mdg_gather_mul_reduce(const float* values, const float* w, const int* idx,
                           float* out, int n_values, int n_out, int k, int f,
                           void* stream) {
-  if (n_out == 0) return 0;
-  if (k < 1 || f < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int warps = std::min(kMaxRowWarps,
-                             (k + kSlotsPerWarp - 1) / kSlotsPerWarp);
-  const dim3 block(32, warps);
-  if (f % 4 == 0 && aligned16(values) && aligned16(w) && aligned16(out)) {
-    gather_mul_reduce_kernel<float4><<<n_out, block, 0, s>>>(
-        reinterpret_cast<const float4*>(values),
-        reinterpret_cast<const float4*>(w), idx,
-        reinterpret_cast<float4*>(out), n_values, k, f / 4);
-  } else {
-    gather_mul_reduce_kernel<float><<<n_out, block, 0, s>>>(
-        values, w, idx, out, n_values, k, f);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_gather_mul_reduce<float4, float, 4>(values, w, idx, out,
+                                                    n_values, n_out, k, f,
+                                                    stream);
+}
+
+// bf16 values, w and out (their bits as unsigned short)
+int mdg_gather_mul_reduce_bf16(const bf16_bits* values, const bf16_bits* w,
+                               const int* idx, bf16_bits* out, int n_values,
+                               int n_out, int k, int f, void* stream) {
+  return launch_gather_mul_reduce<uint4, bf16_bits, 8>(values, w, idx, out,
+                                                       n_values, n_out, k, f,
+                                                       stream);
 }
 
 int mdg_table_gather(const float* values, const int* idx, float* out,
                      int n_values, int n_edges, int f, void* stream) {
-  if (n_edges == 0) return 0;
-  if (f < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int rows_per_block = kGatherWarps * kGatherRowsPerWarp;
-  const int grid =
-      static_cast<int>((n_edges + rows_per_block - 1LL) / rows_per_block);
-  if (f % 4 == 0 && aligned16(values) && aligned16(out)) {
-    table_gather_kernel<float4><<<grid, kGatherThreads, 0, s>>>(
-        reinterpret_cast<const float4*>(values), idx,
-        reinterpret_cast<float4*>(out), n_values, n_edges, f / 4);
-  } else {
-    table_gather_kernel<float><<<grid, kGatherThreads, 0, s>>>(
-        values, idx, out, n_values, n_edges, f);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_table_gather<float4, float, 4>(values, idx, out, n_values,
+                                               n_edges, f, stream);
+}
+
+int mdg_table_gather_bf16(const bf16_bits* values, const int* idx,
+                          bf16_bits* out, int n_values, int n_edges, int f,
+                          void* stream) {
+  return launch_table_gather<uint4, bf16_bits, 8>(values, idx, out, n_values,
+                                                  n_edges, f, stream);
 }
 
 int mdg_table_scatter(const float* g, const int* order, const int* rowptr,
                       float* out, int n_out, int f, void* stream) {
-  if (n_out == 0) return 0;
-  const dim3 block = feature_block(f);
-  const dim3 grid((n_out + kRowsPerBlock - 1) / kRowsPerBlock);
-  table_scatter_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      g, order, rowptr, out, n_out, f);
-  return static_cast<int>(cudaGetLastError());
+  return launch_table_scatter<float>(g, order, rowptr, out, n_out, f,
+                                     stream);
+}
+
+// bf16 g, f32 out
+int mdg_table_scatter_bf16(const bf16_bits* g, const int* order,
+                           const int* rowptr, float* out, int n_out, int f,
+                           void* stream) {
+  return launch_table_scatter<bf16_bits>(g, order, rowptr, out, n_out, f,
+                                         stream);
 }
 
 // K2b's CSR inverse of idx (e,) over n rows: order (e,) and rowptr

@@ -2,7 +2,8 @@
 
 Port of ``mdgrad_tpu/interface.py`` for the sampling slice: the
 :class:`Interaction` contract, :class:`PairPotentials` in dense mode,
-:class:`GNNPotentials` over an (N, K) neighbor table, and :class:`Stack`.
+:class:`GNNPotentials` over an (N, K) neighbor table or an edge list,
+and :class:`Stack`.
 
 The JAX contract passes a params pytree into pure functions; here every
 interaction is an ``nn.Module`` that owns its parameters:
@@ -114,29 +115,51 @@ class PairPotentials(Interaction):
 
 
 class GNNPotentials(Interaction):
-    """GNN force field over an (N, K) neighbor table refreshed by
-    ``aux_update`` (``nbr_mode='table'``, diagonal cells).
+    """GNN force field over a neighbor structure refreshed by
+    ``aux_update``.
 
-    ``k_max`` defaults to the largest in-cutoff neighbor count at the
-    system's current positions times ``capacity_slack``, rounded up to a
-    multiple of 8, as in the JAX package.
+    ``nbr_mode``: ``'table'`` (the (N, K) table), ``'topk'`` (the directed
+    edge list of each atom's K nearest, ``topology.generate_nbr_list_topk``)
+    or ``'sparse'`` (the (i < j) edge list of fixed ``capacity``,
+    ``topology.generate_nbr_list``; the JAX package takes any other value
+    for it).  ``'cells'`` is not ported (ROADMAP Queue 1, Slice E).
+
+    ``k_max`` defaults to the largest neighbor count inside ``cutoff +
+    skin`` at the system's current positions times ``capacity_slack``,
+    rounded up to a multiple of 8; ``capacity`` to the pair count times
+    ``capacity_slack``, rounded up to 128; as in the JAX package.
+
+    ``skin`` (the Verlet skin, table mode only): the table is built at
+    ``cutoff + skin`` and SchNet masks each edge by its current length, so
+    a table refreshed every ``topology_update_freq`` steps stays exact
+    while no atom moves more than skin / 2 between refreshes.
+
+    A triclinic cell stores each table edge's offsets
+    (``store_offsets``); energy turns them into real space in full f32.
     """
 
-    def __init__(self, system, gnn, cutoff, ex_pairs=None,
-                 capacity_slack=1.6, nbr_mode="table", k_max=None,
+    def __init__(self, system, gnn, cutoff, ex_pairs=None, capacity=None,
+                 capacity_slack=1.6, nbr_mode="table", k_max=None, skin=0.0,
                  device="cuda"):
         super().__init__()
         check_system(system)
         device = resolve_device(device)
-        if nbr_mode != "table":
-            raise NotImplementedError(f"nbr_mode {nbr_mode!r}: only 'table' "
-                                      "is ported so far")
-        self._register_cell("cell_len", system)
-        if self.cell_len.dim() != 1:
-            raise NotImplementedError("GNNPotentials needs a diagonal cell "
-                                      "in this port")
+        if nbr_mode == "cells":
+            raise NotImplementedError(
+                "nbr_mode 'cells' is not ported yet (ROADMAP Queue 1, "
+                "Slice E: large N)")
+        if nbr_mode not in ("table", "topk", "sparse"):
+            raise ValueError(f"nbr_mode {nbr_mode!r} not in ('table', "
+                             "'topk', 'sparse')")
+        if skin > 0 and nbr_mode != "table":
+            raise ValueError("skin > 0 requires nbr_mode='table' (the mode "
+                             "with runtime cutoff re-masking)")
+        self._register_cell("cell", system)
+        self.store_offsets = self.cell.dim() != 1
         self.gnn = gnn
         self.cutoff = cutoff
+        self.skin = skin
+        self.build_cutoff = cutoff + skin
         self.nbr_mode = nbr_mode
         n = system.get_number_of_atoms()
         self.register_buffer(
@@ -145,19 +168,31 @@ class GNNPotentials(Interaction):
         self.register_buffer("select_mask",
                              topology.pair_index_mask(n, None, ex_pairs),
                              persistent=False)
-        if k_max is None:
-            xyz0 = torch.as_tensor(system.get_positions(),
-                                   dtype=torch.float32)
-            k0 = topology.max_neighbors(xyz0, cutoff, self.cell_len,
-                                        self.select_mask)
-            k_max = int(np.ceil(max(k0, 1) * capacity_slack / 8) * 8)
-        self.k_max = min(k_max, n)
+        xyz0 = torch.as_tensor(system.get_positions(), dtype=torch.float32)
+        if nbr_mode == "sparse":
+            self.capacity = capacity or topology.estimate_capacity(
+                xyz0, cutoff, self.cell, self.select_mask,
+                slack=capacity_slack)
+        else:
+            if k_max is None:
+                k0 = topology.max_neighbors(xyz0, self.build_cutoff,
+                                            self.cell, self.select_mask)
+                k_max = int(np.ceil(max(k0, 1) * capacity_slack / 8) * 8)
+            self.k_max = min(k_max, n)
         self.to(device)
 
     def grow_capacity(self, factor=1.5):
         """``k_max`` times ``factor``, rounded up to a multiple of 8 and
-        capped at N; True if it grew."""
+        capped at N (the edge list: ``capacity`` times ``factor``, capped
+        at N (N - 1) / 2); True if it grew."""
         n = int(self.z.shape[0])
+        if self.nbr_mode == "sparse":
+            new_c = min(int(np.ceil(self.capacity * factor)),
+                        n * (n - 1) // 2)
+            if new_c > self.capacity:
+                self.capacity = new_c
+                return True
+            return False
         new_k = min(int(np.ceil(self.k_max * factor / 8) * 8), n)
         if new_k > self.k_max:
             self.k_max = new_k
@@ -165,16 +200,40 @@ class GNNPotentials(Interaction):
         return False
 
     def aux_init(self, xyz):
-        return topology.generate_neighbor_table(
-            xyz, self.cutoff, self._cell("cell_len", xyz), self.k_max,
-            self.select_mask)
+        cell = self._cell("cell", xyz)
+        if self.nbr_mode == "table":
+            return topology.generate_neighbor_table(
+                xyz, self.build_cutoff, cell, self.k_max, self.select_mask,
+                store_offsets=self.store_offsets)
+        if self.nbr_mode == "topk":
+            return topology.generate_nbr_list_topk(
+                xyz, self.cutoff, cell, self.k_max, self.select_mask,
+                directed=True)
+        return topology.generate_nbr_list(xyz, self.cutoff, cell,
+                                          self.capacity, self.select_mask)
 
     def aux_update(self, xyz, aux):
         return self.aux_init(xyz)
 
+    def _real(self, offsets, cell):
+        """Fractional offsets in real space, in full f32 (TF32 is off)."""
+        if cell.dim() == 1:
+            return offsets * cell
+        return torch.matmul(offsets, cell)
+
     def energy(self, xyz, aux):
-        return self.gnn.energy(self.z, xyz, aux.table, aux.mask,
-                               self._cell("cell_len", xyz))
+        cell = self._cell("cell", xyz)
+        if self.nbr_mode == "table":
+            return self.gnn.energy(
+                self.z, xyz, aux.table, aux.mask,
+                cell_len=None if self.store_offsets else cell,
+                offsets_real=(self._real(aux.offsets, cell)
+                              if self.store_offsets else None),
+                runtime_cutoff=self.cutoff if self.skin > 0 else None)
+        return self.gnn.energy(
+            self.z, xyz, aux.idx, aux.mask,
+            offsets_real=self._real(aux.offsets, cell), edge_format="pairs",
+            directed=self.nbr_mode == "topk")
 
 
 class Stack(Interaction):

@@ -2,10 +2,12 @@
 
 The JAX package keeps parameters as a pytree of arrays; tests turn it
 into numpy with ``tree_map(np.asarray, params)`` and pass it here.  The
-results are ``state_dict``s for ``load_state_dict``.  Three details
+results are ``state_dict``s for ``load_state_dict``.  Four details
 matter: a flax ``Dense`` kernel is (in, out) while ``nn.Linear.weight``
-is (out, in); the ``Embed_0/embedding`` table has 100 rows; and the
-readout heads are ``<key>_d0`` and ``<key>_d1``.  Nothing here imports
+is (out, in); the ``Embed_0/embedding`` table has 100 rows; the readout
+heads are ``<key>_d0`` and ``<key>_d1``; and with ``trainable_gauss``
+each ``SchNetConv_i`` holds ``gauss_offsets`` and ``gauss_widths``, the
+port's ``convs.i.offsets`` and ``convs.i.widths``.  Nothing here imports
 JAX.
 """
 
@@ -18,6 +20,8 @@ from ..interface import GNNPotentials, PairPotentials
 _CONV_DENSE = {"Dense_0": "filter_in", "Dense_1": "filter_out",
                "Dense_2": "node_filter", "Dense_3": "update_in",
                "Dense_4": "update_out"}
+# trainable_gauss: the Gaussian centres and widths
+_CONV_GAUSS = {"gauss_offsets": "offsets", "gauss_widths": "widths"}
 
 
 def _t(a):
@@ -38,6 +42,9 @@ def schnet_params_from_numpy(tree):
         for flax_name, port_name in _CONV_DENSE.items():
             state.update(_dense(tree[name][flax_name],
                                 f"convs.{i}.{port_name}"))
+        for flax_name, port_name in _CONV_GAUSS.items():
+            if flax_name in tree[name]:
+                state[f"convs.{i}.{port_name}"] = _t(tree[name][flax_name])
     for name in tree:
         if name.endswith("_d0"):
             key = name[:-len("_d0")]

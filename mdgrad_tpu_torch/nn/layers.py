@@ -11,8 +11,34 @@ import torch.nn.functional as F
 from .._device import resolve_device
 
 
+class _NarrowSoftplus(torch.autograd.Function):
+    """``jax.nn.softplus`` (``jnp.logaddexp(x, 0)``) in a dtype narrower
+    than f32, rounded after each op as the JAX package rounds it:
+    max(x, 0) + log1p(exp(-|x|)), and its ``custom_jvp``, the cotangent
+    times exp(x - softplus(x)), itself differentiable the same way.
+    ``F.softplus`` rounds once and differs in ~15% of bf16 results;
+    autograd through the formula differs from JAX's rule likewise."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(x - _NarrowSoftplus.apply(x))
+
+
 def shifted_softplus(x):
-    """softplus(x) - log(2)."""
+    """softplus(x) - log(2); in bf16 as the JAX package rounds it
+    (:class:`_NarrowSoftplus`), log(2) included: JAX subtracts a weakly
+    typed scalar, so log(2) rounded to bf16.  A Python float would be
+    rounded so on the CPU but kept in f32 on the card, 0.0017 apart in
+    every output; a 0-dim bf16 tensor is the same value on both."""
+    if x.element_size() < 4:
+        return _NarrowSoftplus.apply(x) - torch.tensor(math.log(2.0),
+                                                        dtype=x.dtype)
     return F.softplus(x) - math.log(2.0)
 
 

@@ -35,6 +35,10 @@ SIGNATURES = {
     "mdg_gather_mul_reduce": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mdg_table_gather": (_P, _P, _P, _I, _I, _I, _P),
     "mdg_table_scatter": (_P, _P, _P, _P, _I, _I, _P),
+    # the same three over bf16 rows (split=False; csrc/gather.cu)
+    "mdg_gather_mul_reduce_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mdg_table_gather_bf16": (_P, _P, _P, _I, _I, _I, _P),
+    "mdg_table_scatter_bf16": (_P, _P, _P, _P, _I, _I, _P),
     "mdg_table_index_csr": (_P, _I, _I, _P, _P, _P, _I, _P),
     "mdg_table_index_csr_one_block": (_I, _I),
     "mdg_rdf_scratch": (_I, _I, _I, _I),

@@ -40,9 +40,20 @@ is the scatter and the scatter's is the gather, and K1's backward is
 ``d_values = scatter(w * repeat(ct))``, ``d_w = gather(values) *
 repeat(ct)``, so every grad order stays inside the pair.
 
-A wrapper launches its kernel for CUDA tensors (f32, contiguous) or
-raises; it takes the plain version only for CPU tensors.  ``launches``
-and ``plain_calls`` count the two paths.
+``split`` is the JAX package's flag.  ``split=True`` (the default) is
+the exact gather of f32 operands: on the TPU a bf16 hi/lo split of the
+operand on the MXU, here a direct f32 load.  ``split=False`` is JAX's
+bf16 path: the gathered operand is rounded to bf16 (round to nearest
+even) before any product, products and sums are f32, and K1's output
+takes ``w.dtype``, K2a's ``values.dtype`` and K2b's ``g.dtype``; on the
+card it runs the kernels' bf16 instantiations (bf16 in; K1 and K2a bf16
+out, K2b f32 out).  JAX's K2b adds its 512-edge tiles into a bf16 output
+when ``g`` is bf16; K2b here sums each row in f32 and rounds once.
+
+A wrapper launches its kernel for CUDA tensors (f32, or bf16 where
+``split=False``; contiguous) or raises; it takes the plain version only
+for CPU tensors.  ``launches`` and ``plain_calls`` count the two paths,
+``launches_bf16`` and ``plain_calls_bf16`` the same for ``split=False``.
 """
 
 import torch
@@ -53,6 +64,10 @@ launches = {"gather_mul_reduce": 0, "table_gather": 0, "table_scatter": 0,
             "table_index_csr": 0}
 plain_calls = {"gather_mul_reduce": 0, "table_gather": 0,
                "table_scatter": 0, "table_index_csr": 0}
+# split=False: the bf16 instantiations and their plain versions
+launches_bf16 = {"gather_mul_reduce": 0, "table_gather": 0,
+                 "table_scatter": 0}
+plain_calls_bf16 = dict(launches_bf16)
 
 
 class TableIndex:
@@ -114,22 +129,45 @@ def table_index_csr_plain(idx, n):
     return order.to(torch.int32), rowptr.to(torch.int32)
 
 
-def table_gather_plain(values, idx):
-    """``values[idx]`` with a zero row for sentinel indices."""
-    plain_calls["table_gather"] += 1
-    return _gather_rows(values, idx)
+def _bf16(t):
+    """``t`` rounded to bf16 (round to nearest even) and widened to f32."""
+    return t.to(torch.bfloat16).float()
 
 
-def table_scatter_plain(g, idx, n):
-    """``out[i] = sum over e with idx[e] == i of g[e]``; sentinels dropped."""
-    plain_calls["table_scatter"] += 1
-    return g.new_zeros(n + 1, g.shape[1]).index_add(0, _key(idx, n), g)[:n]
+def table_gather_plain(values, idx, split=True):
+    """``values[idx]`` with a zero row for sentinel indices; ``split=False``
+    gathers ``values`` rounded to bf16, in ``values.dtype``."""
+    if split:
+        plain_calls["table_gather"] += 1
+        return _gather_rows(values, idx)
+    plain_calls_bf16["table_gather"] += 1
+    return _gather_rows(values.to(torch.bfloat16), idx).to(values.dtype)
 
 
-def gather_mul_reduce_plain(values, w, idx, k):
-    """``(values[idx] * w).reshape(-1, k, F).sum(1)``, sentinel rows zero."""
-    plain_calls["gather_mul_reduce"] += 1
-    return (_gather_rows(values, idx) * w).reshape(-1, k, w.shape[1]).sum(1)
+def table_scatter_plain(g, idx, n, split=True):
+    """``out[i] = sum over e with idx[e] == i of g[e]``; sentinels dropped.
+    ``split=False`` sums ``g`` rounded to bf16 in f32, in ``g.dtype``."""
+    if split:
+        plain_calls["table_scatter"] += 1
+        return g.new_zeros(n + 1, g.shape[1]).index_add(0, _key(idx, n),
+                                                        g)[:n]
+    plain_calls_bf16["table_scatter"] += 1
+    out = torch.zeros(n + 1, g.shape[1], dtype=torch.float32,
+                      device=g.device)
+    return out.index_add(0, _key(idx, n), _bf16(g))[:n].to(g.dtype)
+
+
+def gather_mul_reduce_plain(values, w, idx, k, split=True):
+    """``(values[idx] * w).reshape(-1, k, F).sum(1)``, sentinel rows zero.
+    ``split=False``: ``values`` rounded to bf16, f32 products and sums over
+    K, in ``w.dtype``."""
+    f = w.shape[1]
+    if split:
+        plain_calls["gather_mul_reduce"] += 1
+        return (_gather_rows(values, idx) * w).reshape(-1, k, f).sum(1)
+    plain_calls_bf16["gather_mul_reduce"] += 1
+    prod = _gather_rows(_bf16(values), idx) * w.float()
+    return prod.reshape(-1, k, f).sum(1).to(w.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -147,36 +185,47 @@ def _check(t, name, device, dtype, ndim):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_gather_mul_reduce(values, w, idx, k):
+def _counts(split):
+    return launches if split else launches_bf16
+
+
+def _launch_gather_mul_reduce(values, w, idx, k, split=True):
+    """K1; ``split=False`` takes bf16 ``values`` and ``w`` and gives bf16."""
     dev = values.device
-    _check(values, "values", dev, torch.float32, 2)
-    _check(w, "w", dev, torch.float32, 2)
+    dtype = torch.float32 if split else torch.bfloat16
+    _check(values, "values", dev, dtype, 2)
+    _check(w, "w", dev, dtype, 2)
     _check(idx, "idx", dev, torch.int32, 1)
     n, f = values.shape
     e = idx.shape[0]
     if k < 1 or e % k or w.shape != (e, f):
         raise ValueError(f"gather_mul_reduce: w {tuple(w.shape)}, idx ({e},)"
                          f" and k={k} do not fit values ({n}, {f})")
-    out = torch.empty(e // k, f, device=dev, dtype=torch.float32)
-    code = _build.library().mdg_gather_mul_reduce(
-        values.data_ptr(), w.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        n, e // k, k, f, _build.stream_of(values))
+    out = torch.empty(e // k, f, device=dev, dtype=dtype)
+    lib = _build.library()
+    entry = (lib.mdg_gather_mul_reduce if split
+             else lib.mdg_gather_mul_reduce_bf16)
+    code = entry(values.data_ptr(), w.data_ptr(), idx.data_ptr(),
+                 out.data_ptr(), n, e // k, k, f, _build.stream_of(values))
     _build.check(code, "gather_mul_reduce")
-    launches["gather_mul_reduce"] += 1
+    _counts(split)["gather_mul_reduce"] += 1
     return out
 
 
-def _launch_table_gather(values, idx):
+def _launch_table_gather(values, idx, split=True):
+    """K2a; ``split=False`` takes and gives bf16 rows."""
     dev = values.device
-    _check(values, "values", dev, torch.float32, 2)
+    dtype = torch.float32 if split else torch.bfloat16
+    _check(values, "values", dev, dtype, 2)
     _check(idx, "idx", dev, torch.int32, 1)
     n, f = values.shape
-    out = torch.empty(idx.shape[0], f, device=dev, dtype=torch.float32)
-    code = _build.library().mdg_table_gather(
-        values.data_ptr(), idx.data_ptr(), out.data_ptr(), n, idx.shape[0],
-        f, _build.stream_of(values))
+    out = torch.empty(idx.shape[0], f, device=dev, dtype=dtype)
+    lib = _build.library()
+    entry = lib.mdg_table_gather if split else lib.mdg_table_gather_bf16
+    code = entry(values.data_ptr(), idx.data_ptr(), out.data_ptr(), n,
+                 idx.shape[0], f, _build.stream_of(values))
     _build.check(code, "table_gather")
-    launches["table_gather"] += 1
+    _counts(split)["table_gather"] += 1
     return out
 
 
@@ -211,20 +260,22 @@ def table_index_csr_path(e, n):
     return "one block" if code else "grid"
 
 
-def _launch_table_scatter(g, index):
+def _launch_table_scatter(g, index, split=True):
+    """K2b; ``split=False`` takes bf16 ``g`` and gives f32 sums."""
     dev = g.device
-    _check(g, "g", dev, torch.float32, 2)
+    _check(g, "g", dev, torch.float32 if split else torch.bfloat16, 2)
     order, rowptr = index.csr()
     _check(order, "order", dev, torch.int32, 1)
     if g.shape[0] != order.shape[0]:
         raise ValueError(f"table_scatter: g has {g.shape[0]} rows, the "
                          f"index {order.shape[0]} edges")
     out = torch.empty(index.n, g.shape[1], device=dev, dtype=torch.float32)
-    code = _build.library().mdg_table_scatter(
-        g.data_ptr(), order.data_ptr(), rowptr.data_ptr(), out.data_ptr(),
-        index.n, g.shape[1], _build.stream_of(g))
+    lib = _build.library()
+    entry = lib.mdg_table_scatter if split else lib.mdg_table_scatter_bf16
+    code = entry(g.data_ptr(), order.data_ptr(), rowptr.data_ptr(),
+                 out.data_ptr(), index.n, g.shape[1], _build.stream_of(g))
     _build.check(code, "table_scatter")
-    launches["table_scatter"] += 1
+    _counts(split)["table_scatter"] += 1
     return out
 
 
@@ -232,74 +283,96 @@ def _launch_table_scatter(g, index):
 # autograd Functions (the JAX custom_vjp pairs)
 # ---------------------------------------------------------------------------
 
+def _check_rows(index, values):
+    if index.n != values.shape[0]:
+        raise ValueError(f"index is over {index.n} rows, values has "
+                         f"{values.shape[0]}")
+
+
 class _TableGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, values, index):
-        if index.n != values.shape[0]:
-            raise ValueError(f"index is over {index.n} rows, values has "
-                             f"{values.shape[0]}")
-        ctx.index = index
-        if _build.on_cuda(values):
+    def forward(ctx, values, index, split):
+        _check_rows(index, values)
+        ctx.index, ctx.split = index, split
+        if not _build.on_cuda(values):
+            return table_gather_plain(values, index.idx, split)
+        if split:
             return _launch_table_gather(values.contiguous(), index.idx)
-        return table_gather_plain(values, index.idx)
+        return _launch_table_gather(
+            values.to(torch.bfloat16).contiguous(), index.idx,
+            False).to(values.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return table_scatter(g, ctx.index), None
+        return table_scatter(g, ctx.index, ctx.split), None, None
 
 
 class _TableScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, g, index):
-        ctx.index = index
-        if _build.on_cuda(g):
+    def forward(ctx, g, index, split):
+        ctx.index, ctx.split = index, split
+        if not _build.on_cuda(g):
+            return table_scatter_plain(g, index.idx, index.n, split)
+        if split:
             return _launch_table_scatter(g.contiguous(), index)
-        return table_scatter_plain(g, index.idx, index.n)
+        return _launch_table_scatter(g.to(torch.bfloat16).contiguous(),
+                                     index, False).to(g.dtype)
 
     @staticmethod
     def backward(ctx, ct):
-        return table_gather(ct, ctx.index), None
+        return table_gather(ct, ctx.index, ctx.split), None, None
 
 
 class _GatherMulReduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, values, w, index, k):
-        if index.n != values.shape[0]:
-            raise ValueError(f"index is over {index.n} rows, values has "
-                             f"{values.shape[0]}")
+    def forward(ctx, values, w, index, k, split):
+        _check_rows(index, values)
         ctx.save_for_backward(values, w)
-        ctx.index, ctx.k = index, k
-        if _build.on_cuda(values):
-            return _launch_gather_mul_reduce(values.contiguous(),
-                                             w.contiguous(), index.idx, k)
-        return gather_mul_reduce_plain(values, w, index.idx, k)
+        ctx.index, ctx.k, ctx.split = index, k, split
+        if not _build.on_cuda(values):
+            return gather_mul_reduce_plain(values, w, index.idx, k, split)
+        if not split:
+            values = values.to(torch.bfloat16)
+        return _launch_gather_mul_reduce(values.contiguous(), w.contiguous(),
+                                         index.idx, k, split)
 
     @staticmethod
     def backward(ctx, ct):
         values, w = ctx.saved_tensors
+        index, split = ctx.index, ctx.split
         ct_e = ct.repeat_interleave(ctx.k, dim=0)
         d_values = d_w = None
+        if split:
+            if ctx.needs_input_grad[0]:
+                d_values = table_scatter(w * ct_e, index)
+            if ctx.needs_input_grad[1]:
+                d_w = table_gather(values, index) * ct_e
+            return d_values, d_w, None, None, None
+        # the JAX _gmr_bwd, cast for cast
+        ct_e = ct_e.float()
         if ctx.needs_input_grad[0]:
-            d_values = table_scatter(w * ct_e, ctx.index)
+            d_values = table_scatter(w.float() * ct_e, index,
+                                     False).to(values.dtype)
         if ctx.needs_input_grad[1]:
-            d_w = table_gather(values, ctx.index) * ct_e
-        return d_values, d_w, None, None
+            d_w = (table_gather(values, index, False).float()
+                   * ct_e).to(w.dtype)
+        return d_values, d_w, None, None, None
 
 
-def table_gather(values, index):
+def table_gather(values, index, split=True):
     """(E, F) rows ``values[index.idx]``, zero at sentinels; differentiable,
     its backward is :func:`table_scatter`."""
-    return _TableGather.apply(values, index)
+    return _TableGather.apply(values, index, split)
 
 
-def table_scatter(g, index):
+def table_scatter(g, index, split=True):
     """(index.n, F) sums of the rows of ``g`` per target; differentiable,
     its backward is :func:`table_gather`."""
-    return _TableScatter.apply(g, index)
+    return _TableScatter.apply(g, index, split)
 
 
-def gather_mul_reduce(values, w, index, k):
+def gather_mul_reduce(values, w, index, k, split=True):
     """(E // k, F): ``sum_k values[idx[i*k + s]] * w[i*k + s]`` over an
     atom-major (E // k, k) table; differentiable in ``values`` and ``w``
     to any order."""
-    return _GatherMulReduce.apply(values, w, index, k)
+    return _GatherMulReduce.apply(values, w, index, k, split)

@@ -8,7 +8,9 @@ times (:func:`warm_cold`) on ``N_SETS`` sets of inputs and outputs at the
 index's shape, every kernel called through its C entry point.  The warm
 reading replays one set (the inputs stay in the L2, as on the MD path);
 the cold one cycles through all the sets, more bytes than the 50 MB L2
-holds (:mod:`.timing`).
+holds (:mod:`.timing`).  The sets take a dtype: float32 for the f32
+kernels, bfloat16 for their bf16 instantiations (``split=False``: bf16
+in, K1 and K2a bf16 out, K2b f32 out).
 """
 
 import numpy as np
@@ -42,34 +44,39 @@ def gather_index(rng, layout, n, n_out, k):
     return idx.reshape(-1).astype(np.int32)
 
 
-def bound_bytes(n, f, n_edges, n_real):
+def bound_bytes(n, f, n_edges, n_real, elem=4):
     """Bytes each kernel must move: every input read once, every output
-    written once.  K1 and K2b read w and g only at the real edges (they
-    never load a sentinel row); K2a writes every slot."""
+    written once, ``elem`` bytes a feature (4 for f32, 2 for bf16) and 4
+    an index.  K1 and K2b read w and g only at the real edges (they never
+    load a sentinel row); K2a writes every slot; K2b writes f32 sums."""
     return {
-        "gather_mul_reduce": 4 * (n * f + n_real * f + n_edges + n * f),
-        "table_gather": 4 * (n * f + n_edges + n_edges * f),
-        "table_scatter": 4 * (n_real * f + n_real + (n + 1) + n * f),
+        "gather_mul_reduce": elem * (n * f + n_real * f + n * f)
+        + 4 * n_edges,
+        "table_gather": elem * (n * f + n_edges * f) + 4 * n_edges,
+        "table_scatter": elem * n_real * f + 4 * (n_real + (n + 1) + n * f),
     }
 
 
-def make_sets(index, k, n_sets, gen, f):
+def make_sets(index, k, n_sets, gen, f, dtype=torch.float32):
     """``n_sets`` independent input and output sets at the index's shape:
-    values (n, f), w and g (E, f), the index and its CSR, and the three
-    outputs."""
+    values (n, f), w and g (E, f) in ``dtype``, the index and its CSR, and
+    the three outputs (K2b's in f32)."""
     order, rowptr = index.csr()
     n, e = index.n, index.idx.shape[0]
     dev = index.idx.device
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(dtype)
+
     sets = []
     for _ in range(n_sets):
         sets.append({
-            "values": torch.randn(n, f, device=dev, generator=gen),
-            "w": torch.randn(e, f, device=dev, generator=gen),
-            "g": torch.randn(e, f, device=dev, generator=gen),
+            "values": randn(n, f), "w": randn(e, f), "g": randn(e, f),
             "idx": index.idx.clone(), "order": order.clone(),
             "rowptr": rowptr.clone(),
-            "gather_mul_reduce": torch.empty(e // k, f, device=dev),
-            "table_gather": torch.empty(e, f, device=dev),
+            "gather_mul_reduce": torch.empty(e // k, f, device=dev,
+                                             dtype=dtype),
+            "table_gather": torch.empty(e, f, device=dev, dtype=dtype),
             "table_scatter": torch.empty(n, f, device=dev),
         })
     return sets
@@ -77,26 +84,29 @@ def make_sets(index, k, n_sets, gen, f):
 
 def kernel_calls(lib, s, k):
     """{kernel: fn} launching ``lib``'s entry points on set ``s`` into its
-    own outputs (no allocation, no launch count)."""
+    own outputs (no allocation, no launch count); the bf16 instantiations
+    for a bf16 set."""
     n, f = s["values"].shape
     e = s["idx"].shape[0]
     p = {name: t.data_ptr() for name, t in s.items()}
+    sfx = "_bf16" if s["values"].dtype == torch.bfloat16 else ""
+    entry = {name: getattr(lib, f"mdg_{name}{sfx}") for name in KERNELS}
 
     def stream():   # the current one: a graph captures on its own
         return _build.stream_of(s["values"])
 
     def k1():
-        _build.check(lib.mdg_gather_mul_reduce(
+        _build.check(entry["gather_mul_reduce"](
             p["values"], p["w"], p["idx"], p["gather_mul_reduce"], n, e // k,
             k, f, stream()), "gather_mul_reduce")
 
     def k2a():
-        _build.check(lib.mdg_table_gather(
+        _build.check(entry["table_gather"](
             p["values"], p["idx"], p["table_gather"], n, e, f, stream()),
             "table_gather")
 
     def k2b():
-        _build.check(lib.mdg_table_scatter(
+        _build.check(entry["table_scatter"](
             p["g"], p["order"], p["rowptr"], p["table_scatter"], n, f,
             stream()), "table_scatter")
 

@@ -1,10 +1,13 @@
 """Periodic-boundary geometry and the (N, K) neighbor table.
 
-Port of the parts of ``mdgrad_tpu/topology.py`` that the sampling slice
-runs: minimum image, dense distance matrices, pair selection masks, the
-per-atom neighbor table with its overflow and drift flags, and the
-capacity estimate.  ``lax.approx_min_k`` becomes ``torch.topk`` on the
-masked distance scores; the table keeps the JAX package's padding
+Port of ``mdgrad_tpu/topology.py`` less ``compute_dis``: minimum image,
+dense distance matrices, pair selection masks, the per-atom neighbor
+table (with stored offsets for triclinic cells) with its overflow and
+drift flags, the padded edge lists (``generate_nbr_list`` and the
+``top_k`` builder ``generate_nbr_list_topk``), and the capacity estimate.
+``lax.approx_min_k`` and ``lax.top_k`` become ``torch.topk`` on the
+masked distance scores, ``jnp.nonzero(size=...)`` a ``torch.nonzero``
+cut or padded to the capacity; the lists keep the JAX package's padding
 sentinel N.  The 3x3 cell projections are plain f32 matmuls with TF32
 switched off (see ``_device.resolve_device``).
 """
@@ -22,9 +25,31 @@ class NeighborTable(typing.NamedTuple):
     mask:     (N, K) bool
     overflow: () bool tensor -- some atom had more than K neighbors
     drift:    () bool tensor -- positions outside single-image validity
+    offsets:  (N, K, 3) fractional minimum-image offsets of each edge, or
+              () where the consumer recomputes the image (diagonal cells)
     """
     table: torch.Tensor
     mask: torch.Tensor
+    overflow: torch.Tensor
+    drift: torch.Tensor
+    offsets: typing.Any = ()
+
+
+class NeighborList(typing.NamedTuple):
+    """Fixed-capacity padded pair list.
+
+    idx:      (P, 2) int32, padded rows hold N
+    offsets:  (P, 3) fractional minimum-image offsets in {-1, 0, 1}
+    mask:     (P,) bool, True for real pairs
+    count:    () int tensor, number of real pairs
+    overflow: () bool tensor -- the pairs exceeded the capacity (or some
+              atom its k_max, for the top_k builder)
+    drift:    () bool tensor -- positions outside single-image validity
+    """
+    idx: torch.Tensor
+    offsets: torch.Tensor
+    mask: torch.Tensor
+    count: torch.Tensor
     overflow: torch.Tensor
     drift: torch.Tensor
 
@@ -104,41 +129,104 @@ def pair_index_mask(n, index_tuple=None, ex_pairs=None):
 
 
 def _within(xyz, cutoff, cell, select_mask):
-    d, _ = displacement_matrix(xyz, cell)
+    d, offsets = displacement_matrix(xyz, cell)
     dist_sq = (d ** 2).sum(-1)
     n = xyz.shape[-2]
     eye = torch.eye(n, dtype=torch.bool, device=xyz.device)
     within = (dist_sq < cutoff ** 2) & ~eye
     if select_mask is not None:
         within = within & select_mask.to(xyz.device)
-    return within, dist_sq
+    return within, dist_sq, offsets
 
 
-def generate_neighbor_table(xyz, cutoff, cell, k_max, select_mask=None):
+def _nearest(xyz, cutoff, cell, k_max, select_mask):
+    """(within (N, N), cols (N, K), valid (N, K), offsets (N, N, 3)): each
+    atom's ``k_max`` nearest neighbors inside ``cutoff``."""
+    within, dist_sq, offsets = _within(xyz, cutoff, cell, select_mask)
+    score = torch.where(within, dist_sq, torch.full_like(dist_sq, np.inf))
+    vals, cols = torch.topk(score, k_max, dim=-1, largest=False)
+    return within, cols, vals < np.inf, offsets
+
+
+def _edge_offsets(offsets, rows, cols, keep):
+    """(..., 3) offsets of the edges (rows, cols), zero where not kept."""
+    off = offsets[rows, cols]
+    return torch.where(keep[..., None], off, torch.zeros_like(off))
+
+
+def generate_neighbor_table(xyz, cutoff, cell, k_max, select_mask=None,
+                            store_offsets=False):
     """(N, K) table of each atom's ``k_max`` nearest neighbors inside
     ``cutoff``, padded with N; ``overflow`` flags an atom with more.
 
-    Diagonal cells only, and no per-edge offsets are stored (the JAX
-    package's ``store_offsets=False``): the consumer recomputes the
-    minimum image from gathered positions.
+    ``store_offsets`` keeps each edge's (N, K, 3) fractional offsets, which
+    a triclinic cell needs.  Without them (the default here; the JAX
+    package's ``store_offsets=False``) the cell must be diagonal and the
+    consumer recomputes the minimum image from gathered positions.
     """
-    if _cell_lengths(cell) is None:
-        raise ValueError("the neighbor table needs a diagonal cell")
+    if not store_offsets and _cell_lengths(cell) is None:
+        raise ValueError("store_offsets=False requires a diagonal cell")
     xyz = xyz.detach()
-    within, dist_sq = _within(xyz, cutoff, cell, select_mask)
+    within, cols, valid, offsets = _nearest(xyz, cutoff, cell, k_max,
+                                            select_mask)
     n = xyz.shape[-2]
-    score = torch.where(within, dist_sq, torch.full_like(dist_sq, np.inf))
-    vals, cols = torch.topk(score, k_max, dim=-1, largest=False)
-    valid = vals < np.inf
-    return NeighborTable(table=torch.where(valid, cols, n).to(torch.int32),
-                         mask=valid,
-                         overflow=(within.sum(-1) > k_max).any(),
-                         drift=image_drift(xyz, cell))
+    table = NeighborTable(table=torch.where(valid, cols, n).to(torch.int32),
+                          mask=valid,
+                          overflow=(within.sum(-1) > k_max).any(),
+                          drift=image_drift(xyz, cell))
+    if not store_offsets:
+        return table
+    rows = torch.arange(n, device=xyz.device)[:, None].expand(n, k_max)
+    return table._replace(offsets=_edge_offsets(offsets, rows, cols, valid))
+
+
+def generate_nbr_list(xyz, cutoff, cell, capacity, select_mask=None):
+    """Padded (i < j) :class:`NeighborList` of the pairs within
+    ``cutoff``, in row-major order, cut or padded (with N) to
+    ``capacity``; ``overflow`` flags more pairs than that.  The count
+    goes through the host (``torch.nonzero``)."""
+    xyz = xyz.detach()
+    within, _, offsets = _within(xyz, cutoff, cell, select_mask)
+    n = xyz.shape[-2]
+    upper = torch.triu(within, diagonal=1)
+    pairs = torch.nonzero(upper)[:capacity]
+    count = upper.sum()
+    idx = torch.full((capacity, 2), n, dtype=torch.int64, device=xyz.device)
+    idx[:pairs.shape[0]] = pairs
+    mask = idx[:, 0] < n
+    safe = idx.clamp(max=n - 1)
+    return NeighborList(
+        idx=idx.to(torch.int32),
+        offsets=_edge_offsets(offsets, safe[:, 0], safe[:, 1], mask),
+        mask=mask, count=count, overflow=count > capacity,
+        drift=image_drift(xyz, cell))
+
+
+def generate_nbr_list_topk(xyz, cutoff, cell, k_max, select_mask=None,
+                           directed=False):
+    """Padded :class:`NeighborList` of capacity N * ``k_max`` from each
+    atom's ``k_max`` nearest in-cutoff neighbors; exact unless some atom
+    has more (``overflow``).  ``directed=False`` keeps the (i < j) half,
+    ``directed=True`` every (receiver, sender) row."""
+    xyz = xyz.detach()
+    within, cols, valid, offsets = _nearest(xyz, cutoff, cell, k_max,
+                                            select_mask)
+    n = xyz.shape[-2]
+    rows = torch.arange(n, device=xyz.device)[:, None].expand(n, k_max)
+    keep = valid if directed else valid & (rows < cols)
+    i = torch.where(keep, rows, n).reshape(-1)
+    j = torch.where(keep, cols, n).reshape(-1)
+    return NeighborList(
+        idx=torch.stack([i, j], dim=-1).to(torch.int32),
+        offsets=_edge_offsets(offsets, rows, cols, keep).reshape(-1, 3),
+        mask=i < n, count=keep.sum(),
+        overflow=(within.sum(-1) > k_max).any(),
+        drift=image_drift(xyz, cell))
 
 
 def count_pairs(xyz, cutoff, cell, select_mask=None):
     """Number of (i < j) pairs within ``cutoff``."""
-    within, _ = _within(torch.as_tensor(xyz), cutoff, cell, select_mask)
+    within, _, _ = _within(torch.as_tensor(xyz), cutoff, cell, select_mask)
     return int(torch.triu(within, diagonal=1).sum())
 
 
@@ -151,7 +239,7 @@ def estimate_capacity(xyz, cutoff, cell, select_mask=None, slack=1.35,
 
 def max_neighbors(xyz, cutoff, cell, select_mask=None):
     """Largest in-cutoff neighbor count of any atom (sizes ``k_max``)."""
-    within, _ = _within(xyz, cutoff, cell, select_mask)
+    within, _, _ = _within(xyz, cutoff, cell, select_mask)
     return int(within.sum(-1).max())
 
 

@@ -26,10 +26,13 @@ backward.  Snapshots hold copies of the module's and the optimizer's
 state.  One numpy Generator draws every velocity in the JAX package's
 order: ``get_system``, the annealing start, each rethermalize.
 
+The SchNet's ``compute_dtype`` (float32, bf16, 'mixed'), the Verlet skin
+(``gnn_skin``, exact with ``topology_update_freq > 1``) and the neighbor
+modes 'table', 'topk' and 'sparse' (``nbr_mode``) are the JAX driver's.
 The pair-MLP families, Boltzmann-inversion pretraining, the angle target,
-multi-timestep integration, a shared prior table and the other neighbor
-modes are not ported: :func:`build_fit` raises ``NotImplementedError``
-naming the ROADMAP item that ports each.
+multi-timestep integration, a shared prior table and the 'cells' mode
+are not ported: :func:`build_fit` raises ``NotImplementedError`` naming
+the ROADMAP item that ports each.
 """
 
 import copy
@@ -136,20 +139,16 @@ def _check_ported(sys_params):
          "Stack(share_aux=...) (ROADMAP Queue 1, Slice D)"),
         ("mts_inner", int(get("mts_inner", 0) or 0) > 1,
          "the multi-timestep MTSNoseHooverChain (ROADMAP Queue 1, Slice D)"),
-        ("gnn_skin", float(get("gnn_skin", 0.0)) > 0,
-         "the GNN Verlet skin (ROADMAP Queue 1, the SchNet and GNN rest)"),
         ("angle_flag", bool(get("angle_flag")),
          "the angle-distribution target (ROADMAP Queue 1, Slice F2)"),
     ]
     for key, on, what in unported:
         if on:
             raise NotImplementedError(f"{key}: {what} is not ported yet")
-    nbr_mode = sys_params.get("nbr_mode", "table")
-    if nbr_mode != "table":
+    if sys_params.get("nbr_mode", "table") == "cells":
         raise NotImplementedError(
-            f"nbr_mode {nbr_mode!r}: only 'table' is ported ('topk' and the "
-            "edge list: ROADMAP Queue 1, the SchNet and GNN rest; 'cells': "
-            "Slice E)")
+            "nbr_mode 'cells': the cell-list table is not ported yet "
+            "(ROADMAP Queue 1, Slice E)")
 
 
 def _build_net_and_prior(assignments):
@@ -204,7 +203,10 @@ def build_fit(assignments, sys_params, registry=None, rng=None,
             system.set_temperature(assignments["start_T"], rng=rng)
         stack = Stack({
             "nn": GNNPotentials(system, net, cutoff=cutoff,
-                                capacity_slack=slack, device=device),
+                                capacity_slack=slack,
+                                nbr_mode=sys_params.get("nbr_mode", "table"),
+                                skin=float(sys_params.get("gnn_skin", 0.0)),
+                                device=device),
             "pair": PairPotentials(system, prior, cutoff=cutoff,
                                    mode=sys_params.get("prior_mode", "auto"),
                                    device=device)})

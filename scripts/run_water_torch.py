@@ -5,11 +5,16 @@ The flags, defaults and GNN assignments of ``scripts/run_water.py`` (the
 "low" SchNet: 128/128, 30 Gaussians, 2 convolutions, cutoff 6.0; a 4^3
 diamond lattice of 512 O sites at 298 K, dt 0.5 fs, 52-step epochs),
 plus ``-device`` (default ``cuda``; ``cpu`` for a run without a card).
-Flags of branches the port does not have yet (``--pair``, ``--tpair``,
-``--angle``, ``-mts``, ``--share_prior_aux``, ``-gnn_skin``, other
-``-nbr_mode`` values, bf16 ``-compute_dtype``) raise NotImplementedError.
+``-compute_dtype`` takes ``float32``, ``bf16`` and ``mixed``,
+``-nbr_mode`` ``table``, ``topk`` and ``sparse``, and ``-gnn_skin`` the
+Verlet skin (with ``-update_freq`` for its refresh cadence).  Flags of
+branches the port does not have yet (``--pair``, ``--tpair``,
+``--angle``, ``-mts``, ``--share_prior_aux``, ``-nbr_mode cells``) raise
+NotImplementedError.
 
     python scripts/run_water_torch.py                        # on the card
+    python scripts/run_water_torch.py -compute_dtype bf16 -gnn_skin 0.5 \
+        -update_freq 3
     python scripts/run_water_torch.py --dry_run -device cpu  # a quick check
 """
 
@@ -37,7 +42,7 @@ def main():
     p.add_argument("-angle_weight", type=float, default=1.0)
     p.add_argument("--dry_run", action="store_true")
     p.add_argument("-compute_dtype", type=str, default="float32",
-                   help="SchNet dtype (only float32 is ported)")
+                   help="SchNet dtype: float32, bf16 or mixed")
     p.add_argument("-rdf_backend", type=str, default="xla",
                    help="'pallas' counts the soft histogram with the "
                         "K3/K4 kernels and their K3b/K4b backward")

@@ -153,6 +153,132 @@ def test_gather_autograd_runs_the_kernels(cuda):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
+def _bf16(rng, shape, cuda):
+    return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                        device=cuda).to(torch.bfloat16)
+
+
+def _assert_k1_bf16_close(got, ref):
+    """K1 in bf16: the kernel and the plain version sum the same f32
+    products in other orders and round once, so they differ by at most one
+    bf16 ulp (2^-7 of the value at most) plus the f32 order's 1e-5 of
+    max(|ref|, 1)."""
+    assert got.dtype == ref.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        got.float(), ref.float(), rtol=2.0 ** -7,
+        atol=1e-5 * max(ref.float().abs().max().item(), 1.0))
+
+
+@pytest.mark.parametrize("layout", GATHER_LAYOUTS)
+@pytest.mark.parametrize("k", GATHER_K)
+@pytest.mark.parametrize("f", GATHER_F)
+def test_bf16_gather_kernels_on_edge_cases(cuda, f, k, layout):
+    """The bf16 instantiations (split=False) on the f32 kernels' edge
+    cases (F % 8 != 0 takes the scalar path): K1 within one bf16 ulp of
+    its plain version, K2a bit-exact, K2b (f32 sums of bf16 rows) within
+    1e-5 of max(|ref|, 1); each gives the same bits on a second call."""
+    rng = np.random.default_rng(12)
+    n, n_out = 37, 29
+    idx = torch.tensor(gather_index(rng, layout, n, n_out, k), device=cuda)
+    index = tg.TableIndex(idx, n)
+    v = _bf16(rng, (n, f), cuda)
+    w = _bf16(rng, (n_out * k, f), cuda)
+    got = tg._launch_gather_mul_reduce(v, w, idx, k, False)
+    _assert_k1_bf16_close(got, tg.gather_mul_reduce_plain(v, w, idx, k,
+                                                          False))
+    assert torch.equal(got, tg._launch_gather_mul_reduce(v, w, idx, k,
+                                                         False))
+    out = tg._launch_table_gather(v, idx, False)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, tg.table_gather_plain(v, idx, False))
+    assert torch.equal(out, tg._launch_table_gather(v, idx, False))
+    sc = tg._launch_table_scatter(w, index, False)
+    ref = tg.table_scatter_plain(w.float(), idx, n)
+    assert sc.dtype == torch.float32
+    torch.testing.assert_close(sc, ref, rtol=0,
+                               atol=1e-5 * max(ref.abs().max().item(), 1.0))
+    assert torch.equal(sc, tg._launch_table_scatter(w, index, False))
+
+
+@pytest.mark.parametrize("f", [40, 128])
+def test_bf16_gather_kernels_at_an_unaligned_offset(cuda, f):
+    """bf16 views at a 2-byte storage offset take the scalar path and give
+    the bits of the 16-byte path on aligned copies."""
+    rng = np.random.default_rng(13)
+    n, n_out, k = 64, 64, 40
+    idx = torch.tensor(gather_index(rng, "suffix", n, n_out, k), device=cuda)
+    buf = _bf16(rng, 1 + n * f + n_out * k * f, cuda)
+    v = buf[1:1 + n * f].view(n, f)
+    w = buf[1 + n * f:].view(n_out * k, f)
+    assert v.data_ptr() % 16 and w.data_ptr() % 16
+    got = tg._launch_gather_mul_reduce(v, w, idx, k, False)
+    _assert_k1_bf16_close(got, tg.gather_mul_reduce_plain(v, w, idx, k,
+                                                          False))
+    assert torch.equal(got, tg._launch_gather_mul_reduce(
+        v.clone(), w.clone(), idx, k, False))
+    out = tg._launch_table_gather(v, idx, False)
+    assert torch.equal(out, tg._launch_table_gather(v.clone(), idx, False))
+    with pytest.raises(TypeError):
+        tg._launch_gather_mul_reduce(v.float(), w, idx, k, False)
+
+
+def test_bf16_gather_autograd_runs_the_bf16_kernels(cuda):
+    """split=False forward, backward and grad-of-grad on CUDA tensors
+    launch only the bf16 instantiations and match the plain versions'
+    autograd (bf16 outputs within one ulp)."""
+    rng = np.random.default_rng(2)
+    n, f, k = 20, 16, 6
+    idx = torch.tensor(rng.integers(0, n + 1, size=n * k), dtype=torch.int32,
+                       device=cuda)
+    ct = torch.tensor(rng.normal(size=(n, f)), dtype=torch.float32,
+                      device=cuda).to(torch.bfloat16)
+    results = {}
+    for dev in (cuda, torch.device("cpu")):
+        index = tg.TableIndex(idx.to(dev), n)
+        v = _bf16(np.random.default_rng(3), (n, f), dev).requires_grad_()
+        w = _bf16(np.random.default_rng(4), (n * k, f),
+                  dev).requires_grad_()
+        mt.ops.reset_counts()
+        out = tg.gather_mul_reduce(v, w, index, k, False)
+        dv, dw = torch.autograd.grad((out * ct.to(dev)).sum(), (v, w),
+                                     create_graph=True)
+        (ddv,) = torch.autograd.grad((dw.float() ** 2).sum(), v)
+        results[dev.type] = (out, dv, dw, ddv)
+        if dev.type == "cuda":
+            counts = mt.ops.counts()
+            # K2b's CSR inverse is dtype-free: one build per index
+            assert {k: c for k, c in counts["launches"].items() if c} == {
+                "table_index_csr": 1}
+            assert counts["launches_bf16"] == {
+                "gather_mul_reduce": 1, "table_gather": 1,
+                "table_scatter": 2}
+            assert sum(counts["plain_calls_bf16"].values()) == 0
+    for got, ref in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(got.cpu().float(), ref.float(),
+                                   rtol=2.0 ** -7,
+                                   atol=1e-5 * max(ref.float().abs().max()
+                                                   .item(), 1.0))
+
+
+def test_bf16_shifted_softplus_matches_the_cpu(cuda):
+    """The bf16 shifted softplus, its derivative and second derivative
+    give the CPU's bits on the card (the CPU's are JAX's,
+    tests/test_torch_precision.py): log(2) is subtracted rounded to bf16
+    on both, where a Python float stays f32 on the card."""
+    from mdgrad_tpu_torch.nn.layers import shifted_softplus
+    x = torch.tensor(np.random.default_rng(1).standard_normal(4096) * 6,
+                     dtype=torch.float32).to(torch.bfloat16)
+    results = {}
+    for dev in (cuda, torch.device("cpu")):
+        xd = x.to(dev).requires_grad_()
+        y = shifted_softplus(xd)
+        (g1,) = torch.autograd.grad(y.sum(), xd, create_graph=True)
+        (g2,) = torch.autograd.grad(g1.float().sum(), xd)
+        results[dev.type] = [t.detach().cpu() for t in (y, g1, g2)]
+    for got, ref in zip(results["cuda"], results["cpu"]):
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, ref)
+
 def test_rdf_kernel_matches_plain(cuda):
     system = mt.System.from_lattice("fcc", 3, 1.679)
     rng = np.random.default_rng(1)

@@ -348,7 +348,7 @@ def test_validation_state_point_adds_nothing_to_the_gradient(
 
 @pytest.mark.parametrize("key,value", [
     ("pair_flag", True), ("tpair_flag", True), ("u_reg_weight", 0.1),
-    ("share_prior_aux", True), ("mts_inner", 2), ("gnn_skin", 0.5),
+    ("share_prior_aux", True), ("mts_inner", 2),
     ("angle_flag", True), ("nbr_mode", "cells")])
 def test_unported_branches_raise(lj_registry, key, value):
     with pytest.raises(NotImplementedError, match=key):
@@ -360,9 +360,40 @@ def test_unported_registry_and_dtype_raise(lj_registry):
     stripe = {"stripe": {"rho": 0.1, "T": 0.5, "dim": 2}}
     with pytest.raises(NotImplementedError, match="2-D"):
         fit_rdf.get_system("stripe", 2, stripe)
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        fit_rdf.build_fit({**ASSIGNMENTS, "compute_dtype": "bf16"},
+    # bf16 and 'mixed' are ported (test_ported_branches_run); a dtype the
+    # JAX package does not name still raises
+    with pytest.raises(ValueError, match="compute_dtype"):
+        fit_rdf.build_fit({**ASSIGNMENTS, "compute_dtype": "float16"},
                           SYS_PARAMS, registry=lj_registry, device="cpu")
+
+
+@pytest.mark.parametrize("assignments,sys_params", [
+    ({}, {"gnn_skin": 0.3, "topology_update_freq": 3}),
+    ({"compute_dtype": "bf16"}, {}),
+    ({"compute_dtype": "mixed"}, {}),
+    ({}, {"nbr_mode": "topk"}),
+    ({}, {"nbr_mode": "sparse"})],
+    ids=["gnn_skin", "bf16", "mixed", "topk", "sparse"])
+def test_ported_branches_run(lj_registry, captured, assignments, sys_params):
+    """The branches that raised before the SchNet and GNN rest was ported
+    now build and fit: one epoch gives a finite loss and moves the
+    parameters, with the skin, the dtype and the neighbor mode in place."""
+    out = fit_rdf.fit_rdf({**ASSIGNMENTS, **assignments},
+                          {**SYS_PARAMS, "n_epochs": 1, "n_sim": 0,
+                           **sys_params}, registry=lj_registry,
+                          rng=np.random.default_rng(1), log=lambda m: None,
+                          device="cpu")
+    assert len(out["loss_log"]) == 1 and np.isfinite(out["loss_log"][0])
+    moved = max((out["params"][k] - v).abs().max().item()
+                for k, v in captured["initial"].items())
+    assert moved > 0
+    gnn = captured["sims"][0].integrator.model.models["nn"]
+    assert gnn.skin == sys_params.get("gnn_skin", 0.0)
+    assert gnn.nbr_mode == sys_params.get("nbr_mode", "table")
+    assert gnn.gnn.compute_dtype == assignments.get("compute_dtype",
+                                                    "float32")
+    assert captured["sims"][0].integrator.topology_update_freq == \
+        sys_params.get("topology_update_freq", 1)
 
 
 def test_init_pkl_reads_numpy_only(tmp_path):

@@ -173,5 +173,9 @@ def test_seeded_init_is_deterministic():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["embedding.weight"], c["embedding.weight"])
     assert a["embedding.weight"].shape == (100, 16)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        mt.SchNet({**WIDTHS, "compute_dtype": "bf16"})
+    # bf16 keeps the parameters (f32) and their seeded values; a dtype the
+    # JAX package does not name raises
+    d = mt.SchNet({**WIDTHS, "compute_dtype": "bf16"}, seed=3).state_dict()
+    assert all(torch.equal(a[k], d[k]) for k in a) and a.keys() == d.keys()
+    with pytest.raises(ValueError, match="compute_dtype"):
+        mt.SchNet({**WIDTHS, "compute_dtype": "float16"})
