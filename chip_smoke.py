@@ -9,13 +9,16 @@ its phases, printing one line as each check ends:
 1. build   -- one nvcc process per source, in parallel, and one link into
    one shared library; its wall time.
 2. kernels -- each kernel against its plain PyTorch version on the card at
-   the shapes of the main paths (sentinel indices included); K1 and K2a
-   also at F = 1, 3, 40, 128, 130, K = 1, 12, 40 and four sentinel layouts,
-   and through views at a 4-byte offset (their scalar path); the SchNet
-   force through the kernels against the plain gather path, and the force's
-   vector-Jacobian product (its grad-of-grad) likewise; K2b's CSR build
-   (one-block and grid paths) integer-equal to the plain build on the main
-   path's index and on edge cases, and K2b bit-equal through either CSR;
+   the shapes of the main paths (sentinel indices included); K1, K2a and
+   K2b also at F = 1, 3, 40, 128, 130, K = 1, 12, 40 and four sentinel
+   layouts, and through views at a 4-byte offset (their scalar path), K2b
+   also on rows of 0 and 300 edges; the SchNet force through the kernels
+   against the plain gather path, and the force's vector-Jacobian product
+   (its grad-of-grad) likewise; K2b's CSR build (the cluster path, and the
+   grid path forced) integer-equal to the plain build, twice, on the main
+   path's index, on edge cases, on water tables at K = 16-72 and on each
+   side of the cluster build's capacity, and K2b bit-equal through either
+   CSR;
    then the LJ pair kernels (K5 energy and forces, K6 force, K6b its vjp,
    K7 force and parameter sums) on perturbed FCC boxes of 108, 100 (the
    bounds mask), 1372 and 4000 atoms, powers (12, 6), (9, 6) and (12, 0),
@@ -64,7 +67,8 @@ its phases, printing one line as each check ends:
    RDF backend.  A fresh fit of 3 epochs with a checkpoint after each,
    one 100-step inference rollout and the 800-bin RDF; its resume to 4
    epochs (one epoch run); a 2-epoch fit whose K = 16 table overflows at
-   epoch 0 and regrows to K = 72, whose CSR build takes the grid kernel.
+   epoch 0 and regrows to K = 72, whose CSR build (36864 edges) takes the
+   cluster kernel, as every fit's does.
    Each call launches K1, K2a, K2b, the CSR build, K3/K4 and K3b/K4b, no
    LJ kernel and no plain version.
 4d. bf16  -- ``bench.py:33-69`` as it is: phase 3's model with SchNet
@@ -88,7 +92,9 @@ its phases, printing one line as each check ends:
    bins, K3b/K4b at 3 x 512 and 10 x 1372,
    with bounds that count the exponentials inside the reach on these
    frames at the SFU's rate; K2b's CSR
-   build against the plain build, K2b beside each; K1, K2a and K2b warm,
+   build at every water table width (K = 16-72) with the path it takes,
+   against the grid path and the plain build, K2b beside each at K = 40;
+   K1, K2a and K2b warm,
    their inputs in the L2 as on the MD path, and cold, cycling over input
    sets larger than the L2, with the cold share of the bound, in f32 and
    in bf16), MD, training and fit steps/s, bf16 against f32 from phase
@@ -100,8 +106,11 @@ its phases, printing one line as each check ends:
    library of its own, held against the plain versions, and timed with
    this build's kernels on the same inputs in turns -- the others, this,
    this, the others in reverse (A B B A for one other) -- ``ROUNDS``
-   times.  Gather: K1, K2a and K2b warm, cold and on one row, the medians
-   and the cold share of the bound, one JSON line ``{"gather_ab": ...}``.
+   times.  Gather: K1, K2a and K2b warm, cold and on one row, in f32 and
+   bf16, the medians and the cold share of the bound; K2b's CSR build at
+   E = 20480 and 36864 (each library's own path, and the grid forced) and
+   with K2b after it; the largest difference between the libraries'
+   outputs (the CSR integer-equal); one JSON line ``{"gather_ab": ...}``.
    RDF: K3/K4 and K3b/K4b at phase 5's shapes, an older ``rdf.cu`` called
    through its own C interface (``ops/time_rdf.py``), one JSON line
    ``{"rdf_ab": ...}``.  Pair: K5, K6, K6b and K7 at N = 1372 and 4000, an
@@ -338,8 +347,9 @@ FIT_SYS_PARAMS = {
     "overflow_policy": "warn", "regrow_factor": 1.5, "prior_mode": "auto",
     "init_pkl": None, "test_nbins": 800, "ckpt_every": 1}
 # the regrow call: a table of K = 16 (slack 0.5 of the lattice's 28
-# neighbors) overflows at once and regrows to K = 72 (36864 edges), past
-# the one-block CSR build's 32768
+# neighbors) overflows at once and regrows to K = 72 (36864 edges), which
+# the CSR build's cluster path holds (the grid path takes over only past
+# 65536 edges)
 FIT_REGROW = {"n_epochs": 2, "n_sim": 0, "capacity_slack": 0.5,
               "overflow_policy": "regrow", "regrow_factor": 4.5}
 WATER_KERNELS = ("gather_mul_reduce", "table_gather", "table_scatter",
@@ -359,16 +369,20 @@ class CsrWidths:
     def __enter__(self):
         self.real = self.gather._launch_table_index_csr
 
-        def record(idx, n, one_block=True):
+        def record(idx, n, cluster=True):
             key = (idx.shape[0], n)
             self.seen[key] = self.seen.get(key, 0) + 1
-            return self.real(idx, n, one_block)
+            return self.real(idx, n, cluster)
 
         self.gather._launch_table_index_csr = record
         return self
 
     def __exit__(self, *exc):
         self.gather._launch_table_index_csr = self.real
+
+    def paths(self):
+        """The build each recorded width takes."""
+        return {self.gather.table_index_csr_path(e, n) for e, n in self.seen}
 
     def describe(self):
         return ", ".join(
@@ -474,6 +488,8 @@ def fit_phase(mt, torch, dev, records):
             line(f"fit: launches in epoch {i}: {c}")
         line(f"fit: launches in the inference phase: {inference}")
         line(f"fit: CSR builds {widths.describe()}")
+        require(widths.paths() == {"cluster"},
+                "the fit's CSR builds take the cluster kernel")
         k_fresh = sorted({e // n for e, n in widths.seen})[0]
         require(inference["rdf_counts"] == 2
                 and inference["rdf_counts_bwd"] == 0,
@@ -518,8 +534,8 @@ def fit_phase(mt, torch, dev, records):
             and moved(out3["params"]) > 0,
             "the last epoch applied its update")
     require(ks == [16, 72], f"the CSR builds ran at K = 16, then 72 ({ks})")
-    require(gather.table_index_csr_path(72 * 512, 512) == "grid",
-            "the regrown table's CSR build takes the grid kernel")
+    require(widths3.paths() == {"cluster"},
+            "the regrown table's CSR builds take the cluster kernel")
     check_fit_counts(ops.counts(), "regrown fit")
     line(f"fit regrow: k_max {ks[0]} -> {ks[-1]}; {wall3:.3f} s")
     return {"wall": wall, "epochs_s": epochs_s, "steady_s": steady_s,
@@ -586,6 +602,9 @@ def mixed_and_skin_phase(torch, records, fitted):
     check_fit_counts(counts, "skinned fit")
     ks = sorted({e // n for e, n in widths.seen})
     require(len(ks) == 1, f"one table width in the skinned fit ({ks})")
+    line(f"fit skin: CSR builds {widths.describe()}")
+    require(widths.paths() == {"cluster"},
+            "the skinned fit's CSR builds take the cluster kernel")
     per_epoch = {name: marks[1][1]["launches"][name]
                  - marks[0][1]["launches"][name]
                  for name in WATER_KERNELS}
@@ -808,17 +827,32 @@ def bf16_phase(mt, torch, dev, records, main):
 
 def gather_phase(torch, dev, gen, gather, time_gather, index, k, compare,
                  records):
-    """K1 and K2a against their plain versions on the cases their kernels
-    special-case (``time_gather``'s F = 1, 3, 40, 128, 130: F % 4 != 0 the
-    scalar path, F > 128 a second pass over the row; K = 1, 12, 40: 1, 3
-    and 10 warps a row in K1; four sentinel layouts), 29 output rows over
-    37 values; then at the water shape through views at a 4-byte storage
-    offset (the scalar path).  K1 within 1e-5 of max(|ref|, 1) (f32 sums
-    of at most K products in another order), K2a bit-exact (a copy); each
-    gives the same bits on a second call."""
+    """K1, K2a and f32 K2b against their plain versions on the cases their
+    kernels special-case (``time_gather``'s F = 1, 3, 40, 128, 130: F % 4
+    != 0 the scalar path, F > 128 a second pass over the row; K = 1, 12,
+    40: 1, 3 and 10 warps a row in K1; four sentinel layouts), 29 output
+    rows over 37 values; K2b also on a row with no edges and one with 300
+    (``csr_index_cases``' ``empty_rows`` and ``one_row``); then at the
+    water shape through views at a 4-byte storage offset (the scalar
+    path), K2b's view giving the bits of an aligned copy (both add in
+    ascending edge order).  K1 and K2b within 1e-5 of max(|ref|, 1) (f32
+    sums in another order), K2a bit-exact (a copy); each gives the same
+    bits on a second call."""
     import numpy as np
     rng = np.random.default_rng(SEED + 4)
     n, n_out = 37, 29
+    err_k2b = 0.0
+
+    def check_k2b(g, idx_index, what):
+        got = gather._launch_table_scatter(g, idx_index)
+        ref = gather.table_scatter_plain(g, idx_index.idx, idx_index.n)
+        err, _, scale = max_errs(got, ref)
+        require(err <= 1e-5 * max(scale, 1.0),
+                f"K2b agrees with its plain version at {what}")
+        require(torch.equal(got, gather._launch_table_scatter(g, idx_index)),
+                f"K2b gives the same bits twice at {what}")
+        return err, got
+
     for f in time_gather.GATHER_F:
         err_k1 = 0.0
         for k_case in time_gather.GATHER_K:
@@ -841,12 +875,29 @@ def gather_phase(torch, dev, gen, gather, time_gather, index, k, compare,
                     out, gather._launch_table_gather(v, idx)),
                     "K1 and K2a give the same bits on a second call")
                 err_k1 = max(err_k1, err)
+                err_k2b = max(err_k2b, check_k2b(
+                    w, gather.TableIndex(idx, n),
+                    f"F={f}, K={k_case}, {layout}")[0])
         line(f"kernel gather_mul_reduce, table_gather F={f}: K = 1, 12, 40 x "
              f"{len(time_gather.GATHER_LAYOUTS)} sentinel layouts: K1 "
              f"max_abs_err {err_k1:.3e} (tol 1e-5 of max(|ref|, 1)); K2a "
              f"bit-equal; the same bits twice")
         rec = records.setdefault("gather_mul_reduce", {})
         rec["max_abs_err"] = max(err_k1, rec.get("max_abs_err", 0.0))
+    cases = {name: (idx_np, n_rows) for name, idx_np, n_rows
+             in time_gather.csr_index_cases()}
+    for name in ("empty_rows", "one_row"):
+        idx_np, n_rows = cases[name]
+        idx = torch.tensor(idx_np, device=dev)
+        for f in (40, 128):
+            g = torch.randn(idx_np.size, f, device=dev, generator=gen)
+            err, got = check_k2b(g, gather.TableIndex(idx, n_rows),
+                                 f"{name}, F={f}")
+            err_k2b = max(err_k2b, err)
+            key = np.where((idx_np >= 0) & (idx_np < n_rows), idx_np, n_rows)
+            empty = np.bincount(key, minlength=n_rows + 1)[:n_rows] == 0
+            require(not got[torch.tensor(empty, device=dev)].any(),
+                    f"K2b writes zeros to the rows with no edges ({name})")
     n, f = index.n, 128
     e = index.idx.shape[0]
     buf = torch.randn(1 + n * f + e * f, device=dev, generator=gen)
@@ -860,6 +911,18 @@ def gather_phase(torch, dev, gen, gather, time_gather, index, k, compare,
         v, w, index.idx, k), 1e-5)
     compare("table_gather", gather._launch_table_gather(v, index.idx),
             gather.table_gather_plain(v, index.idx), 0.0)
+    err, got = check_k2b(w, index, "the water shape, 4-byte offset")
+    err_k2b = max(err_k2b, err)
+    require(torch.equal(got, gather._launch_table_scatter(w.clone(), index)),
+            "K2b's scalar path gives the vector path's bits")
+    line(f"kernel table_scatter (f32): F = "
+         f"{', '.join(map(str, time_gather.GATHER_F))} x K = 1, 12, 40 x "
+         f"{len(time_gather.GATHER_LAYOUTS)} sentinel layouts, rows of 0 "
+         f"and 300 edges, the water shape at a 4-byte offset: max_abs_err "
+         f"{err_k2b:.3e} (tol 1e-5 of max(|ref|, 1)); the same bits twice; "
+         f"the scalar path's bits are the vector path's")
+    rec = records.setdefault("table_scatter", {})
+    rec["max_abs_err"] = max(err_k2b, rec.get("max_abs_err", 0.0))
 
 
 def gather_bf16_phase(torch, dev, gen, gather, time_gather, index, k,
@@ -946,74 +1009,149 @@ def gather_bf16_phase(torch, dev, gen, gather, time_gather, index, k,
         records.setdefault(f"{name}.bf16", {})["max_abs_err"] = err
 
 
-def gather_lib_errs(torch, gather, time_gather, lib, s, k):
-    """Max abs error of ``lib``'s K1, K2a and K2b on set ``s`` against
-    their plain versions: K2a bit-exact, K1 and K2b within 1e-5 of
-    max(|ref|, 1)."""
+def gather_lib_outputs(torch, gather, time_gather, lib, s, k):
+    """``lib``'s K1, K2a and K2b on set ``s`` (f32 or bf16) against their
+    plain versions: K2a bit-exact; in f32 K1 and K2b within 1e-5 of
+    max(|ref|, 1); in bf16 K2b likewise (f32 sums) and K1 within one bf16
+    ulp of the largest |ref| plus that.  Returns ({kernel: max abs
+    error}, {kernel: a copy of the output})."""
     for fn in time_gather.kernel_calls(lib, s, k).values():
         fn()
     torch.cuda.synchronize()
     n = s["values"].shape[0]
+    split = s["values"].dtype == torch.float32
     refs = {"gather_mul_reduce": gather.gather_mul_reduce_plain(
-                s["values"], s["w"], s["idx"], k),
-            "table_gather": gather.table_gather_plain(s["values"], s["idx"]),
-            "table_scatter": gather.table_scatter_plain(s["g"], s["idx"], n)}
+                s["values"], s["w"], s["idx"], k, split),
+            "table_gather": gather.table_gather_plain(s["values"], s["idx"],
+                                                      split),
+            "table_scatter": gather.table_scatter_plain(s["g"].float(),
+                                                        s["idx"], n)}
     errs = {}
     for name, ref in refs.items():
         err, _, scale = max_errs(s[name], ref)
         tol = 0.0 if name == "table_gather" else 1e-5 * max(scale, 1.0)
+        if name == "gather_mul_reduce" and not split:
+            tol += 2.0 ** -7 * scale
         require(err <= tol, f"{name} of the library under test agrees with "
                             f"its plain version ({err:.3e} > {tol:.3e})")
         errs[name] = err
-    return errs
+    return errs, {name: s[name].clone() for name in refs}
 
 
 def gather_ab(torch, _build, gather, time_gather, sources, sets, k, bounds,
-              smi):
+              csr_inputs, smi):
     """Phase 5b (see the module docstring): K1, K2a and K2b of each other
     ``gather.cu`` in ``sources`` against this build's, in one process on
-    the same input sets; ``bounds`` {kernel: bound ms}."""
+    the same input sets, in f32 and bf16 (``sets`` {"f32": ..., "bf16":
+    ...}, ``bounds`` {dtype: {kernel: bound ms}}); and the CSR build at
+    each ``{e: (idx, n)}`` of ``csr_inputs`` (the path each library picks
+    and the grid forced), and with K2b after it on the main path's index.
+    Prints the largest difference between the libraries' outputs: the CSR
+    must be integer-equal."""
     libs = {f"other{i}": _build.library((src,))
             for i, src in enumerate(sources)}
     libs["this"] = _build.library()
     names = dict(zip(libs, [*sources, "csrc/gather.cu"]))
+    outs = {}
     for tag, lib in libs.items():
-        errs = gather_lib_errs(torch, gather, time_gather, lib, sets[0], k)
-        line(f"gather a/b: {tag} ({names[tag]}) max_abs_err " + "  ".join(
-            f"{name} {err:.3e}" for name, err in errs.items()))
+        for dtype, dsets in sets.items():
+            errs, outs[tag, dtype] = gather_lib_outputs(
+                torch, gather, time_gather, lib, dsets[0], k)
+            line(f"gather a/b: {tag} ({names[tag]}) {dtype} max_abs_err "
+                 + "  ".join(f"{name} {err:.3e}"
+                             for name, err in errs.items()))
+        for e, (idx, n) in csr_inputs.items():
+            bufs = time_gather.csr_outputs(e, n, idx.device)
+            time_gather.csr_call(lib, idx, n, bufs)()
+            outs[tag, f"csr@{e}"] = bufs[:2]
+            ref = gather.table_index_csr_plain(idx, n)
+            require(all(torch.equal(a, b) for a, b in zip(bufs[:2], ref)),
+                    f"the CSR build of {tag} equals the plain build at "
+                    f"E={e}")
+    for tag in libs:
+        if tag == "this":
+            continue
+        diffs = {f"{dtype} {name}": (outs[tag, dtype][name].float()
+                                     - outs["this", dtype][name].float())
+                 .abs().max().item()
+                 for dtype in sets for name in time_gather.KERNELS}
+        for e in csr_inputs:
+            diffs[f"csr@{e}"] = max(
+                (a.long() - b.long()).abs().max().item() if a.numel() else 0
+                for a, b in zip(outs[tag, f"csr@{e}"],
+                                outs["this", f"csr@{e}"]))
+            require(diffs[f"csr@{e}"] == 0,
+                    f"the CSR builds of {tag} and this build are "
+                    f"integer-equal at E={e}")
+        line(f"gather a/b: largest |{tag} - this| " + "  ".join(
+            f"{name} {d:.3e}" for name, d in diffs.items()))
     order = list(libs)
     turns = (order + order[::-1]) * ROUNDS
     runs = {tag: [] for tag in libs}
     for i, tag in enumerate(turns):
-        r = time_gather.warm_cold(libs[tag], sets, k)
+        r = {dtype: time_gather.warm_cold(libs[tag], dsets, k)
+             for dtype, dsets in sets.items()}
+        r["csr"] = time_gather.csr_times(libs[tag], csr_inputs,
+                                         sets["f32"][0], k)
         runs[tag].append(r)
         line(f"gather a/b turn {i} {tag}: " + "  ".join(
-            f"{name} warm {r[name]['ms'] * 1e3:.2f} us cold "
-            f"{r[name]['cold_ms'] * 1e3:.2f} us"
-            for name in time_gather.KERNELS) + "  launch floor " + "  ".join(
+            f"{name}.{dtype} warm {r[dtype][name]['ms'] * 1e3:.2f} us cold "
+            f"{r[dtype][name]['cold_ms'] * 1e3:.2f} us"
+            for dtype in sets for name in time_gather.KERNELS)
+            + "  launch floor " + "  ".join(
             f"{name} {t * 1e3:.2f} us"
-            for name, t in r["launch_floor"].items()))
+            for name, t in r["f32"]["launch_floor"].items())
+            + "  " + "  ".join(f"{label} {t * 1e3:.2f} us"
+                               for label, t in r["csr"].items()))
     median = {}
     for tag, rs in runs.items():
         median[tag] = {"launch_floor": {
-            name: statistics.median(r["launch_floor"][name] for r in rs)
-            for name in rs[0]["launch_floor"]}}
-        for name in time_gather.KERNELS:
-            warm = statistics.median(r[name]["ms"] for r in rs)
-            cold = statistics.median(r[name]["cold_ms"] for r in rs)
-            median[tag][name] = {"ms": warm, "cold_ms": cold,
-                                 "cold_share_of_bound": bounds[name] / cold}
-            line(f"gather a/b median {tag} {name}: warm {warm * 1e3:.2f} us"
-                 f"  cold {cold * 1e3:.2f} us  bound "
-                 f"{bounds[name] * 1e3:.3f} us (bytes)  cold share of bound "
-                 f"{bounds[name] / cold:.1%}")
+            name: statistics.median(r["f32"]["launch_floor"][name]
+                                    for r in rs)
+            for name in rs[0]["f32"]["launch_floor"]}}
+        for dtype in sets:
+            for name in time_gather.KERNELS:
+                warm = statistics.median(r[dtype][name]["ms"] for r in rs)
+                cold = statistics.median(r[dtype][name]["cold_ms"]
+                                         for r in rs)
+                b = bounds[dtype][name]
+                median[tag][f"{name}.{dtype}"] = {
+                    "ms": warm, "cold_ms": cold,
+                    "cold_share_of_bound": b / cold}
+                line(f"gather a/b median {tag} {name}.{dtype}: warm "
+                     f"{warm * 1e3:.2f} us  cold {cold * 1e3:.2f} us  bound "
+                     f"{b * 1e3:.3f} us (bytes)  cold share of bound "
+                     f"{b / cold:.1%}")
+        median[tag]["csr"] = {
+            label: statistics.median(r["csr"][label] for r in rs)
+            for label in rs[0]["csr"]}
         line(f"gather a/b median {tag} launch floor (one row): " + "  ".join(
             f"{name} {t * 1e3:.2f} us"
             for name, t in median[tag]["launch_floor"].items()))
+        line(f"gather a/b median {tag} CSR build (warm): " + "  ".join(
+            f"{label} {t * 1e3:.2f} us"
+            for label, t in median[tag]["csr"].items()))
+    paths = {tag: {e: lib_csr_path(lib, e, n)
+                   for e, (_, n) in csr_inputs.items()}
+             for tag, lib in libs.items()}
+    line(f"gather a/b CSR paths: {paths}")
     line(json.dumps({"gather_ab": {
-        "sources": names,
-        "rounds": ROUNDS, "sets": len(sets), "bound_ms": bounds,
+        "sources": names, "csr_paths": paths,
+        "rounds": ROUNDS, "sets": len(sets["f32"]), "bound_ms": bounds,
         "median": median, "runs": runs, "card": smi}}))
+
+
+def lib_csr_path(lib, e, n):
+    """The CSR build a library of ``gather.cu`` takes at (e, n): "cluster"
+    or "grid", or, for a library from before the cluster build, "one
+    block" or "grid"."""
+    for entry, fast in (("mdg_table_index_csr_cluster", "cluster"),
+                        ("mdg_table_index_csr_one_block", "one block")):
+        if hasattr(lib, entry):
+            code = getattr(lib, entry)(e, n)
+            require(code >= 0, f"{entry} reads the card's limits")
+            return fast if code else "grid"
+    return "unknown"
 
 
 def rdf_phase(torch, dev, gen, rdf_ops, time_rdf, op, op_infer, frames_test,
@@ -1179,36 +1317,44 @@ def rdf_ab(torch, _build, rdf_ops, time_rdf, timing, sources, inputs, gen,
         "card": smi}}))
 
 
-def csr_cases(np, index):
-    """[(name, idx (E,) int32 numpy, n)]: the main path's table index and
-    the CSR build's edge cases (sentinels < 0, == n and > n, empty rows,
-    one row with every edge, all sentinels, no edges), from a seed."""
-    rng = np.random.default_rng(SEED + 3)
-    cases = [("water", index.idx.cpu().numpy(), index.n),
-             ("sentinels", rng.integers(-3, 12, size=50), 9),
-             ("empty_rows", rng.choice([2, 5, 11], size=40), 20),
-             ("one_row", np.full(300, 3), 5),
-             ("all_sentinel", np.full(70, -1), 4),
-             ("no_edges", np.zeros(0), 6)]
-    return [(name, idx.astype(np.int32), n) for name, idx, n in cases]
-
-
-def csr_phase(torch, dev, gather, index, g_edges):
-    """K2b's CSR build (one-block and grid paths) against the plain build,
-    integer-equal, on the main path's index and the edge cases; K2b's
-    output bit-equal through either CSR at the water shape."""
-    import numpy as np
-    for name, idx_np, n in csr_cases(np, index):
+def csr_phase(torch, dev, gather, time_gather, index, g_edges, records):
+    """K2b's CSR build against the plain build, integer-equal and the same
+    integers twice, through the path the build takes and through the grid
+    build forced, on the main path's index and ``time_gather``'s cases:
+    the edge cases, the water tables at K = 16 to 72 and each side of the
+    cluster build's capacity; the library's path equal to
+    ``table_index_csr_path``'s; K2b bit-equal through the kernel's and the
+    plain CSR."""
+    from mdgrad_tpu_torch.ops import _build
+    lib = _build.library()
+    cases = [("main path", index.idx.cpu().numpy(), index.n),
+             *time_gather.csr_index_cases()]
+    paths = {}
+    for name, idx_np, n in cases:
         idx = torch.tensor(idx_np, device=dev)
         ref = gather.table_index_csr_plain(idx, n)
-        for one_block in (True, False):
-            got = gather._launch_table_index_csr(idx, n, one_block)
+        path = gather.table_index_csr_path(idx_np.size, n)
+        require(path == ("cluster" if lib.mdg_table_index_csr_cluster(
+            idx_np.size, n) else "grid"),
+            f"the library's CSR path is table_index_csr_path's ({name})")
+        for cluster in (True, False):
+            got = gather._launch_table_index_csr(idx, n, cluster)
+            again = gather._launch_table_index_csr(idx, n, cluster)
+            taken = path if cluster else "grid, forced"
             require(all(torch.equal(a, b) for a, b in zip(got, ref)),
-                    f"the CSR kernel ({'one block' if one_block else 'grid'})"
-                    f" equals the plain build on case {name}")
+                    f"the CSR kernel ({taken}) equals the plain build on "
+                    f"case {name}")
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"the CSR kernel ({taken}) gives the same integers "
+                    f"twice on case {name}")
+        paths[name] = path
         line(f"kernel table_index_csr {name} (E={idx_np.size}, n={n}): "
-             f"order and rowptr integer-equal to the plain build (one-block "
-             f"and grid paths)")
+             f"order and rowptr integer-equal to the plain build, twice "
+             f"(the {path} path and the grid path forced)")
+    for k_w in time_gather.CSR_WATER_K:
+        require(gather.table_index_csr_path(512 * k_w, 512) == "cluster",
+                f"the water table at K = {k_w} takes the cluster build")
+    records.setdefault("table_index_csr", {})["max_abs_err"] = 0.0
     outs = []
     for csr in (gather._launch_table_index_csr(index.idx, index.n),
                 gather.table_index_csr_plain(index.idx, index.n)):
@@ -1797,7 +1943,7 @@ def main():
         "K1 gives the same bits on every call (the replay needs it)")
     gather_phase(torch, dev, gen, gather, time_gather, index, k, compare,
                  records)
-    csr_phase(torch, dev, gather, index, g_edges)
+    csr_phase(torch, dev, gather, time_gather, index, g_edges, records)
     gather_bf16_phase(torch, dev, gen, gather, time_gather, index, k,
                       records)
 
@@ -1920,6 +2066,8 @@ def main():
     line(f"main: rdf kernel vs plain on the trajectory: max_abs_err "
          f"{err:.3e} (tol {1e-4 * scale:.3e})")
     require(err <= 1e-4 * scale, "trajectory RDF from the kernel matches")
+    require(gather.table_index_csr_path(n_edges, n) == "cluster",
+            "the main path's CSR builds take the cluster kernel")
     steps_per_s = n_steps / main_s
     del integ_k, integ_p, stack_plain, aux
 
@@ -2012,7 +2160,8 @@ def main():
                                    bf16)
     times16 = time_gather.warm_cold(_build.library(), sets16, k)
     bytes16 = time_gather.bound_bytes(n, f, n_edges, e_real, elem=2)
-    del sets16
+    if not against["gather"]:
+        del sets16
     specs16 = {
         "gather_mul_reduce": dict(
             plain=lambda: gather.gather_mul_reduce_plain(
@@ -2052,9 +2201,12 @@ def main():
              f"bound {b_ms * 1e3:.3f} us ({b_by}; {bytes16[name]} B, "
              f"{s16['ops']} ops)")
     # K2b's CSR inverse, rebuilt with each new TableIndex (once per SchNet
-    # energy): the kernel (one-block and grid builds) and the plain build,
-    # K2b with each, and both builds called eagerly back to back (host
-    # launches included); bound: 4E bytes in, 4E + 4(n + 1) out
+    # energy): the kernel on the path it takes and on the grid build
+    # forced, and the plain build, at every table width a water path runs
+    # (the main path's own table at K = 40, water-shaped tables of
+    # time_gather elsewhere); at K = 40 also K2b with each build and both
+    # builds called eagerly back to back (host launches included); bound:
+    # 4E bytes in, 4E + 4(n + 1) out
     def scatter_with(build):
         with_csr = gather.TableIndex(idx_m, n)
         with_csr._csr = build(idx_m, n)
@@ -2062,12 +2214,27 @@ def main():
 
     csr_kernel = gather._launch_table_index_csr
     csr_plain = gather.table_index_csr_plain
+    rng_csr = np.random.default_rng(SEED + 6)
+    csr_idx = {}
+    by_e = {}
+    for k_w in time_gather.CSR_WATER_K:
+        e_w = n * k_w
+        idx_w = idx_m if e_w == n_edges else torch.tensor(
+            time_gather.water_table(rng_csr, k_w, n), dtype=torch.int32,
+            device=dev)
+        csr_idx[e_w] = (idx_w, n)
+        by_e[str(e_w)] = {
+            "k": k_w, "path": gather.table_index_csr_path(e_w, n),
+            "ms": timing.time_graph(lambda: csr_kernel(idx_w, n), reps=20),
+            "grid_ms": timing.time_graph(
+                lambda: csr_kernel(idx_w, n, False), reps=20),
+            "plain_ms": timing.time_graph(lambda: csr_plain(idx_w, n),
+                                          reps=20),
+            "bound_ms": bound_ms(4 * (2 * e_w + n + 1), 0)[0]}
     csr_b_ms, csr_b_by = bound_ms(4 * (2 * n_edges + n + 1), 0)
+    main_csr = by_e[str(n_edges)]
     csr = {
-        "ms": timing.time_graph(lambda: csr_kernel(idx_m, n), reps=20),
-        "grid_ms": timing.time_graph(lambda: csr_kernel(idx_m, n, False),
-                                     reps=20),
-        "plain_ms": timing.time_graph(lambda: csr_plain(idx_m, n), reps=20),
+        "path": main_csr["path"], "grid_ms": main_csr["grid_ms"],
         "with_scatter_ms": timing.time_graph(
             lambda: scatter_with(csr_kernel), reps=20),
         "plain_with_scatter_ms": timing.time_graph(
@@ -2075,14 +2242,26 @@ def main():
         "eager_ms": timing.time_loop(lambda: csr_kernel(idx_m, n), reps=50),
         "plain_eager_ms": timing.time_loop(lambda: csr_plain(idx_m, n),
                                            reps=50),
-        "bound_ms": csr_b_ms, "bound_by": csr_b_by,
         "launches_sampling": records["table_index_csr"]["launches_sampling"],
         "launches_per_train_step":
             records["table_index_csr"]["launches_per_train_step"],
         "launches_fit_per_epoch":
-            records["table_index_csr"]["launches_fit_per_epoch"]}
+            records["table_index_csr"]["launches_fit_per_epoch"],
+        "launches_fit_inference":
+            records["table_index_csr"]["launches_fit_inference"],
+        "by_e": by_e}
     k2b = next(r for r in kernels_json if r["name"] == "table_scatter")
-    k2b.update({f"csr_{key}": v for key, v in csr.items()})
+    k2b["with_csr_ms"] = csr["with_scatter_ms"]
+    rec = records["table_index_csr"]
+    kernels_json.append({
+        "name": "table_index_csr", "route": "cuda",
+        "source": "mdgrad_tpu_torch/csrc/gather.cu",
+        "replaces": "mdgrad_tpu/ops/pallas_gather.py:193 (table_scatter's "
+                    "CSR inverse, the port's own: the TPU kernel needs none)",
+        "launches": rec["launches"], "max_abs_err": rec["max_abs_err"],
+        "ms": main_csr["ms"], "plain_ms": main_csr["plain_ms"],
+        "bound_ms": csr_b_ms, "bound_by": csr_b_by, "library_ms": None,
+        **csr})
     lj_timed = lj_times(mt, torch, dev, gen)
     lj_specs = {
         "lj_energy_forces": ("mdgrad_tpu/ops/pallas_pair.py:112", 4000),
@@ -2110,13 +2289,20 @@ def main():
             "library_ms": t["library_ms"],
             "by_n": {str(k): v for k, v in lj_timed[name].items()}})
     line(f"time table_index_csr (K2b's CSR build, E={n_edges}, n={n}): "
-         f"kernel {csr['ms'] * 1e3:.2f} us (grid path "
-         f"{csr['grid_ms'] * 1e3:.2f} us)  plain {csr['plain_ms'] * 1e3:.2f}"
-         f" us  bound {csr_b_ms * 1e3:.3f} us ({csr_b_by}); K2b with it "
-         f"{csr['with_scatter_ms'] * 1e3:.2f} us, with the plain build "
+         f"kernel {main_csr['ms'] * 1e3:.2f} us ({csr['path']} path; grid "
+         f"path forced {csr['grid_ms'] * 1e3:.2f} us)  plain "
+         f"{main_csr['plain_ms'] * 1e3:.2f} us  bound {csr_b_ms * 1e3:.3f} "
+         f"us ({csr_b_by}); K2b with it {csr['with_scatter_ms'] * 1e3:.2f} "
+         f"us, with the plain build "
          f"{csr['plain_with_scatter_ms'] * 1e3:.2f} us (graph); eager loop "
          f"{csr['eager_ms'] * 1e3:.2f} us, plain "
          f"{csr['plain_eager_ms'] * 1e3:.2f} us")
+    line("time table_index_csr at every water table width (n = 512): "
+         + "  ".join(f"K={r['k']} E={e} {r['path']} {r['ms'] * 1e3:.2f} us"
+                     f" (grid forced {r['grid_ms'] * 1e3:.2f}, plain "
+                     f"{r['plain_ms'] * 1e3:.2f}, bound "
+                     f"{r['bound_ms'] * 1e3:.3f})"
+                     for e, r in by_e.items()))
     # K3/K4 and K3b/K4b at every shape a path launches them
     rdf_inputs = {"50x512": (frames.contiguous(), op),
                   "3x512": (frames[-3:].contiguous(), op),
@@ -2179,8 +2365,12 @@ def main():
         check=True, timeout=60).stdout.strip().splitlines()[0]
     if against["gather"]:
         gather_ab(torch, _build, gather, time_gather, against["gather"],
-                  gather_sets, k, {name: bound_ms(b, 0)[0]
-                                   for name, b in gather_bytes.items()}, smi)
+                  {"f32": gather_sets, "bf16": sets16}, k,
+                  {"f32": {name: bound_ms(b, 0)[0]
+                           for name, b in gather_bytes.items()},
+                   "bf16": {name: bound_ms(b, 0)[0]
+                            for name, b in bytes16.items()}},
+                  {e: csr_idx[e] for e in (n * 40, n * 72)}, smi)
     if against["rdf"]:
         rdf_ab(torch, _build, rdf_ops, time_rdf, timing, against["rdf"],
                rdf_inputs, gen, smi)

@@ -16,14 +16,17 @@
 // Their bound is bytes, but they reach it only with enough loads in
 // flight: ~15-20 KB an SM (Little's law at ~0.7 us), which a thread a
 // feature walking the K slots as a dependent chain (index, branch, one
-// 4-byte load) is far from.  So both move rows as
-// 16-byte vectors (float4 a lane; a scalar instantiation of the same
-// kernel takes F % 4 != 0 or an unaligned pointer) and issue a batch of
-// independent row loads before they use any: K1 spreads each output row's
-// slots over up to 16 warps, each loading 4 slots' index, then their
-// values and w rows, then doing the FMAs, and sums the warps' partials in
-// warp order; K2a gives each warp 8 edge rows, whose indices one load and
-// a shuffle bring, loads them all, then stores them.
+// 4-byte load) is far from.  So all three move rows as wide lanes (16
+// bytes in K1 and K2a, 8 in K2b; a scalar instantiation of the same kernel
+// takes a row that does not split into lanes or an unaligned pointer) and
+// issue a batch of independent row loads before they use any: K1 spreads
+// each output row's slots over up to 16 warps, each loading 4 slots'
+// index, then their values and w rows, then doing the FMAs, and sums the
+// warps' partials in warp order; K2a gives each warp 8 edge rows, whose
+// indices one load and a shuffle bring, loads them all, then stores them;
+// K2b gives each warp a 32-lane chunk of one output row (8-byte lanes: two
+// warps a row in f32, one in bf16 at F = 128), whose edge ids one load and
+// a shuffle bring, loads up to 32 of their rows, then adds them.
 //
 // Index convention (shared with the Python plain versions): an index
 // outside [0, n_values) is the padding sentinel -- it gathers a zero row
@@ -31,37 +34,44 @@
 //
 // The scatter is the transpose of the gather.  Float atomics would make it
 // run-to-run nondeterministic, so it reads a CSR inverse of the index and
-// each output row sums its incoming edges in ascending edge order, which
-// is deterministic.  The inverse is built on the card, once per
-// TableIndex (once per SchNet energy on the MD path), by
+// each lane sums its features of an output row from +0 in ascending edge
+// order, one add at a time: deterministic, and the bits of one thread a
+// feature walking the row.  The inverse is built on the card,
+// once per TableIndex (once per SchNet energy on the MD path), by
 // mdg_table_index_csr, integer-equal to a stable argsort of the
 // sentinel-mapped index (the plain build in ops/gather.py).  Its bound is
 // bytes, 4E in and 4E + 4(n + 1) out (0.05 us at the water shape), but at
-// these sizes it is bound by latency, so one block does it all in one
-// launch: a stable counting sort in which each warp counts its slice of
-// the edges per key, a scan over (key, warp) gives every warp's first slot
-// per key, and each warp fills its slice in edge order, ranking equal keys
-// within a step by a mask word per key -- integer atomics only, no sort.
-// Its shared memory is 4E + 260 (n + 1) bytes (213 KB at the water shape,
-// E = 20480 and n = 512).  Past 32768 edges, or where that passes the
-// card's 227 KB, the grid path takes over: count with integer atomics (exact in any order), scan,
+// these sizes it is bound by latency, so it is one launch of one thread
+// block cluster: 8 blocks on 8 SMs, each owning a contiguous slice of the
+// edges, a stable counting sort with no sort pass.  Each warp counts its
+// slice per key (equal keys of a step found by __match_any_sync), each
+// block turns its warps' counts into per-warp offsets and a total per key,
+// the blocks read each other's totals through distributed shared memory
+// after one cluster barrier, and each warp fills its slice in edge order.
+// Its capacity: 65536 edges and 2048 keys (n <= 2047), 72 (n + 1) + 12
+// bytes of shared memory a block; past it (no water table comes near) the
+// grid path takes over: count with integer atomics (exact in any order), scan,
 // drop each edge into its row with an atomic cursor, then sort each row's
 // segment by edge id (a bitonic network whose compare-exchanges all put
 // the smaller value at the lower index, so the padding past the segment
-// never moves), which undoes the atomics' run-to-run order.
+// never moves), which undoes the atomics' run-to-run order.  It stays for
+// any index and any row count, many times slower (PERF.md).
 //
 // bf16 (the JAX package's split=False, mdg_*_bf16): the same three kernels
-// instantiated over bf16 rows, 8 to a 16-byte lane (uint4) where F % 8 == 0
-// and the rows are aligned, else one at a time (unsigned short, the bf16
-// bits).  K1 widens each bf16 to f32 (exact: the top 16 bits), so each
-// product is exact in f32, sums over K in f32 in the same fixed order as
-// the f32 kernel and rounds once to bf16 (round to nearest even); K2a
-// copies the bf16 bits; K2b sums bf16 rows in f32 and writes f32.
+// instantiated over bf16 rows: K1 and K2a 8 to a 16-byte lane (uint4) where
+// F % 8 == 0 and the rows are aligned, K2b 4 to an 8-byte lane (uint2, so
+// that one warp covers a 128-wide row) where F % 4 == 0, else one at a
+// time (unsigned short, the bf16 bits).  K1 widens each bf16 to f32 (exact: the
+// top 16 bits), so each product is exact in f32, sums over K in f32 in the
+// same fixed order as the f32 kernel and rounds once to bf16 (round to
+// nearest even); K2a copies the bf16 bits; K2b sums bf16 rows in f32 and
+// writes f32.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() so that a refused
 // launch is raised by the Python wrapper.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -70,13 +80,14 @@
 
 namespace {
 
-// ---- K1 and K2a ------------------------------------------------------------
+// ---- lane types; K1 and K2a ----------------------------------------------
 // A row of F elements moves as a lane type T: float4 (4 f32, 16 bytes)
 // when F % 4 == 0 and every row pointer is 16-byte aligned, else float;
-// for bf16 rows uint4 (8 bf16, 16 bytes) when F % 8 == 0 and aligned, else
-// unsigned short (one bf16's bits).  The same kernels are instantiated
-// four times; fv is the row length in T.  K1 accumulates a lane in f32:
-// Acc<T> is float4, float, Float8 (8 f32) and float.
+// for bf16 rows uint4 (8 bf16, 16 bytes; K1, K2a) when F % 8 == 0 and
+// aligned, else unsigned short (one bf16's bits); K2b's own 8-byte lanes
+// are below.  fv is the row length in T.  K1 and K2b accumulate a lane in
+// f32: AccOf<T> is float4, float, Float8 (8 f32; K1), float2 and float4
+// (K2b) and float.
 
 using bf16_bits = unsigned short;
 
@@ -93,6 +104,10 @@ struct AccOf<uint4> {
   using type = Float8;
 };
 template <>
+struct AccOf<uint2> {   // K2b's 4 bf16 a lane
+  using type = float4;
+};
+template <>
 struct AccOf<bf16_bits> {
   using type = float;
 };
@@ -100,6 +115,8 @@ struct AccOf<bf16_bits> {
 __device__ __forceinline__ float4 load(const float4* p) { return __ldg(p); }
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
 __device__ __forceinline__ uint4 load(const uint4* p) { return __ldg(p); }
+__device__ __forceinline__ uint2 load(const uint2* p) { return __ldg(p); }
+__device__ __forceinline__ float2 load(const float2* p) { return __ldg(p); }
 __device__ __forceinline__ bf16_bits load(const bf16_bits* p) {
   return __ldg(p);
 }
@@ -115,6 +132,12 @@ __device__ __forceinline__ float zero<float>() { return 0.f; }
 template <>
 __device__ __forceinline__ uint4 zero<uint4>() {
   return make_uint4(0u, 0u, 0u, 0u);
+}
+template <>
+__device__ __forceinline__ uint2 zero<uint2>() { return make_uint2(0u, 0u); }
+template <>
+__device__ __forceinline__ float2 zero<float2>() {
+  return make_float2(0.f, 0.f);
 }
 template <>
 __device__ __forceinline__ bf16_bits zero<bf16_bits>() { return 0; }
@@ -175,6 +198,20 @@ __device__ __forceinline__ void add_into(float4& acc, float4 a) {
   acc.w += a.w;
 }
 __device__ __forceinline__ void add_into(float& acc, float a) { acc += a; }
+// K2b's bf16 rows, widened exactly and added in f32
+__device__ __forceinline__ void add_into(float4& acc, uint2 a) {
+  acc.x += widen_lo(a.x);
+  acc.y += widen_hi(a.x);
+  acc.z += widen_lo(a.y);
+  acc.w += widen_hi(a.y);
+}
+__device__ __forceinline__ void add_into(float& acc, bf16_bits a) {
+  acc += widen(a);
+}
+__device__ __forceinline__ void add_into(float2& acc, float2 a) {
+  acc.x += a.x;
+  acc.y += a.y;
+}
 __device__ __forceinline__ void add_into(Float8& acc, const Float8& a) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc.v[i] += a.v[i];
@@ -293,53 +330,231 @@ __global__ void __launch_bounds__(kGatherThreads) table_gather_kernel(
   }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
+bool aligned16(const void* p) { return aligned(p, 16); }
 
 // ---- K2b -------------------------------------------------------------------
+// A row moves as an 8-byte lane type T: float2 (2 f32) where F % 2 == 0,
+// uint2 (4 bf16) where F % 4 == 0, with the rows aligned; else float or
+// bf16_bits.  Each lane sums in AccOf<T> (float2, float4 or float) and
+// writes f32.
 
-constexpr int kRowsPerBlock = 2;
+constexpr int kScatterWarps = 4;   // warps a block, a row chunk each
 
-// K2b.  In is float or bf16_bits; the sums are f32, in ascending edge order.
-__device__ __forceinline__ float widen(float x) { return x; }
-
-template <typename In>
-__global__ void table_scatter_kernel(
-    const In* __restrict__ g, const int* __restrict__ order,
-    const int* __restrict__ rowptr, float* __restrict__ out,
-    int n_out, int f) {
-  const int i = blockIdx.x * blockDim.y + threadIdx.y;
-  if (i >= n_out) return;
+// K2b.  Each warp owns one 32-lane chunk of one output row (two warps a
+// row at F = 128: 8-byte lanes, so that a warp's 32 row loads in flight
+// are 8 KB).  The row's edge ids come 32 at a time, one coalesced load,
+// and a shuffle hands each to every lane; then all their rows are loaded,
+// then added one at a time in ascending edge order from +0: the same
+// order, and bits, as one thread a feature walking the row.  A slot past
+// the row's end is neither loaded nor added.
+template <typename T>
+__global__ void __launch_bounds__(32 * kScatterWarps) table_scatter_kernel(
+    const T* __restrict__ g, const int* __restrict__ order,
+    const int* __restrict__ rowptr, typename AccOf<T>::type* __restrict__ out,
+    int n_out, int fv) {
+  using Acc = typename AccOf<T>::type;
+  const int lane = threadIdx.x & 31;
+  const int chunks = (fv + 31) / 32;
+  const long long w = static_cast<long long>(blockIdx.x) * kScatterWarps +
+                      (threadIdx.x >> 5);
+  if (w >= static_cast<long long>(n_out) * chunks) return;   // warp-uniform
+  const int i = static_cast<int>(w / chunks);
+  const int c = static_cast<int>(w % chunks) * 32 + lane;
+  const bool in_row = c < fv;
   const int p0 = __ldg(rowptr + i);
   const int p1 = __ldg(rowptr + i + 1);
-  for (int c = threadIdx.x; c < f; c += blockDim.x) {
-    float acc = 0.f;
-    for (int p = p0; p < p1; ++p) {
-      acc += widen(
-          __ldg(g + static_cast<long long>(__ldg(order + p)) * f + c));
+  Acc acc = zero<Acc>();
+  for (int p = p0; p < p1; p += 32) {
+    const int mine = p + lane < p1 ? __ldg(order + p + lane) : 0;
+    const int count = min(32, p1 - p);
+    T v[32];
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      const int e = __shfl_sync(0xffffffffu, mine, u);
+      v[u] = in_row && u < count
+                 ? load(g + static_cast<long long>(e) * fv + c)
+                 : zero<T>();
     }
-    out[static_cast<long long>(i) * f + c] = acc;
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      if (u < count) add_into(acc, v[u]);   // warp-uniform
+    }
   }
-}
-
-dim3 feature_block(int f) {
-  // threads over the feature axis (a multiple of the warp, at most 128),
-  // kRowsPerBlock output rows per block
-  int tx = ((f + 31) / 32) * 32;
-  if (tx > 128) tx = 128;
-  return dim3(tx, kRowsPerBlock);
+  if (in_row) out[static_cast<long long>(i) * fv + c] = acc;
 }
 
 // ---- K2b's CSR inverse ----------------------------------------------------
 
-constexpr int kCsrThreads = 1024;    // the one-block build
+constexpr int kCsrCluster = 8;        // blocks a cluster: the portable most
+constexpr int kCsrThreads = 512;      // a block of the cluster build
 constexpr int kCsrWarps = kCsrThreads / 32;
-constexpr int kCsrSteps = 32;        // edges a lane holds in the one block
-constexpr int kCsrGridThreads = 256; // the grid build's count, fill, sort
+constexpr int kCsrSlices = kCsrCluster * kCsrWarps;   // one a warp
+constexpr int kCsrSteps = 16;         // edges a lane holds
+constexpr int kCsrMaxEdges = kCsrSlices * 32 * kCsrSteps;   // 65536
+constexpr int kCsrMaxKeys = 2048;     // n + 1 (the sentinel is key n)
+static_assert(4 * kCsrThreads >= kCsrMaxKeys, "4 keys a thread at most");
+constexpr int kCsrGridThreads = 256;  // the grid build's count, fill, sort
+constexpr int kCsrScanThreads = 1024; // the grid build's one-block scan
 
 __device__ __forceinline__ int csr_key(int j, int n) {
   return static_cast<unsigned>(j) < static_cast<unsigned>(n) ? j : n;
+}
+
+// The cluster build's dynamic shared memory for n rows: the warps' counts
+// (warps x (n + 1) ints), the block's totals (n + 1, padded to 4 for
+// 16-byte reads) and the keys' first slots (n + 1)
+constexpr long long csr_cluster_bytes(long long n) {
+  return 4LL * ((kCsrWarps + 2) * (n + 1) + 3);
+}
+
+__device__ __forceinline__ void add4(int4& a, int4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// Exclusive sum of v over the block (kCsrThreads threads): the warps'
+// inclusive scans by shuffles, then each thread adds the lower warps'
+// totals.
+__device__ __forceinline__ int block_exclusive_sum(int v, int* warp_sums) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  int below = 0;
+#pragma unroll
+  for (int w = 0; w < kCsrWarps; ++w) below += w < warp ? warp_sums[w] : 0;
+  return below + x - v;
+}
+
+// The cluster build, a stable counting sort in one launch.  The edges are
+// cut into 8 x 16 contiguous warp slices, block r holding slices 16 r to
+// 16 r + 15, at most 16 edges a lane, whose keys each lane loads into
+// registers at once (their latencies overlap).
+//   1. Each warp counts its keys into its row of hist (warps, n + 1), a
+//      step of 32 edges at a time: the lanes of one key find each other by
+//      __match_any_sync, each keeps its place among the warp's edges of
+//      its key so far (the count before the step plus its lower peers),
+//      and the lowest adds their number (a warp's own row: no atomics).
+//   2. One thread a key loads the key's 16 warp counts at once, turns them
+//      into the counts of the lower warps and writes the block's total.
+//   3. After a cluster barrier each thread reads, for its 4 keys, the 8
+//      blocks' totals through distributed shared memory (one 16-byte read
+//      a block): the lower blocks' sum and the whole.  A block-wide
+//      exclusive sum of the wholes gives each key's first slot (rowptr,
+//      written by block 0) and, plus the lower blocks', where this
+//      block's edges of the key begin (base).
+//   4. Each lane stores its edges at base + its warp's lower count + its
+//      place: reads and independent stores only.
+// Blocks in rank order, warps in slice order and lanes in edge order keep
+// equal keys in edge order.  The cluster barrier's arrive follows the last
+// remote read and its wait ends the kernel, so no block leaves while
+// another still reads its shared memory.
+__global__ void __cluster_dims__(kCsrCluster, 1, 1)
+    __launch_bounds__(kCsrThreads) csr_cluster_kernel(
+        const int* __restrict__ idx, int e, int n, int* __restrict__ order,
+        int* __restrict__ rowptr) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ int sm[];
+  __shared__ int warp_sums[kCsrWarps];
+  const int m = n + 1;
+  const int m4 = (m + 3) & ~3;
+  int* hist = sm;                      // (kCsrWarps, m): counts, then offsets
+  int* total = hist + kCsrWarps * m;   // (m4,): this block's count per key
+  int* base = total + m4;              // (m,): the key's first slot here
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned lower = (1u << lane) - 1u;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int chunk = (e + kCsrSlices - 1) / kCsrSlices;
+  const int p0 = min((rank * kCsrWarps + warp) * chunk, e);
+  const int p1 = min(p0 + chunk, e);
+  int key[kCsrSteps];   // -1 past the slice
+#pragma unroll
+  for (int s = 0; s < kCsrSteps; ++s) {
+    const int p = p0 + s * 32 + lane;
+    key[s] = p < p1 ? csr_key(idx[p], n) : -1;
+  }
+  for (int k = threadIdx.x; k < kCsrWarps * m; k += kCsrThreads) hist[k] = 0;
+  __syncthreads();
+  int* own = hist + warp * m;
+  int place[kCsrSteps];   // each edge's place among its warp's of its key
+#pragma unroll
+  for (int s = 0; s < kCsrSteps; ++s) {
+    if (p0 + s * 32 >= p1) break;   // warp-uniform
+    const int k = key[s];
+    const unsigned peers = __match_any_sync(0xffffffffu, k);
+    const int before = k >= 0 ? own[k] : 0;
+    place[s] = before + __popc(peers & lower);
+    __syncwarp();
+    if (k >= 0 && (peers & lower) == 0) own[k] = before + __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < m4; k += kCsrThreads) {
+    int c[kCsrWarps];
+#pragma unroll
+    for (int w = 0; w < kCsrWarps; ++w) c[w] = k < m ? hist[w * m + k] : 0;
+    int below = 0;
+#pragma unroll
+    for (int w = 0; w < kCsrWarps; ++w) {
+      if (k < m) hist[w * m + k] = below;
+      below += c[w];
+    }
+    total[k] = below;
+  }
+  cluster.sync();   // every block's totals written and visible
+  // this thread's keys [k0, k0 + 4): each block's 4 totals in one read
+  const int k0 = 4 * threadIdx.x;
+  int4 lower_blocks = make_int4(0, 0, 0, 0);
+  int4 whole = make_int4(0, 0, 0, 0);
+  if (k0 < m4) {
+    int4 t[kCsrCluster];
+#pragma unroll
+    for (int r = 0; r < kCsrCluster; ++r) {
+      t[r] = *reinterpret_cast<const int4*>(
+          cluster.map_shared_rank(total, r) + k0);
+    }
+#pragma unroll
+    for (int r = 0; r < kCsrCluster; ++r) {
+      if (r < rank) add4(lower_blocks, t[r]);
+      add4(whole, t[r]);
+    }
+  }
+  // the remote reads are done: arrive now, wait at the end
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  int first = block_exclusive_sum(whole.x + whole.y + whole.z + whole.w,
+                                  warp_sums);
+  const int wholes[4] = {whole.x, whole.y, whole.z, whole.w};
+  const int lowers[4] = {lower_blocks.x, lower_blocks.y, lower_blocks.z,
+                         lower_blocks.w};
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    if (k0 + u < m) {
+      if (rank == 0) rowptr[k0 + u] = first;
+      base[k0 + u] = first + lowers[u];
+      first += wholes[u];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kCsrSteps; ++s) {
+    if (p0 + s * 32 >= p1) break;   // warp-uniform
+    const int k = key[s];
+    if (k >= 0) order[base[k] + own[k] + place[s]] = p0 + s * 32 + lane;
+  }
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // Exclusive scan of a[0, m) in place by one block (blockDim a multiple of
@@ -405,102 +620,16 @@ __device__ void block_sort(int* seg, int len) {
   }
 }
 
-// The whole build in one block, as a stable counting sort.  Warp w owns
-// the slice [p0, p1) of the edges, at most 32 a lane, whose keys it loads
-// into registers at once (their latencies overlap), and a row of hist
-// (warps, n + 1): it counts its keys there with integer atomics (exact in
-// any order).  Per key the counts are summed over the warps, the sums
-// scanned into the row starts, and each warp's row of hist set to where
-// its slice's edges of that key begin.  Then each warp walks its slice
-// again, 32 edges a step: the lanes of one key find each other by setting
-// their bits in the warp's mask word for that key (atomicOr, exact in any
-// order; the sentinel's lanes by a vote), each puts its edge at the key's
-// slot plus the number of lower lanes in the mask, and the lowest lane
-// advances the slot and clears the word.  Equal keys land in edge order,
-// so no sort is needed.  order is assembled in shared memory, whose
-// scattered stores are cheap, and copied out with coalesced ones.
-__global__ void __launch_bounds__(kCsrThreads) csr_one_block_kernel(
-    const int* __restrict__ idx, int e, int n, int* __restrict__ order,
-    int* __restrict__ rowptr) {
-  extern __shared__ int sm[];
-  const int m = n + 1;
-  int* hist = sm;                      // (kCsrWarps, m)
-  int* mask = sm + kCsrWarps * m;      // (kCsrWarps, m)
-  int* start = mask + kCsrWarps * m;   // (m,)
-  int* ord = start + m;                // (e,)
-  for (int k = threadIdx.x; k < 2 * kCsrWarps * m; k += blockDim.x) {
-    sm[k] = 0;
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int chunk = (e + kCsrWarps - 1) / kCsrWarps;
-  const int p0 = min(warp * chunk, e);
-  const int p1 = min(p0 + chunk, e);
-  int key[kCsrSteps];   // -1 past the slice
-#pragma unroll
-  for (int s = 0; s < kCsrSteps; ++s) {
-    const int p = p0 + s * 32 + lane;
-    key[s] = p < p1 ? csr_key(__ldg(idx + p), n) : -1;
-  }
-  __syncthreads();
-  int* own = hist + warp * m;
-  unsigned* own_mask = reinterpret_cast<unsigned*>(mask + warp * m);
-#pragma unroll
-  for (int s = 0; s < kCsrSteps; ++s) {
-    if (key[s] >= 0) atomicAdd(own + key[s], 1);
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < m; k += blockDim.x) {
-    int total = 0;
-    for (int w = 0; w < kCsrWarps; ++w) total += hist[w * m + k];
-    start[k] = total;
-  }
-  __syncthreads();
-  block_exclusive_scan(start, m);
-  for (int k = threadIdx.x; k < m; k += blockDim.x) {
-    int slot = start[k];
-    rowptr[k] = slot;
-    for (int w = 0; w < kCsrWarps; ++w) {
-      const int count = hist[w * m + k];
-      hist[w * m + k] = slot;
-      slot += count;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < kCsrSteps; ++s) {
-    if (p0 + s * 32 >= p1) break;   // warp-uniform
-    const int k = key[s];
-    // the sentinel row takes ~30% of the edges: its lanes find each other
-    // by a vote, not by atomics that would all hit one word
-    const unsigned sentinel = __ballot_sync(0xffffffffu, k == n);
-    if (k >= 0 && k != n) atomicOr(own_mask + k, 1u << lane);
-    __syncwarp();
-    const unsigned peers = k == n ? sentinel : k >= 0 ? own_mask[k] : 0u;
-    const int slot = k >= 0 ? own[k] : 0;
-    __syncwarp();
-    if (k >= 0) {
-      ord[slot + __popc(peers & ((1u << lane) - 1))] = p0 + s * 32 + lane;
-      if (lane == __ffs(peers) - 1) {
-        own[k] = slot + __popc(peers);
-        own_mask[k] = 0;
-      }
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-  for (int p = threadIdx.x; p < e; p += blockDim.x) order[p] = ord[p];
-}
-
-// The grid build: counts into rowptr (zeroed by the caller), one block's
-// scan, the fill, one block per row's sort.
+// The grid build, past the cluster build's capacity: counts into rowptr
+// (zeroed by the caller), one block's scan, the fill, one block per row's
+// sort.
 __global__ void csr_count_kernel(const int* __restrict__ idx, int e, int n,
                                  int* __restrict__ counts) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p < e) atomicAdd(counts + csr_key(__ldg(idx + p), n), 1);
 }
 
-__global__ void __launch_bounds__(kCsrThreads) csr_scan_kernel(
+__global__ void __launch_bounds__(kCsrScanThreads) csr_scan_kernel(
     int* __restrict__ rowptr, int* __restrict__ cursor, int n) {
   block_exclusive_scan(rowptr, n + 1);
   for (int r = threadIdx.x; r <= n; r += blockDim.x) cursor[r] = rowptr[r];
@@ -521,34 +650,25 @@ __global__ void csr_sort_kernel(const int* __restrict__ rowptr, int e, int n,
   if (len > 1) block_sort(order + s, len);
 }
 
-// The dynamic shared memory csr_one_block_kernel may take: the card's
-// opt-in limit less the kernel's static shared memory, granted once.
-cudaError_t csr_shared_limit(int* limit) {
-  static int granted = -1;
-  if (granted < 0) {
-    int dev = 0, optin = 0;
-    cudaFuncAttributes attr;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    cudaFuncGetAttributes(&attr, csr_one_block_kernel);
-    const int dynamic = optin - static_cast<int>(attr.sharedSizeBytes);
+// The cluster build's shared memory past the default 48 KB, granted once
+// for its largest size.
+cudaError_t csr_cluster_grant() {
+  static bool granted = false;
+  if (!granted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        csr_one_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        dynamic);
+        csr_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(csr_cluster_bytes(kCsrMaxKeys - 1)));
     if (err != cudaSuccess) return err;
-    granted = dynamic;
+    granted = true;
   }
-  *limit = granted;
   return cudaSuccess;
 }
 
-// One block when e <= 32768 and its shared memory, 4 e + 260 (n + 1)
-// bytes, fits in max_shared bytes and in limit.
-bool csr_one_block(int e, int n, int max_shared, int limit) {
-  const long long bytes = 4LL * ((2 * kCsrWarps + 1) * (n + 1LL) + e);
-  return e <= kCsrSteps * kCsrThreads && bytes <= max_shared &&
-         bytes <= limit;
+// The cluster build takes e edges over n rows when e <= 65536, n <= 2047
+// and its shared memory, 72 (n + 1) + 12 bytes, fits in max_shared bytes.
+bool csr_cluster(int e, int n, int max_shared) {
+  return e <= kCsrMaxEdges && n < kCsrMaxKeys &&
+         csr_cluster_bytes(n) <= max_shared;
 }
 
 // K1 with Vec (kLanes elements a 16-byte lane) where F and the pointers
@@ -596,15 +716,29 @@ int launch_table_gather(const Scalar* values, const int* idx, Scalar* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename In>
-int launch_table_scatter(const In* g, const int* order, const int* rowptr,
+template <typename Vec, typename Scalar, int kLanes>
+int launch_table_scatter(const Scalar* g, const int* order, const int* rowptr,
                          float* out, int n_out, int f, void* stream) {
   if (n_out == 0) return 0;
-  const dim3 block = feature_block(f);
-  const dim3 grid((n_out + kRowsPerBlock - 1) / kRowsPerBlock);
-  table_scatter_kernel<In><<<grid, block, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      g, order, rowptr, out, n_out, f);
+  if (f < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using VecAcc = typename AccOf<Vec>::type;
+  const bool vec = f % kLanes == 0 && aligned(g, sizeof(Vec)) &&
+                   aligned(out, sizeof(VecAcc));
+  const int fv = vec ? f / kLanes : f;
+  const long long warps = static_cast<long long>(n_out) * ((fv + 31) / 32);
+  const int grid = static_cast<int>((warps + kScatterWarps - 1) /
+                                    kScatterWarps);
+  if (grid == 0) return 0;
+  const int block = 32 * kScatterWarps;
+  if (vec) {
+    table_scatter_kernel<Vec><<<grid, block, 0, s>>>(
+        reinterpret_cast<const Vec*>(g), order, rowptr,
+        reinterpret_cast<VecAcc*>(out), n_out, fv);
+  } else {
+    table_scatter_kernel<Scalar><<<grid, block, 0, s>>>(g, order, rowptr,
+                                                        out, n_out, fv);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -648,23 +782,23 @@ int mdg_table_gather_bf16(const bf16_bits* values, const int* idx,
 
 int mdg_table_scatter(const float* g, const int* order, const int* rowptr,
                       float* out, int n_out, int f, void* stream) {
-  return launch_table_scatter<float>(g, order, rowptr, out, n_out, f,
-                                     stream);
+  return launch_table_scatter<float2, float, 2>(g, order, rowptr, out, n_out,
+                                                f, stream);
 }
 
 // bf16 g, f32 out
 int mdg_table_scatter_bf16(const bf16_bits* g, const int* order,
                            const int* rowptr, float* out, int n_out, int f,
                            void* stream) {
-  return launch_table_scatter<bf16_bits>(g, order, rowptr, out, n_out, f,
-                                         stream);
+  return launch_table_scatter<uint2, bf16_bits, 4>(g, order, rowptr, out,
+                                                   n_out, f, stream);
 }
 
 // K2b's CSR inverse of idx (e,) over n rows: order (e,) and rowptr
-// (n + 1,), both int32; scratch: n + 1 ints.  One block when e <= 32768
-// and its shared memory, 4 e + 260 (n + 1) bytes, fits in max_shared
-// bytes and the card's opt-in limit; the grid path otherwise; both give
-// the same integers.
+// (n + 1,), both int32; scratch: n + 1 ints.  The cluster build when e <=
+// 65536, n <= 2047 and its shared memory, 72 (n + 1) + 12 bytes, fits in
+// max_shared bytes (0 forces the grid build); the grid path otherwise;
+// both give the same integers.
 int mdg_table_index_csr(const int* idx, int e, int n, int* order,
                         int* rowptr, int* scratch, int max_shared,
                         void* stream) {
@@ -674,13 +808,12 @@ int mdg_table_index_csr(const int* idx, int e, int n, int* order,
     return static_cast<int>(
         cudaMemsetAsync(rowptr, 0, sizeof(int) * (n + 1), s));
   }
-  int limit = 0;
-  const cudaError_t limit_err = csr_shared_limit(&limit);
-  if (limit_err != cudaSuccess) return static_cast<int>(limit_err);
-  if (csr_one_block(e, n, max_shared, limit)) {
-    const int bytes = 4 * ((2 * kCsrWarps + 1) * (n + 1) + e);
-    csr_one_block_kernel<<<1, kCsrThreads, bytes, s>>>(idx, e, n, order,
-                                                       rowptr);
+  if (csr_cluster(e, n, max_shared)) {
+    const cudaError_t err = csr_cluster_grant();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    csr_cluster_kernel<<<kCsrCluster, kCsrThreads,
+                         static_cast<size_t>(csr_cluster_bytes(n)), s>>>(
+        idx, e, n, order, rowptr);
     return static_cast<int>(cudaGetLastError());
   }
   const int blocks = (e + kCsrGridThreads - 1) / kCsrGridThreads;
@@ -688,7 +821,7 @@ int mdg_table_index_csr(const int* idx, int e, int n, int* order,
                                           s);
   if (err != cudaSuccess) return static_cast<int>(err);
   csr_count_kernel<<<blocks, kCsrGridThreads, 0, s>>>(idx, e, n, rowptr);
-  csr_scan_kernel<<<1, kCsrThreads, 0, s>>>(rowptr, scratch, n);
+  csr_scan_kernel<<<1, kCsrScanThreads, 0, s>>>(rowptr, scratch, n);
   csr_fill_kernel<<<blocks, kCsrGridThreads, 0, s>>>(idx, e, n, scratch,
                                                      order);
   csr_sort_kernel<<<n + 1, kCsrGridThreads, 0, s>>>(rowptr, e, n, order);
@@ -696,13 +829,9 @@ int mdg_table_index_csr(const int* idx, int e, int n, int* order,
 }
 
 // Which build mdg_table_index_csr takes for e edges over n rows when its
-// max_shared allows any size: 1 the one-block build, 0 the grid build; a
-// negative CUDA error code if the shared-memory limit cannot be read.
-int mdg_table_index_csr_one_block(int e, int n) {
-  int limit = 0;
-  const cudaError_t err = csr_shared_limit(&limit);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return csr_one_block(e, n, 0x7fffffff, limit) ? 1 : 0;
+// max_shared allows any size: 1 the cluster build, 0 the grid build.
+int mdg_table_index_csr_cluster(int e, int n) {
+  return csr_cluster(e, n, 0x7fffffff) ? 1 : 0;
 }
 
 }  // extern "C"

@@ -40,7 +40,7 @@ SIGNATURES = {
     "mdg_table_gather_bf16": (_P, _P, _P, _I, _I, _I, _P),
     "mdg_table_scatter_bf16": (_P, _P, _P, _P, _I, _I, _P),
     "mdg_table_index_csr": (_P, _I, _I, _P, _P, _P, _I, _P),
-    "mdg_table_index_csr_one_block": (_I, _I),
+    "mdg_table_index_csr_cluster": (_I, _I),
     "mdg_rdf_scratch": (_I, _I, _I, _I),
     "mdg_rdf_reach_arg": (),
     "mdg_rdf_counts": (_P, _I, _I, *(_F,) * 10, _P, _P, _I, _P, _P, _P),

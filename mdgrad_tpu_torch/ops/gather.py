@@ -19,16 +19,23 @@ edge tensor has 20480 slots of 128 f32 (10.5 MB), of which ~70% are real
 edges.  K2a writes every slot; K1 and K2b read only the real edges' rows
 (~7.3 MB), plus the (512, 128) node tables: ~2.3-3.2 us at 3.35 TB/s,
 with 2 flops per edge element at most.  They reach that bound only with
-enough loads in flight, so K1 and K2a move rows as 16-byte vectors and
-issue a batch of independent row loads before using any: K1 spreads each
-output row's K slots over up to 16 warps of one block (4 slots a warp,
-partials summed in warp order), K2a gives each warp 8 edge rows; F % 4
-!= 0 or an unaligned pointer takes a scalar instantiation of the same
-kernel.  What remains is a launch floor of ~2 us (the same kernels on one
-row) and, with the inputs in device memory rather than in the L2, the
-HBM's rate (PERF.md).  K2b's CSR inverse moves 4E bytes in and 4E +
-4(n + 1) out (0.05 us) and is bound by latency: one block builds it as a
-stable counting sort in one launch (``csrc/gather.cu``).  The TPU
+enough loads in flight, so all three move rows as wide lanes and issue a
+batch of independent row loads before using any: K1 spreads each output
+row's K slots over up to 16 warps of one block (4 slots a warp, partials
+summed in warp order), K2a gives each warp 8 edge rows, K2b gives each
+warp a 32-lane chunk of one output row in 8-byte lanes (two warps a row
+in f32, one in bf16 at F = 128) and loads up to 32 of its edges' rows at
+a time, adding them in ascending edge order; a row that does not split
+into lanes or an unaligned pointer takes a scalar instantiation of the
+same kernel.  What remains is a
+launch floor of ~2 us (the same kernels on one row) and, with the inputs
+in device memory rather than in the L2, the HBM's rate (PERF.md).  K2b's
+CSR inverse moves 4E bytes in and 4E + 4(n + 1) out (0.05 us) and is
+bound by latency: one launch of a thread block cluster builds it as a
+stable counting sort over 8 SMs (``csrc/gather.cu``), for up to
+:data:`CSR_CLUSTER_MAX_EDGES` edges over up to :data:`CSR_CLUSTER_MAX_ROWS`
+rows; past that a grid of four launches and a per-row sort takes over
+(:func:`table_index_csr_path`).  The TPU
 kernels turn the gather into a one-hot matmul for the MXU; here the
 gather is a direct indexed load in exact f32, and the K-sum of K1 stays
 on chip so the gathered (E, F) tensor never reaches memory.  The scatter
@@ -229,12 +236,21 @@ def _launch_table_gather(values, idx, split=True):
     return out
 
 
-# max_shared for mdg_table_index_csr: any size up to the card's limit
-# takes the one-block build, 0 forces the grid build
-_CSR_ONE_BLOCK, _CSR_GRID = 2 ** 31 - 1, 0
+# max_shared for mdg_table_index_csr: any size takes the cluster build
+# within its capacity, 0 forces the grid build
+_CSR_ANY_SHARED, _CSR_GRID = 2 ** 31 - 1, 0
+# the cluster build's capacity (csrc/gather.cu kCsrMaxEdges, kCsrMaxKeys -
+# 1): 8 blocks x 512 threads x 16 edges a lane, and 2048 keys (~144 KB of
+# shared memory a block); the water tables (K <= 72, 36864 edges at n =
+# 512) are well inside, the grid build takes any index
+CSR_CLUSTER_MAX_EDGES = 65536
+CSR_CLUSTER_MAX_ROWS = 2047
 
 
-def _launch_table_index_csr(idx, n, one_block=True):
+def _launch_table_index_csr(idx, n, cluster=True):
+    """K2b's CSR inverse on the card: the cluster build where
+    :func:`table_index_csr_path` says so, or the grid build (forced by
+    ``cluster=False``)."""
     dev = idx.device
     _check(idx, "idx", dev, torch.int32, 1)
     e = idx.shape[0]
@@ -243,7 +259,7 @@ def _launch_table_index_csr(idx, n, one_block=True):
     scratch = torch.empty(n + 1, device=dev, dtype=torch.int32)
     code = _build.library().mdg_table_index_csr(
         idx.data_ptr(), e, n, order.data_ptr(), rowptr.data_ptr(),
-        scratch.data_ptr(), _CSR_ONE_BLOCK if one_block else _CSR_GRID,
+        scratch.data_ptr(), _CSR_ANY_SHARED if cluster else _CSR_GRID,
         _build.stream_of(idx))
     _build.check(code, "table_index_csr")
     launches["table_index_csr"] += 1
@@ -252,12 +268,14 @@ def _launch_table_index_csr(idx, n, one_block=True):
 
 def table_index_csr_path(e, n):
     """The build the CSR kernel takes on the card for ``e`` edges over
-    ``n`` rows: "one block" while its shared memory fits the card's
-    limit, else "grid"."""
-    code = _build.library().mdg_table_index_csr_one_block(e, n)
-    if code < 0:
-        _build.check(-code, "table_index_csr_path")
-    return "one block" if code else "grid"
+    ``n`` rows: "cluster" (one launch of 8 blocks) up to
+    ``CSR_CLUSTER_MAX_EDGES`` edges and ``CSR_CLUSTER_MAX_ROWS`` rows, else
+    "grid" (four launches and a sort of each row, ~10x slower), which
+    stays for larger indices.  The library's own answer,
+    ``mdg_table_index_csr_cluster``, is checked against this one on the
+    card."""
+    fits = e <= CSR_CLUSTER_MAX_EDGES and n <= CSR_CLUSTER_MAX_ROWS
+    return "cluster" if fits else "grid"
 
 
 def _launch_table_scatter(g, index, split=True):

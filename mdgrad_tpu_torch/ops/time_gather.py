@@ -1,8 +1,10 @@
-"""Inputs and timers of the gather kernels K1, K2a and K2b.
+"""Inputs and timers of the gather kernels K1, K2a and K2b and of K2b's
+CSR build.
 
 The edge cases the kernels special-case (:func:`gather_index` over
-``GATHER_F`` x ``GATHER_K`` x ``GATHER_LAYOUTS``), held against the plain
-versions by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``; the bytes
+``GATHER_F`` x ``GATHER_K`` x ``GATHER_LAYOUTS``, :func:`csr_index_cases`),
+held against the plain versions by ``chip_smoke.py`` and
+``tests/test_torch_cuda.py``; the bytes
 each kernel must move (:func:`bound_bytes`); and warm and cold device
 times (:func:`warm_cold`) on ``N_SETS`` sets of inputs and outputs at the
 index's shape, every kernel called through its C entry point.  The warm
@@ -16,13 +18,14 @@ in, K1 and K2a bf16 out, K2b f32 out).
 import numpy as np
 import torch
 
-from . import _build, timing
+from . import _build, gather, timing
 
 N_SETS = 12    # x ~8-11 MB a set at the water shape: more than the L2
 KERNELS = ("gather_mul_reduce", "table_gather", "table_scatter")
 GATHER_F = (1, 3, 40, 128, 130)   # F % 4 != 0: scalar; F > 128: two passes
 GATHER_K = (1, 12, 40)            # 1, 3 and 10 warps a row in K1
 GATHER_LAYOUTS = ("suffix", "interleaved", "negative", "whole_rows")
+CSR_WATER_K = (16, 40, 48, 56, 72)   # every table width a water path runs
 
 
 def gather_index(rng, layout, n, n_out, k):
@@ -42,6 +45,47 @@ def gather_index(rng, layout, n, n_out, k):
     else:
         idx[::3] = n
     return idx.reshape(-1).astype(np.int32)
+
+
+def water_table(rng, k, n=512):
+    """(n * k,) atom-major table of the water box's shape: each row's real
+    neighbours (22-34 of them, ~28 on the lattice) first, the sentinel n
+    after; at k = 16 every slot is real (the table a regrow starts from)."""
+    idx = rng.integers(0, n, size=(n, k))
+    real = rng.integers(22, 35, size=n)
+    idx[np.arange(k) >= real[:, None]] = n
+    return idx.reshape(-1)
+
+
+def csr_index_cases():
+    """[(name, idx (E,) int32, n)]: the CSR build's edge cases, the water
+    shape (512 x 40 slots, ~30% sentinels), the water tables at K = 16, 48,
+    56 and 72 (a regrow's start, the fit's width, the skin's and a
+    regrow's end), and each side of the cluster build's capacity in edges
+    and in rows, from a numpy seed (shared by ``chip_smoke.py`` and
+    ``tests/test_torch_cuda.py``)."""
+    rng = np.random.default_rng(3)
+    water = rng.integers(0, 512, size=512 * 40)
+    water[rng.random(water.size) < 0.3] = 512
+    max_e, max_n = gather.CSR_CLUSTER_MAX_EDGES, gather.CSR_CLUSTER_MAX_ROWS
+    cases = [
+        ("sentinels", rng.integers(-3, 12, size=50), 9),   # < 0, == n, > n
+        ("empty_rows", rng.choice([2, 5, 11], size=40), 20),
+        ("one_row", np.full(300, 3), 5),   # longer than one thread sorts
+        ("all_sentinel", np.full(70, -1), 4),
+        ("no_edges", np.zeros(0), 6),
+        ("water", water, 512),
+        ("water_k16", water_table(rng, 16), 512),
+        ("water_k48", water_table(rng, 48), 512),
+        ("water_k56", water_table(rng, 56), 512),
+        ("water_k72", water_table(rng, 72), 512),
+        ("edges_at_capacity", rng.integers(0, 513, size=max_e), 512),
+        ("edges_past_capacity", rng.integers(0, 513, size=max_e + 1), 512),
+        ("rows_at_capacity", rng.integers(-1, max_n + 2, size=8192), max_n),
+        ("rows_past_capacity", rng.integers(-1, max_n + 3, size=8192),
+         max_n + 1),
+    ]
+    return [(name, idx.astype(np.int32), n) for name, idx, n in cases]
 
 
 def bound_bytes(n, f, n_edges, n_real, elem=4):
@@ -125,3 +169,49 @@ def warm_cold(lib, sets, k):
     out["launch_floor"] = {name: timing.time_graph(one_row[name])
                            for name in KERNELS[:2]}
     return out
+
+
+def csr_outputs(e, n, dev):
+    """(order (e,), rowptr (n + 1,), scratch (n + 1,)) int32 for
+    :func:`csr_call`."""
+    return tuple(torch.empty(size, dtype=torch.int32, device=dev)
+                 for size in (e, n + 1, n + 1))
+
+
+def csr_call(lib, idx, n, out, cluster=True):
+    """fn launching ``lib``'s CSR build of ``idx`` over ``n`` rows into
+    ``out`` (:func:`csr_outputs`; no allocation, no launch count): the
+    build the library picks, or the grid build where ``cluster`` is
+    False."""
+    order, rowptr, scratch = (t.data_ptr() for t in out)
+    shared = gather._CSR_ANY_SHARED if cluster else gather._CSR_GRID
+
+    def fn():
+        _build.check(lib.mdg_table_index_csr(
+            idx.data_ptr(), idx.shape[0], n, order, rowptr, scratch, shared,
+            _build.stream_of(idx)), "table_index_csr")
+
+    return fn
+
+
+def csr_times(lib, csr_inputs, s, k):
+    """{label: warm ms} of ``lib``'s CSR build: at each ``{e: (idx, n)}``
+    of ``csr_inputs`` on the path the library picks ("csr@e") and on the
+    grid build forced ("csr_grid@e"); and, at set ``s``'s index, the build
+    followed by K2b on ``s`` reading it ("csr+k2b")."""
+    out = {}
+    for e, (idx, n) in csr_inputs.items():
+        bufs = csr_outputs(e, n, idx.device)
+        out[f"csr@{e}"] = timing.time_graph(csr_call(lib, idx, n, bufs),
+                                            reps=20)
+        out[f"csr_grid@{e}"] = timing.time_graph(
+            csr_call(lib, idx, n, bufs, cluster=False), reps=20)
+    n = s["values"].shape[0]
+    bufs = csr_outputs(s["idx"].shape[0], n, s["idx"].device)
+    build = csr_call(lib, s["idx"], n, bufs)
+    scatter = kernel_calls(lib, dict(s, order=bufs[0], rowptr=bufs[1]),
+                           k)["table_scatter"]
+    out["csr+k2b"] = timing.time_graph(lambda: (build(), scatter()),
+                                       reps=20)
+    return out
+

@@ -19,29 +19,13 @@ from mdgrad_tpu_torch.data.registry import get_unit_len
 from mdgrad_tpu_torch.ops import gather as tg
 from mdgrad_tpu_torch.ops import rdf as trdf
 from mdgrad_tpu_torch.ops.time_gather import (GATHER_F, GATHER_K,
-                                             GATHER_LAYOUTS, gather_index)
+                                             GATHER_LAYOUTS, csr_index_cases,
+                                             gather_index)
 from mdgrad_tpu_torch.ops.time_pair import (cutoff_edge_case, lj_edge_cases,
                                            pair_image_w, split, unwrapped)
 from mdgrad_tpu_torch.ops.time_rdf import edge_cases as rdf_edge_cases
 
 pytestmark = pytest.mark.cuda
-
-
-def csr_index_cases():
-    """[(name, idx (E,) int32, n)]: the CSR build's edge cases and the
-    water shape (512 x 40 slots, ~30% sentinels), from a numpy seed."""
-    rng = np.random.default_rng(3)
-    water = rng.integers(0, 512, size=512 * 40)
-    water[rng.random(water.size) < 0.3] = 512
-    cases = [
-        ("sentinels", rng.integers(-3, 12, size=50), 9),   # < 0, == n, > n
-        ("empty_rows", rng.choice([2, 5, 11], size=40), 20),
-        ("one_row", np.full(300, 3), 5),   # longer than one thread sorts
-        ("all_sentinel", np.full(70, -1), 4),
-        ("no_edges", np.zeros(0), 6),
-        ("water", water, 512),
-    ]
-    return [(name, idx.astype(np.int32), n) for name, idx, n in cases]
 
 
 @pytest.fixture
@@ -513,19 +497,22 @@ def test_pallas_lj_pair_launches_force_and_vjp(cuda):
                                    atol=1e-5 * max(b.abs().max().item(), 1.0))
 
 
-@pytest.mark.parametrize("one_block", [True, False], ids=["one_block", "grid"])
+@pytest.mark.parametrize("cluster", [True, False], ids=["cluster", "grid"])
 @pytest.mark.parametrize("case", csr_index_cases(), ids=lambda c: c[0])
-def test_table_index_csr_kernel_matches_plain(cuda, case, one_block):
-    """The CSR kernel, its one-block build and its grid build, is
-    integer-equal to the plain build; K2b gives the same bits through
-    either CSR."""
+def test_table_index_csr_kernel_matches_plain(cuda, case, cluster):
+    """The CSR kernel, its cluster build (where the case fits it; the
+    grid build past its capacity) and its grid build forced, is
+    integer-equal to the plain build and gives the same integers twice;
+    K2b gives the same bits through either CSR."""
     _, idx_np, n = case
     idx = torch.tensor(idx_np, device=cuda)
     ops.reset_counts()
-    order, rowptr = tg._launch_table_index_csr(idx, n, one_block=one_block)
+    order, rowptr = tg._launch_table_index_csr(idx, n, cluster=cluster)
     assert ops.counts()["launches"]["table_index_csr"] == 1
     ref_order, ref_rowptr = tg.table_index_csr_plain(idx, n)
     assert torch.equal(order, ref_order) and torch.equal(rowptr, ref_rowptr)
+    again = tg._launch_table_index_csr(idx, n, cluster=cluster)
+    assert torch.equal(again[0], order) and torch.equal(again[1], rowptr)
     g = torch.tensor(np.random.default_rng(9).normal(size=(len(idx_np), 16)),
                      dtype=torch.float32, device=cuda)
     out = []
@@ -547,17 +534,67 @@ def test_table_index_builds_its_csr_on_the_card(cuda):
 
 
 def test_table_index_csr_path(cuda):
-    """The build the CSR kernel reports: one block at the water table of
-    K = 40 (20480 edges, 215,300 bytes of shared memory), the grid past
-    32768 edges; both builds equal the plain one at a table regrown to
-    K = 72 (36864 edges)."""
-    assert tg.table_index_csr_path(512 * 40, 512) == "one block"
-    assert tg.table_index_csr_path(512 * 72, 512) == "grid"
-    idx = torch.tensor(np.random.default_rng(5).integers(
-        0, 513, size=512 * 72), dtype=torch.int32, device=cuda)
-    ref = tg.table_index_csr_plain(idx, 512)
-    got = tg._launch_table_index_csr(idx, 512)
-    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    """The build the library takes is the one ``table_index_csr_path``
+    names, on each side of the cluster build's capacity: the cluster
+    build at every water table (K = 16 to 72 at n = 512) up to 65536
+    edges and 2047 rows, the grid past either."""
+    from mdgrad_tpu_torch.ops import _build
+    lib = _build.library()
+    max_e, max_n = tg.CSR_CLUSTER_MAX_EDGES, tg.CSR_CLUSTER_MAX_ROWS
+    for e, n in [(512 * k, 512) for k in (16, 40, 48, 56, 72)] + [
+            (max_e, 512), (max_e + 1, 512), (8192, max_n),
+            (8192, max_n + 1), (max_e, max_n), (max_e + 1, max_n + 1)]:
+        path = tg.table_index_csr_path(e, n)
+        assert path == ("cluster" if lib.mdg_table_index_csr_cluster(e, n)
+                        else "grid")
+    assert tg.table_index_csr_path(512 * 72, 512) == "cluster"
+    assert tg.table_index_csr_path(max_e + 1, 512) == "grid"
+    assert tg.table_index_csr_path(8192, max_n + 1) == "grid"
+
+
+SCATTER_F = (*GATHER_F, 256)   # 256: more than one warp a row
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", GATHER_LAYOUTS)
+@pytest.mark.parametrize("f", SCATTER_F)
+def test_table_scatter_kernel_on_edge_cases(cuda, f, layout, dtype):
+    """K2b, f32 and bf16 (split=False, f32 sums out), against its plain
+    version within 1e-5 of max(|ref|, 1) (f32 sums in another order than
+    index_add's), the same bits twice: the 8-byte lanes (2 f32 or 4 bf16,
+    aligned) and the scalar instantiation (F = 1, 3, bf16 at F = 130, or a
+    view at a 4- or 2-byte offset) on the four sentinel layouts, with
+    four empty rows, one row of more than 64 edges (three 32-edge
+    batches, the last one short) and in-degrees that are not multiples
+    of the 32-row batch.  Both instantiations add each feature in
+    ascending edge order, so the view gives the aligned copy's bits."""
+    rng = np.random.default_rng(14)
+    n, n_out, k = 37, 29, 40
+    idx_np = gather_index(rng, layout, n, n_out, k)
+    idx_np[np.isin(idx_np, [5, 11, 17, 23])] = 6
+    degree = np.bincount(idx_np[(idx_np >= 0) & (idx_np < n)], minlength=n)
+    assert degree[5] == degree[11] == 0 and degree[6] > 64
+    assert (degree % 32 != 0).any()
+    idx = torch.tensor(idx_np, device=cuda)
+    index = tg.TableIndex(idx, n)
+    split = dtype == torch.float32
+    e = idx_np.size
+    buf = torch.tensor(rng.normal(size=1 + e * f), dtype=torch.float32,
+                       device=cuda).to(dtype)
+    view = buf[1:].view(e, f)
+    assert view.is_contiguous() and view.data_ptr() % 8 != 0
+    ref = tg.table_scatter_plain(view.float(), idx, n)
+    outs = []
+    for g in (view.clone(), view):
+        got = tg._launch_table_scatter(g, index, split)
+        assert got.dtype == torch.float32 and got.shape == (n, f)
+        torch.testing.assert_close(
+            got, ref, rtol=0, atol=1e-5 * max(ref.abs().max().item(), 1.0))
+        assert torch.equal(got, tg._launch_table_scatter(g, index, split))
+        outs.append(got)
+    assert torch.equal(outs[0], outs[1])
+    assert not outs[0][5].any() and not outs[0][11].any()
 
 
 # K5, K6 and K6b: the i < j walks on one template

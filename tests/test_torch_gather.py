@@ -223,6 +223,40 @@ def test_table_index_csr_plain_matches_numpy(case):
     np.testing.assert_array_equal(rowptr.numpy(), starts[:n + 1])
 
 
+# (e, n, the build the card takes): every water table, K = 16 (a
+# regrow's start) to 72 (its end) at n = 512, and each side of the cluster
+# build's capacity in edges and in rows
+CSR_PATHS = ([(512 * k, 512, "cluster") for k in (16, 40, 48, 56, 72)]
+             + [(tg.CSR_CLUSTER_MAX_EDGES, 512, "cluster"),
+                (tg.CSR_CLUSTER_MAX_EDGES + 1, 512, "grid"),
+                (8192, tg.CSR_CLUSTER_MAX_ROWS, "cluster"),
+                (8192, tg.CSR_CLUSTER_MAX_ROWS + 1, "grid")])
+
+
+@pytest.mark.parametrize("e, n, path", CSR_PATHS)
+def test_table_index_csr_path(e, n, path):
+    """Every water table takes the cluster build; the grid build only
+    past 65536 edges or 2047 rows."""
+    assert tg.table_index_csr_path(e, n) == path
+
+
+def test_csr_capacity_is_the_kernels():
+    """ops/gather.py's capacity of the cluster build is csrc/gather.cu's:
+    blocks x threads x edges a lane, and keys less the sentinel's."""
+    import pathlib
+    import re
+    src = (pathlib.Path(tg.__file__).parent.parent / "csrc"
+           / "gather.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert tg.CSR_CLUSTER_MAX_EDGES == (const("kCsrCluster")
+                                        * const("kCsrThreads")
+                                        * const("kCsrSteps"))
+    assert tg.CSR_CLUSTER_MAX_ROWS == const("kCsrMaxKeys") - 1
+
+
 def _scatter_csr_order(g, order, rowptr):
     """out[i] = g[order[rowptr[i]]] + g[order[rowptr[i] + 1]] + ... in
     float32, in the order of the CSR kernel's walk (csrc/gather.cu)."""
