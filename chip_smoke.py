@@ -10,7 +10,7 @@ its phases, printing one line as each check ends:
    one shared library; its wall time.
 2. kernels -- each kernel against its plain PyTorch version on the card at
    the shapes of the main paths (sentinel indices included); K1, K2a and
-   K2b also at F = 1, 3, 40, 128, 130, K = 1, 12, 40 and four sentinel
+   K2b also at F = 1, 3, 40, 128, 130, 132, K = 1, 12, 40 and four sentinel
    layouts, and through views at a 4-byte offset (their scalar path), K2b
    also on rows of 0 and 300 edges; the SchNet force through the kernels
    against the plain gather path, and the force's vector-Jacobian product
@@ -34,8 +34,9 @@ its phases, printing one line as each check ends:
    cutoff and the image's edges); the library's reach argument equal to
    ``ops/rdf.py``'s; then the bf16 instantiations of K1, K2a and K2b
    (``split=False``) against their plain versions on the same edge cases
-   (F % 8 != 0 their scalar path), at the water shape and through views at
-   a 2-byte offset, each giving the same bits twice.
+   (K1 at F % 4 != 0, K2a at F % 8 != 0 their scalar path), at the water
+   shape and through views at a 2-byte offset, each giving the same bits
+   twice, bf16 K1's scalar path giving its 8-byte path's bits.
 3. main    -- the water SchNet NVT sampling path at full width: 512 O sites
    on a diamond lattice at 0.99749 g/cm^3, Stack{SchNet(128/128/40, 2 convs,
    cutoff 6.0, (N, K) table), ExcludedVolume prior}, Nose-Hoover chain at
@@ -828,12 +829,12 @@ def bf16_phase(mt, torch, dev, records, main):
 def gather_phase(torch, dev, gen, gather, time_gather, index, k, compare,
                  records):
     """K1, K2a and f32 K2b against their plain versions on the cases their
-    kernels special-case (``time_gather``'s F = 1, 3, 40, 128, 130: F % 4
-    != 0 the scalar path, F > 128 a second pass over the row; K = 1, 12,
-    40: 1, 3 and 10 warps a row in K1; four sentinel layouts), 29 output
-    rows over 37 values; K2b also on a row with no edges and one with 300
-    (``csr_index_cases``' ``empty_rows`` and ``one_row``); then at the
-    water shape through views at a 4-byte storage offset (the scalar
+    kernels special-case (``time_gather``'s F = 1, 3, 40, 128, 130, 132:
+    F % 4 != 0 the scalar path, F > 128 a second pass over the row; K =
+    1, 12, 40: 1, 3 and 10 warps a row in K1; four sentinel layouts), 29
+    output rows over 37 values; K2b also on a row with no edges and one
+    with 300 (``csr_index_cases``' ``empty_rows`` and ``one_row``); then at
+    the water shape through views at a 4-byte storage offset (the scalar
     path), K2b's view giving the bits of an aligned copy (both add in
     ascending edge order).  K1 and K2b within 1e-5 of max(|ref|, 1) (f32
     sums in another order), K2a bit-exact (a copy); each gives the same
@@ -928,13 +929,13 @@ def gather_phase(torch, dev, gen, gather, time_gather, index, k, compare,
 def gather_bf16_phase(torch, dev, gen, gather, time_gather, index, k,
                       records):
     """K1, K2a and K2b's bf16 instantiations (``split=False``) against
-    their plain versions on ``time_gather``'s edge cases (F % 8 != 0 takes
-    the scalar path) and at the water shape, there also through views at a
-    2-byte storage offset (the scalar path).  K1 (f32 sums of the same
-    products in another order, rounded once to bf16) within one bf16 ulp,
-    2^-7 |ref|, plus 1e-5 of max(|ref|, 1); K2a bit-exact; K2b (f32 sums
-    of bf16 rows, f32 out) within 1e-5 of max(|ref|, 1).  Each gives the
-    same bits on a second call."""
+    their plain versions on ``time_gather``'s edge cases (K1 takes the
+    scalar path at F % 4 != 0, K2a at F % 8 != 0) and at the water shape,
+    there also through views at a 2-byte storage offset (the scalar
+    path).  K1 (f32 sums of the same products in another order, rounded
+    once to bf16) within one bf16 ulp, 2^-7 |ref|, plus 1e-5 of max(|ref|,
+    1); K2a bit-exact; K2b (f32 sums of bf16 rows, f32 out) within 1e-5 of
+    max(|ref|, 1).  Each gives the same bits on a second call."""
     import numpy as np
     bf16 = torch.bfloat16
     rng = np.random.default_rng(SEED + 5)
@@ -996,7 +997,7 @@ def gather_bf16_phase(torch, dev, gen, gather, time_gather, index, k,
                                                          False),
                         gather._launch_gather_mul_reduce(
                             v.clone(), w.clone(), index.idx, k, False)),
-            "bf16 K1's scalar path gives the 16-byte path's bits")
+            "bf16 K1's scalar path gives the 8-byte path's bits")
     line(f"kernel gather bf16 (split=False): F = "
          f"{', '.join(map(str, time_gather.GATHER_F))} x K = 1, 12, 40 x "
          f"{len(time_gather.GATHER_LAYOUTS)} sentinel layouts, the water "
@@ -1099,16 +1100,17 @@ def gather_ab(torch, _build, gather, time_gather, sources, sets, k, bounds,
             f"{r[dtype][name]['cold_ms'] * 1e3:.2f} us"
             for dtype in sets for name in time_gather.KERNELS)
             + "  launch floor " + "  ".join(
-            f"{name} {t * 1e3:.2f} us"
-            for name, t in r["f32"]["launch_floor"].items())
+            f"{name}.{dtype} {t * 1e3:.2f} us" for dtype in sets
+            for name, t in r[dtype]["launch_floor"].items())
             + "  " + "  ".join(f"{label} {t * 1e3:.2f} us"
                                for label, t in r["csr"].items()))
     median = {}
     for tag, rs in runs.items():
+        # K1's and K2a's one-row floors, "{kernel}.{dtype}"
         median[tag] = {"launch_floor": {
-            name: statistics.median(r["f32"]["launch_floor"][name]
-                                    for r in rs)
-            for name in rs[0]["f32"]["launch_floor"]}}
+            f"{name}.{dtype}": statistics.median(
+                r[dtype]["launch_floor"][name] for r in rs)
+            for dtype in sets for name in rs[0][dtype]["launch_floor"]}}
         for dtype in sets:
             for name in time_gather.KERNELS:
                 warm = statistics.median(r[dtype][name]["ms"] for r in rs)
@@ -1118,10 +1120,13 @@ def gather_ab(torch, _build, gather, time_gather, sources, sets, k, bounds,
                 median[tag][f"{name}.{dtype}"] = {
                     "ms": warm, "cold_ms": cold,
                     "cold_share_of_bound": b / cold}
+                floor = median[tag]["launch_floor"].get(f"{name}.{dtype}")
                 line(f"gather a/b median {tag} {name}.{dtype}: warm "
-                     f"{warm * 1e3:.2f} us  cold {cold * 1e3:.2f} us  bound "
-                     f"{b * 1e3:.3f} us (bytes)  cold share of bound "
-                     f"{b / cold:.1%}")
+                     f"{warm * 1e3:.2f} us  cold {cold * 1e3:.2f} us  "
+                     + ("" if floor is None
+                        else f"one-row floor {floor * 1e3:.2f} us  ")
+                     + f"bound {b * 1e3:.3f} us (bytes)  cold share of "
+                     f"bound {b / cold:.1%}")
         median[tag]["csr"] = {
             label: statistics.median(r["csr"][label] for r in rs)
             for label in rs[0]["csr"]}
@@ -2144,8 +2149,13 @@ def main():
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
         cold = warm_cold["cold_ms"]
         kernels_json[-1].update(cold_ms=cold, cold_share_of_bound=b_ms / cold)
+        floor = gather_times["launch_floor"].get(name)
+        if floor is not None:
+            kernels_json[-1]["launch_floor_ms"] = floor
         line(f"time {name}: kernel {ms * 1e3:.2f} us warm, {cold * 1e3:.2f} "
-             f"us cold ({b_ms / cold:.1%} of the bound)  plain "
+             f"us cold ({b_ms / cold:.1%} of the bound)"
+             + ("" if floor is None
+                else f", one-row floor {floor * 1e3:.2f} us") + "  plain "
              f"{plain_ms * 1e3:.2f} us  library "
              f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}  "
              f"bound {b_ms * 1e3:.3f} us ({b_by}; {s['bytes']} B, "
@@ -2194,8 +2204,13 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "cold_ms": cold, "cold_share_of_bound": b_ms / cold})
+        floor = times16["launch_floor"].get(name)
+        if floor is not None:
+            kernels_json[-1]["launch_floor_ms"] = floor
         line(f"time {name}.bf16: kernel {ms * 1e3:.2f} us warm, "
-             f"{cold * 1e3:.2f} us cold ({b_ms / cold:.1%} of the bound)  "
+             f"{cold * 1e3:.2f} us cold ({b_ms / cold:.1%} of the bound)"
+             + ("" if floor is None
+                else f", one-row floor {floor * 1e3:.2f} us") + "  "
              f"plain {plain_ms * 1e3:.2f} us  library "
              f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}  "
              f"bound {b_ms * 1e3:.3f} us ({b_by}; {bytes16[name]} B, "

@@ -16,18 +16,33 @@
 // Their bound is bytes, but they reach it only with enough loads in
 // flight: ~15-20 KB an SM (Little's law at ~0.7 us), which a thread a
 // feature walking the K slots as a dependent chain (index, branch, one
-// 4-byte load) is far from.  So all three move rows as wide lanes (16
-// bytes in K1 and K2a, 8 in K2b; a scalar instantiation of the same kernel
-// takes a row that does not split into lanes or an unaligned pointer) and
-// issue a batch of independent row loads before they use any: K1 spreads
-// each output row's slots over up to 16 warps, each loading 4 slots'
-// index, then their values and w rows, then doing the FMAs, and sums the
-// warps' partials in warp order; K2a gives each warp 8 edge rows, whose
-// indices one load and a shuffle bring, loads them all, then stores them;
-// K2b gives each warp a 32-lane chunk of one output row (8-byte lanes: two
-// warps a row in f32, one in bf16 at F = 128), whose edge ids one load and
-// a shuffle bring, loads up to 32 of their rows, then adds them.
-//
+// 4-byte load) is far from.  So all three move rows as wide lanes (a
+// scalar instantiation of the same kernel takes a row that does not split
+// into lanes or an unaligned pointer) and issue a batch of independent row
+// loads before they use any:
+//   K1 (replaces _gmr_kernel): 4 elements a lane in both types (float4,
+//   16 bytes, in f32; uint2, 8 bytes, in bf16), so 32 lanes span a
+//   128-wide row and no lane idles.  Block i owns output row i and spreads
+//   its K slots over W = min(16, ceil(K / 4)) warps, 4 slots a warp: their
+//   indices, then the real slots' values and w rows (4 KB in flight a warp
+//   in f32, 2 KB in bf16), then the FMAs.  The warps' partials meet in
+//   shared memory, and the block's threads, one output element each, add
+//   them in a fixed pairwise tree (four levels at most) and store.  At the
+//   water shape, 512 blocks of 10 warps (K = 40) over 132 SMs are resident
+//   at once: 116 SMs hold 4 blocks, 16 hold 3.
+//   K2a (replaces _gather_kernel): a copy in the widest lane (float4;
+//   uint4, 8 bf16) on every lane of a warp.  A block is one warp owning a
+//   contiguous run of rows * fv output lanes, rows = min(32, 256 / fv): 16
+//   rows of 256 bytes in bf16 at F = 128 (two rows a warp instruction), 8
+//   rows of 512 in f32.  Each thread loads 8 lanes' indices and lanes,
+//   then stores them: 4 KB in flight a warp.  One-warp blocks keep the
+//   grid even: the 20480 water rows make 1280 blocks in bf16, 10 on 92 SMs
+//   and 9 on 40, all resident at once (at most 32 blocks an SM), so the
+//   SMs' rows differ by one block's 16; in f32 2560 blocks, 20 or 19 an SM.
+//   K2b: a warp a 32-lane chunk of one output row (8-byte lanes: two
+//   warps a row in f32, one in bf16 at F = 128), whose edge ids one load
+//   and a shuffle bring, loads up to 32 of their rows, then adds them.
+
 // Index convention (shared with the Python plain versions): an index
 // outside [0, n_values) is the padding sentinel -- it gathers a zero row
 // and is dropped by the scatter.
@@ -58,14 +73,13 @@
 // any index and any row count, many times slower (PERF.md).
 //
 // bf16 (the JAX package's split=False, mdg_*_bf16): the same three kernels
-// instantiated over bf16 rows: K1 and K2a 8 to a 16-byte lane (uint4) where
-// F % 8 == 0 and the rows are aligned, K2b 4 to an 8-byte lane (uint2, so
-// that one warp covers a 128-wide row) where F % 4 == 0, else one at a
-// time (unsigned short, the bf16 bits).  K1 widens each bf16 to f32 (exact: the
-// top 16 bits), so each product is exact in f32, sums over K in f32 in the
-// same fixed order as the f32 kernel and rounds once to bf16 (round to
-// nearest even); K2a copies the bf16 bits; K2b sums bf16 rows in f32 and
-// writes f32.
+// instantiated over bf16 rows: K1 and K2b 4 to an 8-byte lane (uint2) where
+// F % 4 == 0, K2a 8 to a 16-byte lane (uint4) where F % 8 == 0, with the
+// rows aligned, else one at a time (unsigned short, the bf16 bits).  K1
+// widens each bf16 to f32 (exact: the top 16 bits), so each product is
+// exact in f32, sums over K in f32 in the same fixed order on either path
+// and rounds once to bf16 (round to nearest even); K2a copies the bf16
+// bits; K2b sums bf16 rows in f32 and writes f32.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() so that a refused
@@ -80,36 +94,43 @@
 
 namespace {
 
-// ---- lane types; K1 and K2a ----------------------------------------------
-// A row of F elements moves as a lane type T: float4 (4 f32, 16 bytes)
-// when F % 4 == 0 and every row pointer is 16-byte aligned, else float;
-// for bf16 rows uint4 (8 bf16, 16 bytes; K1, K2a) when F % 8 == 0 and
-// aligned, else unsigned short (one bf16's bits); K2b's own 8-byte lanes
-// are below.  fv is the row length in T.  K1 and K2b accumulate a lane in
-// f32: AccOf<T> is float4, float, Float8 (8 f32; K1), float2 and float4
-// (K2b) and float.
+// ---- lane types ------------------------------------------------------------
+// A row of F elements moves as a lane type T of 8 or 16 bytes where F splits
+// into it and every row pointer is aligned to it, else one element at a time
+// (float, or bf16_bits: one bf16's bits).  fv is the row length in T.
+//   K1:  float4 (4 f32), uint2 (4 bf16): 32 lanes span 128 features
+//   K2a: float4 (4 f32), uint4 (8 bf16): a copy takes the widest lane
+//   K2b: float2 (2 f32), uint2 (4 bf16): below
+// K1 and K2b add in f32: AccOf<T> is float4 for float4 and uint2, float2 for
+// float2, float for the scalars.
 
 using bf16_bits = unsigned short;
-
-struct Float8 {
-  float v[8];
-};
 
 template <typename T>
 struct AccOf {
   using type = T;
 };
 template <>
-struct AccOf<uint4> {
-  using type = Float8;
-};
-template <>
-struct AccOf<uint2> {   // K2b's 4 bf16 a lane
+struct AccOf<uint2> {   // 4 bf16 a lane
   using type = float4;
 };
 template <>
 struct AccOf<bf16_bits> {
   using type = float;
+};
+
+// K1's output element: an f32 sum, or the bits of its bf16 rounding
+template <typename T>
+struct ElemOf {
+  using type = float;
+};
+template <>
+struct ElemOf<uint2> {
+  using type = bf16_bits;
+};
+template <>
+struct ElemOf<bf16_bits> {
+  using type = bf16_bits;
 };
 
 __device__ __forceinline__ float4 load(const float4* p) { return __ldg(p); }
@@ -141,12 +162,15 @@ __device__ __forceinline__ float2 zero<float2>() {
 }
 template <>
 __device__ __forceinline__ bf16_bits zero<bf16_bits>() { return 0; }
-template <>
-__device__ __forceinline__ Float8 zero<Float8>() {
-  Float8 a;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) a.v[i] = 0.f;
-  return a;
+
+// *p where pred holds, else zero (p is not read)
+template <typename T>
+__device__ __forceinline__ T load_if(const T* p, bool pred) {
+  return pred ? load(p) : zero<T>();
+}
+// *p where pred holds, else -1 (a sentinel)
+__device__ __forceinline__ int index_if(const int* p, bool pred) {
+  return pred ? __ldg(p) : -1;
 }
 
 // bf16 -> f32 is exact: the bf16 bits are the top half of the f32's
@@ -159,13 +183,6 @@ __device__ __forceinline__ float widen_lo(unsigned word) {
 __device__ __forceinline__ float widen_hi(unsigned word) {
   return __uint_as_float(word & 0xffff0000u);
 }
-__device__ __forceinline__ bf16_bits round_bf16(float x) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ unsigned round_pair(float lo, float hi) {
-  return static_cast<unsigned>(round_bf16(lo)) |
-         (static_cast<unsigned>(round_bf16(hi)) << 16);
-}
 
 __device__ __forceinline__ void fma_into(float4& acc, float4 a, float4 b) {
   acc.x = fmaf(a.x, b.x, acc.x);
@@ -177,25 +194,15 @@ __device__ __forceinline__ void fma_into(float& acc, float a, float b) {
   acc = fmaf(a, b, acc);
 }
 // a product of two bf16 is exact in f32, so the FMA rounds only the sum
-__device__ __forceinline__ void fma_into(Float8& acc, uint4 a, uint4 b) {
-  const unsigned aw[4] = {a.x, a.y, a.z, a.w};
-  const unsigned bw[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    acc.v[2 * i] = fmaf(widen_lo(aw[i]), widen_lo(bw[i]), acc.v[2 * i]);
-    acc.v[2 * i + 1] =
-        fmaf(widen_hi(aw[i]), widen_hi(bw[i]), acc.v[2 * i + 1]);
-  }
+__device__ __forceinline__ void fma_into(float4& acc, uint2 a, uint2 b) {
+  acc.x = fmaf(widen_lo(a.x), widen_lo(b.x), acc.x);
+  acc.y = fmaf(widen_hi(a.x), widen_hi(b.x), acc.y);
+  acc.z = fmaf(widen_lo(a.y), widen_lo(b.y), acc.z);
+  acc.w = fmaf(widen_hi(a.y), widen_hi(b.y), acc.w);
 }
 __device__ __forceinline__ void fma_into(float& acc, bf16_bits a,
                                          bf16_bits b) {
   acc = fmaf(widen(a), widen(b), acc);
-}
-__device__ __forceinline__ void add_into(float4& acc, float4 a) {
-  acc.x += a.x;
-  acc.y += a.y;
-  acc.z += a.z;
-  acc.w += a.w;
 }
 __device__ __forceinline__ void add_into(float& acc, float a) { acc += a; }
 // K2b's bf16 rows, widened exactly and added in f32
@@ -212,24 +219,16 @@ __device__ __forceinline__ void add_into(float2& acc, float2 a) {
   acc.x += a.x;
   acc.y += a.y;
 }
-__device__ __forceinline__ void add_into(Float8& acc, const Float8& a) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc.v[i] += a.v[i];
-}
 
-// K1's f32 sums in the lane type of its output (bf16 rounded once)
-template <typename T>
-__device__ __forceinline__ T narrow(const typename AccOf<T>::type& a) {
-  return a;
-}
+// K1's f32 sum as its output element: as it is, or rounded once to bf16
+// (round to nearest even)
+template <typename E>
+__device__ __forceinline__ E to_elem(float x);
 template <>
-__device__ __forceinline__ uint4 narrow<uint4>(const Float8& a) {
-  return make_uint4(round_pair(a.v[0], a.v[1]), round_pair(a.v[2], a.v[3]),
-                    round_pair(a.v[4], a.v[5]), round_pair(a.v[6], a.v[7]));
-}
+__device__ __forceinline__ float to_elem<float>(float x) { return x; }
 template <>
-__device__ __forceinline__ bf16_bits narrow<bf16_bits>(const float& a) {
-  return round_bf16(a);
+__device__ __forceinline__ bf16_bits to_elem<bf16_bits>(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ bool real_row(int j, int n) {
@@ -241,18 +240,23 @@ constexpr int kMaxRowWarps = 16;   // K1: warps on one output row
 
 // K1.  Block i owns output row i; its warp q takes the slots q, q + W,
 // q + 2W, ... of the row (W = blockDim.y), kSlotsPerWarp at a time: the
-// indices of the batch first, then every real slot's values and w rows,
-// then the FMAs, so a warp has 4 rows of w (2 KB at F = 128) in flight,
-// not one.  Striding the slots over the warps balances the water table,
-// whose real neighbours come first in each row.  The warps' partials are
-// summed in warp order through shared memory: a fixed order, no atomics.
+// batch's indices first, then every real slot's values and w rows, then
+// the FMAs (a lane's f32 chain from +0 in slot order).  A sentinel slot
+// loads nothing, so a padded w row never reaches the sum.  The warps'
+// partials meet in shared memory and the block's threads, one f32 output
+// element each, add them in a fixed pairwise tree: level h adds partial
+// p + h into p for p = 0, 2h, 4h, ... while p + h < W.  No atomics: the
+// same bits on every call, and on the scalar path.
 template <typename T>
 __global__ void __launch_bounds__(32 * kMaxRowWarps) gather_mul_reduce_kernel(
     const T* __restrict__ values, const T* __restrict__ w,
-    const int* __restrict__ idx, T* __restrict__ out, int n_values, int k,
-    int fv) {
+    const int* __restrict__ idx, typename ElemOf<T>::type* __restrict__ out,
+    int n_values, int k, int fv) {
   using Acc = typename AccOf<T>::type;
+  using Elem = typename ElemOf<T>::type;
+  constexpr int kAccFloats = sizeof(Acc) / sizeof(float);
   __shared__ Acc part[kMaxRowWarps][32];
+  const float* flat = reinterpret_cast<const float*>(&part[0][0]);
   const int lane = threadIdx.x;
   const int q = threadIdx.y;
   const int n_warps = blockDim.y;
@@ -266,66 +270,88 @@ __global__ void __launch_bounds__(32 * kMaxRowWarps) gather_mul_reduce_kernel(
 #pragma unroll
       for (int u = 0; u < kSlotsPerWarp; ++u) {
         const int s = s0 + u * n_warps;
-        j[u] = s < k ? __ldg(idx + e0 + s) : -1;
+        j[u] = index_if(idx + e0 + s, s < k);
       }
       T a[kSlotsPerWarp], b[kSlotsPerWarp];
 #pragma unroll
       for (int u = 0; u < kSlotsPerWarp; ++u) {
         const bool real = in_row && real_row(j[u], n_values);
         const long long e = e0 + s0 + u * n_warps;
-        a[u] = real ? load(values + static_cast<long long>(j[u]) * fv + c)
-                    : zero<T>();
-        b[u] = real ? load(w + e * fv + c) : zero<T>();
+        a[u] = load_if(values + static_cast<long long>(j[u]) * fv + c, real);
+        b[u] = load_if(w + e * fv + c, real);
       }
 #pragma unroll
       for (int u = 0; u < kSlotsPerWarp; ++u) fma_into(acc, a[u], b[u]);
     }
     part[q][lane] = acc;
     __syncthreads();
-    if (q == 0 && in_row) {
-      Acc sum = part[0][lane];
-      for (int p = 1; p < n_warps; ++p) add_into(sum, part[p][lane]);
-      out[static_cast<long long>(blockIdx.x) * fv + c] = narrow<T>(sum);
+    // this pass's f32 elements: lane l's Acc holds kAccFloats of them
+    Elem* row = out + (static_cast<long long>(blockIdx.x) * fv + c0) *
+                          kAccFloats;
+    const int width = min(32, fv - c0) * kAccFloats;
+    for (int t = q * 32 + lane; t < width; t += 32 * n_warps) {
+      float v[kMaxRowWarps];
+#pragma unroll
+      for (int p = 0; p < kMaxRowWarps; ++p) {
+        v[p] = p < n_warps ? flat[p * 32 * kAccFloats + t] : 0.f;
+      }
+#pragma unroll
+      for (int h = 1; h < kMaxRowWarps; h <<= 1) {
+#pragma unroll
+        for (int p = 0; p + h < kMaxRowWarps; p += 2 * h) {
+          if (p + h < n_warps) v[p] += v[p + h];
+        }
+      }
+      row[t] = to_elem<Elem>(v[0]);
     }
     __syncthreads();
   }
 }
 
-constexpr int kGatherThreads = 256;
-constexpr int kGatherWarps = kGatherThreads / 32;
-constexpr int kGatherRowsPerWarp = 8;   // K2a: rows loaded before a store
+constexpr int kGatherLanes = 8;   // K2a: lanes a thread loads before a store
 
-// K2a.  Each warp owns kGatherRowsPerWarp consecutive edge rows: one lane
-// a row loads the index, a shuffle hands them to every lane, then all the
-// rows' loads are issued before the first store (4 KB in flight a warp at
-// F = 128).  A sentinel row is stored as zeros without a load.
+// K2a.  A block is one warp, owning `rows` consecutive edge rows: one
+// contiguous block of rows * fv lanes of the output.  Thread l moves the
+// block's lanes l, l + 32, l + 64, ..., kGatherLanes at a time: for each,
+// the index of its row (a load the warp's other lanes of that row share),
+// then the row's lane; then all the stores.  A sentinel row is stored as
+// zeros without a load.  (The index load is predicated on the row, not on
+// the lane as the store is: with one predicate for both, ptxas moved each
+// store up beside its load, and fewer loads were in flight.)
 template <typename T>
-__global__ void __launch_bounds__(kGatherThreads) table_gather_kernel(
+__global__ void __launch_bounds__(32) table_gather_kernel(
     const T* __restrict__ values, const int* __restrict__ idx,
-    T* __restrict__ out, int n_values, int n_edges, int fv) {
-  const int lane = threadIdx.x & 31;
-  const long long e0 = (static_cast<long long>(blockIdx.x) * kGatherWarps +
-                        (threadIdx.x >> 5)) * kGatherRowsPerWarp;
-  if (e0 >= n_edges) return;   // warp-uniform
-  const int mine = lane < kGatherRowsPerWarp && e0 + lane < n_edges
-                       ? __ldg(idx + e0 + lane)
-                       : -1;
-  int j[kGatherRowsPerWarp];
+    T* __restrict__ out, int n_values, int n_edges, int fv, int rows) {
+  const int lane = threadIdx.x;
+  const long long e0 = static_cast<long long>(blockIdx.x) * rows;
+  const int n_rows = static_cast<int>(
+      min(static_cast<long long>(rows), n_edges - e0));
+  const int total = n_rows * fv;
+  // lane t of the block is lane t % fv of row t / fv; a step of 32 lanes
+  // moves du rows and dc lanes on
+  const int du = 32 / fv;
+  const int dc = 32 - du * fv;
+  int u = lane / fv;
+  int c = lane - u * fv;
+  T* dst = out + e0 * fv;
+  for (int t0 = 0; t0 < total; t0 += 32 * kGatherLanes) {
+    T v[kGatherLanes];
 #pragma unroll
-  for (int u = 0; u < kGatherRowsPerWarp; ++u) {
-    j[u] = __shfl_sync(0xffffffffu, mine, u);
-  }
-  for (int c = lane; c < fv; c += 32) {   // one pass at F = 128
-    T v[kGatherRowsPerWarp];
-#pragma unroll
-    for (int u = 0; u < kGatherRowsPerWarp; ++u) {
-      v[u] = real_row(j[u], n_values)
-                 ? load(values + static_cast<long long>(j[u]) * fv + c)
-                 : zero<T>();
+    for (int i = 0; i < kGatherLanes; ++i) {
+      const int j = index_if(idx + e0 + u, u < n_rows);
+      v[i] = load_if(values + static_cast<long long>(j) * fv + c,
+                     t0 + 32 * i + lane < total && real_row(j, n_values));
+      c += dc;
+      u += du;
+      if (c >= fv) {
+        c -= fv;
+        ++u;
+      }
     }
 #pragma unroll
-    for (int u = 0; u < kGatherRowsPerWarp; ++u) {
-      if (e0 + u < n_edges) out[(e0 + u) * fv + c] = v[u];
+    for (int i = 0; i < kGatherLanes; ++i) {
+      const int t = t0 + 32 * i + lane;
+      if (t < total) dst[t] = v[i];
     }
   }
 }
@@ -333,7 +359,6 @@ __global__ void __launch_bounds__(kGatherThreads) table_gather_kernel(
 bool aligned(const void* p, uintptr_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
-bool aligned16(const void* p) { return aligned(p, 16); }
 
 // ---- K2b -------------------------------------------------------------------
 // A row moves as an 8-byte lane type T: float2 (2 f32) where F % 2 == 0,
@@ -671,8 +696,8 @@ bool csr_cluster(int e, int n, int max_shared) {
          csr_cluster_bytes(n) <= max_shared;
 }
 
-// K1 with Vec (kLanes elements a 16-byte lane) where F and the pointers
-// allow it, else Scalar.
+// K1 with Vec (kLanes elements a lane) where F and the input pointers
+// allow it, else Scalar; either writes its output one element at a time.
 template <typename Vec, typename Scalar, int kLanes>
 int launch_gather_mul_reduce(const Scalar* values, const Scalar* w,
                              const int* idx, Scalar* out, int n_values,
@@ -683,12 +708,11 @@ int launch_gather_mul_reduce(const Scalar* values, const Scalar* w,
   const int warps = std::min(kMaxRowWarps,
                              (k + kSlotsPerWarp - 1) / kSlotsPerWarp);
   const dim3 block(32, warps);
-  if (f % kLanes == 0 && aligned16(values) && aligned16(w) &&
-      aligned16(out)) {
+  if (f % kLanes == 0 && aligned(values, sizeof(Vec)) &&
+      aligned(w, sizeof(Vec))) {
     gather_mul_reduce_kernel<Vec><<<n_out, block, 0, s>>>(
         reinterpret_cast<const Vec*>(values),
-        reinterpret_cast<const Vec*>(w), idx, reinterpret_cast<Vec*>(out),
-        n_values, k, f / kLanes);
+        reinterpret_cast<const Vec*>(w), idx, out, n_values, k, f / kLanes);
   } else {
     gather_mul_reduce_kernel<Scalar><<<n_out, block, 0, s>>>(
         values, w, idx, out, n_values, k, f);
@@ -699,19 +723,23 @@ int launch_gather_mul_reduce(const Scalar* values, const Scalar* w,
 template <typename Vec, typename Scalar, int kLanes>
 int launch_table_gather(const Scalar* values, const int* idx, Scalar* out,
                         int n_values, int n_edges, int f, void* stream) {
-  if (n_edges == 0) return 0;
+  if (n_edges == 0 || f == 0) return 0;
   if (f < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int rows_per_block = kGatherWarps * kGatherRowsPerWarp;
-  const int grid =
-      static_cast<int>((n_edges + rows_per_block - 1LL) / rows_per_block);
-  if (f % kLanes == 0 && aligned16(values) && aligned16(out)) {
-    table_gather_kernel<Vec><<<grid, kGatherThreads, 0, s>>>(
+  const bool vec = f % kLanes == 0 && aligned(values, sizeof(Vec)) &&
+                   aligned(out, sizeof(Vec));
+  const int fv = vec ? f / kLanes : f;
+  // 256 lanes a warp (16 rows of 16 uint4 at F = 128 in bf16, 8 of 32
+  // float4 in f32), at most 32 rows
+  const int rows = std::max(1, std::min(32, 32 * kGatherLanes / fv));
+  const int grid = static_cast<int>((n_edges + rows - 1LL) / rows);
+  if (vec) {
+    table_gather_kernel<Vec><<<grid, 32, 0, s>>>(
         reinterpret_cast<const Vec*>(values), idx,
-        reinterpret_cast<Vec*>(out), n_values, n_edges, f / kLanes);
+        reinterpret_cast<Vec*>(out), n_values, n_edges, fv, rows);
   } else {
-    table_gather_kernel<Scalar><<<grid, kGatherThreads, 0, s>>>(
-        values, idx, out, n_values, n_edges, f);
+    table_gather_kernel<Scalar><<<grid, 32, 0, s>>>(
+        values, idx, out, n_values, n_edges, fv, rows);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -762,7 +790,7 @@ int mdg_gather_mul_reduce(const float* values, const float* w, const int* idx,
 int mdg_gather_mul_reduce_bf16(const bf16_bits* values, const bf16_bits* w,
                                const int* idx, bf16_bits* out, int n_values,
                                int n_out, int k, int f, void* stream) {
-  return launch_gather_mul_reduce<uint4, bf16_bits, 8>(values, w, idx, out,
+  return launch_gather_mul_reduce<uint2, bf16_bits, 4>(values, w, idx, out,
                                                        n_values, n_out, k, f,
                                                        stream);
 }

@@ -21,15 +21,19 @@ edges.  K2a writes every slot; K1 and K2b read only the real edges' rows
 with 2 flops per edge element at most.  They reach that bound only with
 enough loads in flight, so all three move rows as wide lanes and issue a
 batch of independent row loads before using any: K1 spreads each output
-row's K slots over up to 16 warps of one block (4 slots a warp, partials
-summed in warp order), K2a gives each warp 8 edge rows, K2b gives each
-warp a 32-lane chunk of one output row in 8-byte lanes (two warps a row
-in f32, one in bf16 at F = 128) and loads up to 32 of its edges' rows at
-a time, adding them in ascending edge order; a row that does not split
-into lanes or an unaligned pointer takes a scalar instantiation of the
-same kernel.  What remains is a
-launch floor of ~2 us (the same kernels on one row) and, with the inputs
-in device memory rather than in the L2, the HBM's rate (PERF.md).  K2b's
+row's K slots over up to 16 warps of one block (4 slots a warp, 4
+elements a lane in f32 and bf16, so a 128-wide row fills the warp) and
+adds the warps' partials in a fixed pairwise tree; K2a gives each
+one-warp block a contiguous run of 256 lanes of the output (16 rows in
+bf16, 8 in f32 at F = 128), a grid that spreads evenly over the SMs; K2b
+gives each warp a 32-lane chunk of one output row in 8-byte lanes (two
+warps a row in f32, one in bf16 at F = 128) and loads up to 32 of its
+edges' rows at a time, adding them in ascending edge order; a row that
+does not split into lanes or an unaligned pointer takes a scalar
+instantiation of the same kernel, with the same sum order.  What remains
+is a launch floor of ~1.6-2 us on an NVIDIA H100 80GB HBM3 at 700 W (the
+same kernels on one row) and, with the inputs in device memory rather
+than in the L2, the HBM's rate (PERF.md).  K2b's
 CSR inverse moves 4E bytes in and 4E + 4(n + 1) out (0.05 us) and is
 bound by latency: one launch of a thread block cluster builds it as a
 stable counting sort over 8 SMs (``csrc/gather.cu``), for up to

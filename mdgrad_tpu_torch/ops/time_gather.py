@@ -22,7 +22,10 @@ from . import _build, gather, timing
 
 N_SETS = 12    # x ~8-11 MB a set at the water shape: more than the L2
 KERNELS = ("gather_mul_reduce", "table_gather", "table_scatter")
-GATHER_F = (1, 3, 40, 128, 130)   # F % 4 != 0: scalar; F > 128: two passes
+# F % 4 != 0: the scalar path; F > 128: a second pass of K1's warps; 132
+# (F % 4 == 0, F % 8 != 0): K1's 4-element lanes (float4, uint2) in two
+# passes, K2a's scalar path in bf16
+GATHER_F = (1, 3, 40, 128, 130, 132)
 GATHER_K = (1, 12, 40)            # 1, 3 and 10 warps a row in K1
 GATHER_LAYOUTS = ("suffix", "interleaved", "negative", "whole_rows")
 CSR_WATER_K = (16, 40, 48, 56, 72)   # every table width a water path runs

@@ -158,9 +158,10 @@ def _assert_k1_bf16_close(got, ref):
 @pytest.mark.parametrize("f", GATHER_F)
 def test_bf16_gather_kernels_on_edge_cases(cuda, f, k, layout):
     """The bf16 instantiations (split=False) on the f32 kernels' edge
-    cases (F % 8 != 0 takes the scalar path): K1 within one bf16 ulp of
-    its plain version, K2a bit-exact, K2b (f32 sums of bf16 rows) within
-    1e-5 of max(|ref|, 1); each gives the same bits on a second call."""
+    cases (K1 at F % 4 != 0 and K2a at F % 8 != 0 take the scalar path):
+    K1 within one bf16 ulp of its plain version, K2a bit-exact, K2b (f32
+    sums of bf16 rows) within 1e-5 of max(|ref|, 1); each gives the same
+    bits on a second call."""
     rng = np.random.default_rng(12)
     n, n_out = 37, 29
     idx = torch.tensor(gather_index(rng, layout, n, n_out, k), device=cuda)
@@ -187,7 +188,8 @@ def test_bf16_gather_kernels_on_edge_cases(cuda, f, k, layout):
 @pytest.mark.parametrize("f", [40, 128])
 def test_bf16_gather_kernels_at_an_unaligned_offset(cuda, f):
     """bf16 views at a 2-byte storage offset take the scalar path and give
-    the bits of the 16-byte path on aligned copies."""
+    the bits of the vector path (K1 8-byte lanes, K2a 16-byte lanes) on
+    aligned copies."""
     rng = np.random.default_rng(13)
     n, n_out, k = 64, 64, 40
     idx = torch.tensor(gather_index(rng, "suffix", n, n_out, k), device=cuda)
@@ -204,6 +206,33 @@ def test_bf16_gather_kernels_at_an_unaligned_offset(cuda, f):
     assert torch.equal(out, tg._launch_table_gather(v.clone(), idx, False))
     with pytest.raises(TypeError):
         tg._launch_gather_mul_reduce(v.float(), w, idx, k, False)
+
+
+@pytest.mark.parametrize("f", [128, 132])
+def test_bf16_vector_and_scalar_paths_give_the_same_bits(cuda, f):
+    """bf16 K1 through its 8-byte lanes (aligned rows, F % 4 == 0; two
+    passes of the warps at F = 132) and through its scalar path (views at
+    a 2-byte storage offset) gives the same bits: both sum each feature's
+    products in the same order.  K2a is bit-exact against its plain
+    version through both paths."""
+    rng = np.random.default_rng(14)
+    n, n_out, k = 64, 64, 40
+    idx = torch.tensor(gather_index(rng, "interleaved", n, n_out, k),
+                       device=cuda)
+    buf = _bf16(rng, 1 + n * f + n_out * k * f, cuda)
+    v = buf[1:1 + n * f].view(n, f)
+    w = buf[1 + n * f:].view(n_out * k, f)
+    assert v.data_ptr() % 8 and w.data_ptr() % 8
+    va, wa = v.clone(), w.clone()
+    assert va.data_ptr() % 16 == 0 and wa.data_ptr() % 16 == 0
+    vec = tg._launch_gather_mul_reduce(va, wa, idx, k, False)
+    assert torch.equal(vec, tg._launch_gather_mul_reduce(v, w, idx, k,
+                                                         False))
+    _assert_k1_bf16_close(vec, tg.gather_mul_reduce_plain(va, wa, idx, k,
+                                                          False))
+    ref = tg.table_gather_plain(va, idx, False)
+    assert torch.equal(tg._launch_table_gather(va, idx, False), ref)
+    assert torch.equal(tg._launch_table_gather(v, idx, False), ref)
 
 
 def test_bf16_gather_autograd_runs_the_bf16_kernels(cuda):
