@@ -20,9 +20,9 @@ its phases, printing one line as each check ends:
    side of the cluster build's capacity, and K2b bit-equal through either
    CSR;
    then the LJ pair kernels (K5 energy and forces, K6 force, K6b its vjp,
-   K7 force and parameter sums) on perturbed FCC boxes of 108, 100 (the
-   bounds mask), 1372 and 4000 atoms, powers (12, 6), (9, 6) and (12, 0),
-   and K5, K6 and K6b (the i < j walks) at 2 and 8788 atoms, on positions
+   K7 force and parameter sums, the four modes of one i < j walk) on
+   perturbed FCC boxes of 108, 100 (the bounds mask), 1372 and 4000 atoms,
+   powers (12, 6), (9, 6) and (12, 0), and at 2 and 8788 atoms, on positions
    unwrapped by whole cells, on pairs at the minimum image's edges (d =
    +-L/2 and one ulp around it, past a box length) and on pairs whose r^2
    lies within an ulp of cutoff^2, each giving the same bits twice, with
@@ -116,7 +116,8 @@ its phases, printing one line as each check ends:
    through its own C interface (``ops/time_rdf.py``), one JSON line
    ``{"rdf_ab": ...}``.  Pair: K5, K6, K6b and K7 at N = 1372 and 4000, an
    older ``pair.cu`` with scratch sized by its own rule
-   (``ops/time_pair.py``), one JSON line ``{"pair_ab": ...}``.
+   (``ops/time_pair.py``); the largest difference between each kernel's
+   outputs in the two libraries; one JSON line ``{"pair_ab": ...}``.
 
 Launch counts are zeroed just before phases 3, 3b, 4 and 4b, each call
 of 4c and 4e and each run of 4d, and read just after each: phases 3, 4,
@@ -1429,21 +1430,20 @@ LJ_SCRATCH_N = (1, 2, 63, 64, 65, 100, 1372, 4000, 8788)
 
 
 def lj_kernel_phase(mt, torch, dev, gen, compare, compare_scalar):
-    """K5, K6, K6b and K7 against their plain versions on the card: FCC at
-    N = 108 (less than one 128 tile), 100 of them (the bounds mask), 1372
-    (not a multiple of the tile) and 4000, powers (12, 6), plus (9, 6) and
-    (12, 0) at 108; then K5, K6 and K6b, the i < j walks, at N = 2 and
-    8788, on positions unwrapped by whole cells (the IEEE image, kFar),
-    on pairs at the minimum image's edges and on pairs whose r^2 lies
-    within an ulp of cutoff^2 (``ops/time_pair.py``).  A seeded cotangent
-    W for K6b; every kernel gives the same bits on a second call.  The
-    library's tiles and scratch sizes are ``ops/pair.py``'s."""
+    """K5, K6, K6b and K7, the four modes of the i < j walk, against their
+    plain versions on the card: FCC at N = 108, 100 of them (the bounds
+    mask), 1372 (not a multiple of the tile) and 4000, powers (12, 6),
+    plus (9, 6) and (12, 0) at 108; then at N = 2 and 8788, on positions
+    unwrapped by whole cells (the IEEE image, kFar), on pairs at the
+    minimum image's edges and on pairs whose r^2 lies within an ulp of
+    cutoff^2 (``ops/time_pair.py``).  A seeded cotangent W for K6b; every
+    kernel gives the same bits on a second call.  The library's tile and
+    scratch sizes are ``ops/pair.py``'s."""
     import numpy as np
     from mdgrad_tpu_torch.ops import _build, pair, time_pair
     lib = _build.library()
-    require(lib.mdg_pair_tile() == pair.PAIR_TILE
-            and lib.mdg_force_tile() == pair.FORCE_TILE,
-            "ops/pair.py's PAIR_TILE and FORCE_TILE are csrc/pair.cu's")
+    require(lib.mdg_force_tile() == pair.FORCE_TILE,
+            "ops/pair.py's FORCE_TILE is csrc/pair.cu's")
     for mode, name in enumerate(LJ_KERNELS):
         for n in LJ_SCRATCH_N:
             got = tuple(lib.mdg_lj_scratch(mode, n, which) for which in (0, 1))
@@ -1486,7 +1486,6 @@ def lj_kernel_phase(mt, torch, dev, gen, compare, compare_scalar):
         w = torch.randn(xyz.shape, device=dev, generator=gen)
         line(f"  lj kernels: N={xyz.shape[0]} powers ({rep}, {attr})")
         check(xyz, w, (cell, LJ_CUTOFF, sigma, eps, rep, attr), LJ_KERNELS)
-    half = LJ_KERNELS[:3]   # K5, K6, K6b: the i < j walks
     for n_cells, n_take, unwrap in ((3, 2, False), (13, None, False),
                                     (7, None, True)):
         system = lj_system(mt, n_cells, 1.2, SEED + n_cells)
@@ -1498,19 +1497,19 @@ def lj_kernel_phase(mt, torch, dev, gen, compare, compare_scalar):
         w = torch.randn(xyz.shape, device=dev, generator=gen)
         line(f"  lj i<j walks: N={xyz.shape[0]}"
              + (" unwrapped by -2 to 2 cells" if unwrap else ""))
-        check(xyz, w, (cell, LJ_CUTOFF, sigma, eps), half)
+        check(xyz, w, (cell, LJ_CUTOFF, sigma, eps), LJ_KERNELS)
     for L, axis, xyz_np, cell, cutoff, sig in time_pair.lj_edge_cases():
         xyz = torch.tensor(xyz_np, device=dev)
         args = (cell, cutoff, torch.tensor(sig, dtype=torch.float32,
                                            device=dev), eps)
         line(f"  lj i<j walks, image edges: L={L} axis {axis}")
-        check(xyz, time_pair.pair_image_w(xyz, cell), args, half)
+        check(xyz, time_pair.pair_image_w(xyz, cell), args, LJ_KERNELS)
     xyz_np, cell, n_out = time_pair.cutoff_edge_case(LJ_CUTOFF)
     xyz = torch.tensor(xyz_np, device=dev)
     line(f"  lj i<j walks, cutoff edge: {n_out} pairs with r^2 within an "
          f"ulp of cutoff^2 (out by the stepwise sum, in by a fused one)")
     res = check(xyz, time_pair.pair_image_w(xyz, cell),
-                (cell, LJ_CUTOFF, sigma, eps), half)
+                (cell, LJ_CUTOFF, sigma, eps), LJ_KERNELS)
     for name, (got, ref) in res.items():
         require(torch.equal(got.abs().sum(1) > 0, ref.abs().sum(1) > 0)
                 and int((ref.abs().sum(1) > 0).sum()) == 2,
@@ -1531,8 +1530,10 @@ def pair_ab(mt, torch, dev, _build, sources, gen, smi):
     K6, K6b and K7 of each other ``pair.cu`` in ``sources`` against this
     build's at N = 1372 and 4000, in one process on the same inputs, each
     library's scratch sized by its own C interface (``time_pair.calls``).
-    Against a parent whose K6 differs only in how r^2 rounds, K6 is the
-    control."""
+    One line per kernel gives the largest difference between each other
+    library's outputs and this build's (vector; scalars relative): 0 where
+    the kernel's code is the same, the summation order's where it is
+    not."""
     import numpy as np
     from mdgrad_tpu_torch.ops import pair, time_pair, timing
     libs = {f"other{i}": _build.library((src,))
@@ -1542,6 +1543,7 @@ def pair_ab(mt, torch, dev, _build, sources, gen, smi):
     sigma = torch.tensor(0.9, device=dev)
     eps = torch.tensor(1.0, device=dev)
     calls = {tag: {} for tag in libs}
+    diffs = {name: {} for name in time_pair.AB_KERNELS}
     sizes = []
     for n_cells in (7, 10):
         system = lj_system(mt, n_cells, 1.2, SEED)
@@ -1572,6 +1574,21 @@ def pair_ab(mt, torch, dev, _build, sources, gen, smi):
                 errs.append(f"{name} {err:.3e}")
             line(f"pair a/b: {tag} ({names[tag]}) N={n} max_abs_err "
                  + "  ".join(errs))
+        for name in time_pair.AB_KERNELS:
+            vec, scalars = calls["this"][n][name][1]
+            for tag in (t for t in libs if t != "this"):
+                o_vec, o_scalars = calls[tag][n][name][1]
+                rel = ([] if scalars is None else
+                       [abs(a.item() - b.item()) / abs(b.item())
+                        for a, b in zip(o_scalars, scalars)])
+                diffs[name][f"{tag} N={n}"] = {
+                    "vec": (o_vec - vec).abs().max().item(),
+                    "scalars_rel": max(rel, default=None)}
+    for name, by in diffs.items():
+        line(f"pair a/b diff {name} vs this build: " + "  ".join(
+            f"{key} vec {d['vec']:.3e} scalars "
+            + ("-" if d["scalars_rel"] is None else f"{d['scalars_rel']:.3e}")
+            for key, d in by.items()))
     order = list(libs)
     turns = (order + order[::-1]) * ROUNDS
     runs = {tag: [] for tag in libs}
@@ -1593,7 +1610,7 @@ def pair_ab(mt, torch, dev, _build, sources, gen, smi):
             for name, by in by_name.items() for n, t in by.items()))
     line(json.dumps({"pair_ab": {
         "sources": names, "rounds": ROUNDS, "median": median, "runs": runs,
-        "card": smi}}))
+        "diff_vs_this": diffs, "card": smi}}))
 
 
 def lj_sampling_phase(mt, torch, dev, records):

@@ -17,7 +17,7 @@
 //        vjp_i = sum_j [h (W_ij . d_ij) d_ij + g W_ij],  W_ij = W_j - W_i,
 //        d(W.F)/dsigma = -sum dg/dsigma (W_i . d_ij),
 //        d(W.F)/deps   = -sum (g / eps) (W_i . d_ij)
-//   K7:  F_i, dU/dsigma and U / eps (pairs counted half)
+//   K7:  F_i, dU/dsigma = 1/2 sum du/dsigma and U / eps = 1/2 sum u / eps
 // sigma and eps are read from device memory (they are trainable
 // parameters on the card: no host sync per force); the cell lengths, the
 // cutoff and the powers are launch arguments.
@@ -30,14 +30,16 @@
 // kernel gives the same bits on every call: the replay adjoint re-runs
 // each step and needs the forward's forces, and the vjp, exactly.  Ragged
 // edges are masked; nothing is padded.  Integer powers go by repeated
-// squaring, as JAX's integer_pow does.  Two walks:
+// squaring, as JAX's integer_pow does.
 //
-// K5, K6 and K6b (modes 0-2) walk each i < j pair once (lj_half_kernel).
-// Each function's pair term is antisymmetric, so the row takes it and the
-// column its negative: K5 and K6 -g d_ij; K6b T_ij = h (W_ij . d_ij) d_ij
-// + g W_ij (d and W_ij both flip sign).  Over i < j its scalars are
-// E = sum u and d(W.F)/d(sigma, eps) = sum (dg/dsigma, g / eps) (W_ij .
-// d_ij), which reuse the dot product the vector term needs.
+// All four modes walk each i < j pair once (lj_half_kernel).  Each
+// function's pair term is antisymmetric, so the row takes it and the
+// column its negative: K5, K6 and K7 -g d_ij; K6b T_ij = h (W_ij . d_ij)
+// d_ij + g W_ij (d and W_ij both flip sign).  Over i < j the scalars sum
+// each pair once, so the ordered sums' 1/2 goes with the second visit:
+// K5 E = sum u, K7 sum du/dsigma and sum u / eps; K6b d(W.F)/d(sigma, eps)
+// = sum (dg/dsigma, g / eps) (W_ij . d_ij), which reuse the dot product
+// the vector term needs.
 //   * the minimum image and r^2 come from image.cuh's image_r2: |d| is
 //     compared with a threshold per axis, found once per cell by the
 //     wrapper, which gives the same bits as d - rintf(d / L) L with no
@@ -56,13 +58,6 @@
 //     and writes them once to a (block tiles, N, 3) scratch, and its
 //     scalars (a fixed shuffle tree per warp, then the warps in order) to
 //     a (scalars, blocks) scratch; a second launch sums both in order.
-//
-// K7 (mode 3, no caller on any path) stays on the ordered-pair walk,
-// twice the i < j bound (lj_pair_partial_kernel): grid (column tile, row
-// tile) of 128 x 128 tiles, each row's sums in one thread's registers,
-// the IEEE minimum image (image_ieee: three divisions a pair) and r^2
-// with no contraction, the same second launch over (column tiles, N, 3)
-// and (scalars, tiles^2).
 
 #include <cuda_runtime.h>
 
@@ -70,7 +65,6 @@
 
 namespace {
 
-constexpr int kPairTile = 128;                // K7's tile
 constexpr int kReduceThreads = 256;
 
 enum Mode { kEnergyForces = 0, kForce = 1, kForceVjp = 2, kForceParam = 3 };
@@ -91,7 +85,7 @@ __device__ __forceinline__ float ipow(float x, int p) {
   return acc;
 }
 
-// ---- K5, K6, K6b: i < j walks ---------------------------------------------
+// ---- the i < j walk -------------------------------------------------------
 
 constexpr int kWarpTile = 32;                 // atoms per warp tile
 constexpr int kForceTile = 2 * kWarpTile;     // atoms per block tile
@@ -165,6 +159,9 @@ __device__ __forceinline__ void half_steps(int first, int last, int lanes,
         tz = -(g * dz);
         if constexpr (kMode == kEnergyForces) {
           row.s0 += 4.f * p.eps * (sr_r - sr_a);
+        } else if constexpr (kMode == kForceParam) {
+          row.s0 += 4.f * p.eps * (Rp * sr_r - Ap * sr_a) / p.sigma;
+          row.s1 += 4.f * (sr_r - sr_a);
         }
       }
       row.vx += tx;
@@ -332,79 +329,6 @@ __global__ void __launch_bounds__(kForceThreads) lj_half_kernel(
   }
 }
 
-// ---- K7: the ordered-pair walk ---------------------------------------------
-
-// partial: (column tiles, n, 3); block_partial: (2, blocks).
-__global__ void __launch_bounds__(kPairTile) lj_pair_partial_kernel(
-    const float* __restrict__ xyz, int n, float lx, float ly, float lz,
-    float cut_sq, const float* __restrict__ sigma_p,
-    const float* __restrict__ eps_p, int rep, int attr,
-    float* __restrict__ partial, float* __restrict__ block_partial) {
-  __shared__ float cx[kPairTile], cy[kPairTile], cz[kPairTile];
-  __shared__ float red[2][kPairTile];
-
-  const int a = threadIdx.x;
-  const int i = blockIdx.y * kPairTile + a;
-  const int j0 = blockIdx.x * kPairTile;
-  if (j0 + a < n) {
-    const long long j3 = static_cast<long long>(j0 + a) * 3;
-    cx[a] = xyz[j3];
-    cy[a] = xyz[j3 + 1];
-    cz[a] = xyz[j3 + 2];
-  }
-  __syncthreads();
-
-  const float sigma = __ldg(sigma_p);
-  const float eps = __ldg(eps_p);
-  const float R = static_cast<float>(rep);
-  const float A = static_cast<float>(attr);
-  float v0 = 0.f, v1 = 0.f, v2 = 0.f;   // the row's vector sum
-  float s0 = 0.f, s1 = 0.f;             // the row's scalar sums
-  if (i < n) {
-    const long long i3 = static_cast<long long>(i) * 3;
-    const float xi = xyz[i3], yi = xyz[i3 + 1], zi = xyz[i3 + 2];
-    const int cols = min(kPairTile, n - j0);
-    for (int b = 0; b < cols; ++b) {
-      const float dx = image_ieee(xi - cx[b], lx);
-      const float dy = image_ieee(yi - cy[b], ly);
-      const float dz = image_ieee(zi - cz[b], lz);
-      const float r2 = sum_sq(dx, dy, dz);
-      if (!(r2 < cut_sq) || j0 + b == i) continue;
-      const float inv_r2 = 1.f / r2;
-      const float sr = sigma * sqrtf(inv_r2);
-      const float sr_a = ipow(sr, attr);
-      const float sr_r = ipow(sr, rep);
-      const float g = eps * (4.f * (-R * sr_r + A * sr_a) * inv_r2);
-      v0 -= g * dx;
-      v1 -= g * dy;
-      v2 -= g * dz;
-      s0 += 0.5f * (4.f * eps * (R * sr_r - A * sr_a) / sigma);
-      s1 += 0.5f * (4.f * (sr_r - sr_a));
-    }
-    float* dst = partial + (static_cast<long long>(blockIdx.x) * n + i) * 3;
-    dst[0] = v0;
-    dst[1] = v1;
-    dst[2] = v2;
-  }
-
-  red[0][a] = s0;
-  red[1][a] = s1;
-  __syncthreads();
-  for (int h = kPairTile / 2; h > 0; h >>= 1) {
-    if (a < h) {
-      red[0][a] += red[0][a + h];
-      red[1][a] += red[1][a + h];
-    }
-    __syncthreads();
-  }
-  if (a == 0) {
-    const int n_blocks = gridDim.x * gridDim.y;
-    const int blk = blockIdx.y * gridDim.x + blockIdx.x;
-    block_partial[blk] = red[0][0];
-    block_partial[n_blocks + blk] = red[1][0];
-  }
-}
-
 // Blocks [0, vec_blocks) sum the vector partials over the tiles in tile
 // order into out_vec (n, 3); block vec_blocks + s sums scalar s over the
 // blocks' partials by a fixed tree into out_scalars[s].
@@ -437,15 +361,12 @@ __global__ void lj_pair_reduce_kernel(const float* __restrict__ partial,
   if (threadIdx.x == 0) out_scalars[k] = s[0];
 }
 
-int tiles_of(int mode, int n) {
-  const int tile = mode == kForceParam ? kPairTile : kForceTile;
-  return (n + tile - 1) / tile;
-}
+int tiles_of(int n) { return (n + kForceTile - 1) / kForceTile; }
 
-// blocks of the first launch: tile pairs R <= C, or every (C, R) for K7
-long long blocks_of(int mode, int n) {
-  const long long tiles = tiles_of(mode, n);
-  return mode == kForceParam ? tiles * tiles : tiles * (tiles + 1) / 2;
+// blocks of the first launch: the block-tile pairs R <= C
+long long blocks_of(int n) {
+  const long long tiles = tiles_of(n);
+  return tiles * (tiles + 1) / 2;
 }
 
 // The second launch, after checking the first.
@@ -456,9 +377,9 @@ int launch_reduce(int mode, const float* partial, int n,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec_blocks = (3 * n + kReduceThreads - 1) / kReduceThreads;
   lj_pair_reduce_kernel<<<vec_blocks + mode_scalars(mode), kReduceThreads, 0,
-                          s>>>(partial, n, tiles_of(mode, n), vec_blocks,
+                          s>>>(partial, n, tiles_of(n), vec_blocks,
                                block_partial,
-                               static_cast<int>(blocks_of(mode, n)), out_vec,
+                               static_cast<int>(blocks_of(n)), out_vec,
                                out_scalars);
   return static_cast<int>(cudaGetLastError());
 }
@@ -468,7 +389,7 @@ int launch_lj_half(const float* xyz, const float* w, int n, const Image& im,
                    float cutoff, const float* sigma, const float* eps,
                    int rep, int attr, float* partial, float* block_partial,
                    float* out_vec, float* out_scalars, cudaStream_t s) {
-  const int blocks = static_cast<int>(blocks_of(kMode, n));
+  const int blocks = static_cast<int>(blocks_of(n));
   if (rep == 12 && attr == 6) {   // the LJ powers, unrolled
     lj_half_kernel<kMode, 12, 6><<<blocks, kForceThreads, 0, s>>>(
         xyz, w, n, im, cutoff * cutoff, sigma, eps, rep, attr, partial,
@@ -486,9 +407,7 @@ int launch_lj_half(const float* xyz, const float* w, int n, const Image& im,
 
 extern "C" {
 
-// The tile edges: K7's (ops/pair.py PAIR_TILE) and the i < j walks' block
-// tile (FORCE_TILE) of K5, K6 and K6b.
-int mdg_pair_tile() { return kPairTile; }
+// The i < j walk's block tile (ops/pair.py FORCE_TILE).
 int mdg_force_tile() { return kForceTile; }
 
 // Float counts of mdg_lj_pair's scratch for `mode` and n atoms: `partial`
@@ -499,8 +418,8 @@ long long mdg_lj_scratch(int mode, int n, int which) {
       which > 1) {
     return -1;
   }
-  if (which == 0) return static_cast<long long>(tiles_of(mode, n)) * n * 3;
-  return mode_scalars(mode) * blocks_of(mode, n);
+  if (which == 0) return static_cast<long long>(tiles_of(n)) * n * 3;
+  return mode_scalars(mode) * blocks_of(n);
 }
 
 // One entry point for the four kernels; mode picks the kernel:
@@ -508,7 +427,7 @@ long long mdg_lj_scratch(int mode, int n, int which) {
 //   parameter sums.
 //   xyz (n, 3) f32; w (n, 3) f32, K6b's cotangent (null elsewhere);
 //   lx, ly, lz the diagonal cell; tx, ty, tz and ux, uy, uz each axis's
-//   image thresholds t1 and t2 (image.cuh; K5, K6 and K6b);
+//   image thresholds t1 and t2 (image.cuh);
 //   sigma, eps device scalars (f32); rep, attr the integer powers (>= 0);
 //   partial: mdg_lj_scratch(mode, n, 0) f32;
 //   block_partial: mdg_lj_scratch(mode, n, 1) f32 (null for K6);
@@ -538,14 +457,10 @@ int mdg_lj_pair(int mode, const float* xyz, const float* w, int n, float lx,
       return launch_lj_half<kForceVjp>(xyz, w, n, im, cutoff, sigma, eps,
                                        rep, attr, partial, block_partial,
                                        out_vec, out_scalars, s);
-    case kForceParam: {
-      const int tiles = tiles_of(kForceParam, n);
-      lj_pair_partial_kernel<<<dim3(tiles, tiles), kPairTile, 0, s>>>(
-          xyz, n, lx, ly, lz, cutoff * cutoff, sigma, eps, rep, attr,
-          partial, block_partial);
-      return launch_reduce(kForceParam, partial, n, block_partial, out_vec,
-                    out_scalars, s);
-    }
+    case kForceParam:
+      return launch_lj_half<kForceParam>(xyz, w, n, im, cutoff, sigma, eps,
+                                         rep, attr, partial, block_partial,
+                                         out_vec, out_scalars, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

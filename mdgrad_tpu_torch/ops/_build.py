@@ -46,7 +46,6 @@ SIGNATURES = {
     "mdg_rdf_counts": (_P, _I, _I, *(_F,) * 10, _P, _P, _I, _P, _P, _P),
     "mdg_rdf_counts_bwd": (_P, _I, _I, *(_F,) * 10, _P, _P, _P, _I, _P, _P,
                            _P),
-    "mdg_pair_tile": (),
     "mdg_force_tile": (),
     "mdg_lj_scratch": (_I, _I, _I),
     # the four LJ pair kernels, picked by the first argument (csrc/pair.cu)

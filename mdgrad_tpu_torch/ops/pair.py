@@ -25,14 +25,15 @@ versions, a tensor.
 
 What bounds them on an H100: operations -- the minimum image and r^2 of
 every i < j pair, the LJ terms of those inside the cutoff; bytes are 12
-to 24 per atom.  K5, K6 and K6b walk each i < j pair once in 32 x 32 warp
-tiles and give the pair's term to the row and its negative to the
-column, with a minimum image that needs no division
+to 24 per atom.  All four kernels are one walk over each i < j pair in
+32 x 32 warp tiles: it gives the pair's term to the row and its negative
+to the column, with a minimum image that needs no division
 (:func:`image_thresholds`) and r^2 rounded as the plain versions round
-it.  K7 tiles the ordered pairs 128 x 128 and keeps each row's sums in
-one thread's registers.  Every partial is summed in a fixed order: no
-(N, N) tensor, no float atomics, the same bits on every call, as the
-replay needs.  The library sizes its own scratch (``mdg_lj_scratch``).
+it.  K7 takes each pair's scalar terms once, where its plain version
+sums half of each over ordered pairs.  Every partial is summed in a fixed
+order: no (N, N) tensor, no float atomics, the same bits on every call,
+as the replay needs.  The library sizes its own scratch
+(``mdg_lj_scratch``).
 
 A wrapper launches its kernel for CUDA tensors (float32, contiguous; any
 other dtype raises ``TypeError`` where the JAX package casts) or raises;
@@ -169,22 +170,18 @@ _MODES = ("lj_energy_forces", "lj_force", "lj_force_vjp", "lj_force_param")
 # each kernel's scalar outputs: E; none; d/dsigma, d/deps; dU/dsigma, U/eps
 SCALARS = {"lj_energy_forces": 1, "lj_force": 0, "lj_force_vjp": 2,
            "lj_force_param": 2}
-# csrc/pair.cu's tiles: kPairTile (K7's ordered-pair tile) and kForceTile
-# (the block tile of the i < j walks of K5, K6 and K6b)
-PAIR_TILE, FORCE_TILE = 128, 64
+# csrc/pair.cu's kForceTile: the block tile of the i < j walk
+FORCE_TILE = 64
 
 
 def lj_scratch(name, n):
     """(partial, block_partial) float counts that ``csrc/pair.cu``'s
     ``mdg_lj_scratch`` gives kernel ``name`` at ``n`` atoms: tiles * n * 3
-    and scalars * blocks, where K7 runs tiles^2 blocks of PAIR_TILE and
-    the i < j walks tiles (tiles + 1) / 2 of FORCE_TILE.  The wrappers size
-    their buffers from the library; this mirror is what the tests and
-    ``chip_smoke.py`` hold the library to."""
-    k7 = name == "lj_force_param"
-    tiles = -(-n // (PAIR_TILE if k7 else FORCE_TILE))
-    blocks = tiles * tiles if k7 else tiles * (tiles + 1) // 2
-    return tiles * n * 3, SCALARS[name] * blocks
+    and scalars * blocks, the walk running tiles (tiles + 1) / 2 blocks of
+    FORCE_TILE.  The wrappers size their buffers from the library; this
+    mirror is what the tests and ``chip_smoke.py`` hold the library to."""
+    tiles = -(-n // FORCE_TILE)
+    return tiles * n * 3, SCALARS[name] * (tiles * (tiles + 1) // 2)
 
 
 def _scratch(lib, name, n, device):

@@ -21,8 +21,7 @@ import torch
 
 from . import _build, pair
 
-# K5, K6, K6b and K7: the A/B times all four (K7 still walks ordered
-# pairs, but takes the same uncontracted image and r^2)
+# K5, K6, K6b and K7: the A/B times all four modes of the i < j walk
 AB_KERNELS = ("lj_energy_forces", "lj_force", "lj_force_vjp",
               "lj_force_param")
 
@@ -134,7 +133,8 @@ def split(name, res):
 def _sizes(lib, name, n):
     """(partial, block_partial) float counts for ``lib``: its own
     ``mdg_lj_scratch`` or, for a ``pair.cu`` from before it, that file's
-    rule (K6 on 64-atom tiles, the others on ordered-pair 128 tiles)."""
+    rule (K6 on 64-atom tiles, the others on ordered-pair 128 tiles, whose
+    edge ``mdg_pair_tile`` gives: ``int f(void)``, ctypes' default)."""
     if hasattr(lib, "mdg_lj_scratch"):
         mode = pair._MODES.index(name)
         return tuple(lib.mdg_lj_scratch(mode, n, which) for which in (0, 1))

@@ -467,13 +467,12 @@ def _lj_inputs(cuda, n_cells=3, seed=0):
 @pytest.mark.parametrize("rep,attr", [(12, 6), (9, 6), (12, 0)])
 def test_lj_kernels_match_plain(cuda, rep, attr):
     """K5, K6, K6b and K7 against their plain versions on the card, at 108
-    atoms (less than one 128 tile) and 100 of them (the bounds mask); f32
-    sums of ~100 pair terms per row in another order: ~1e-6 relative."""
+    atoms and 100 of them (the bounds mask); f32 sums of ~100 pair terms
+    per row in another order: ~1e-6 relative."""
     system, cell, xyz108, w108 = _lj_inputs(cuda)
     sigma = torch.tensor(0.95, device=cuda)
     eps = torch.tensor(1.1, device=cuda)
-    from mdgrad_tpu_torch.ops import _build, pair as tp
-    assert _build.library().mdg_pair_tile() == tp.PAIR_TILE
+    from mdgrad_tpu_torch.ops import pair as tp
     args = (cell, 2.4, sigma, eps, rep, attr)
     for n in (108, 100):
         xyz, w = xyz108[:n].contiguous(), w108[:n].contiguous()
@@ -626,18 +625,19 @@ def test_table_scatter_kernel_on_edge_cases(cuda, f, layout, dtype):
     assert not outs[0][5].any() and not outs[0][11].any()
 
 
-# K5, K6 and K6b: the i < j walks on one template
+# K5, K6 and K6b: three modes of the i < j walk (K7, the fourth, has its
+# own test below)
 HALF_WALKS = ("lj_energy_forces", "lj_force", "lj_force_vjp")
 
 
-def _check_half_walks(xyz, w, args):
-    """K5, K6 and K6b against their plain versions: vectors within 1e-5
-    of max(|ref|, 1), scalars within 1e-4 relative (f32 sums of ~100 pair
+def _check_half_walks(xyz, w, args, names=HALF_WALKS):
+    """``names`` against their plain versions: vectors within 1e-5 of
+    max(|ref|, 1), scalars within 1e-4 relative (f32 sums of ~100 pair
     terms per atom in another order), the same bits on a second call.
     {name: (vector, plain vector)}."""
     from mdgrad_tpu_torch.ops import pair as tp
     out = {}
-    for name in HALF_WALKS:
+    for name in names:
         launch, plain = tp._KERNELS[name]
         vec = (xyz, w) if name == "lj_force_vjp" else (xyz,)
         got = split(name, launch(*vec, *args))
@@ -698,6 +698,32 @@ def test_lj_half_walks_at_the_cutoff_edge(cuda):
         live = ref.abs().sum(1) > 0
         assert int(live.sum()) == 2, name
         assert torch.equal(got.abs().sum(1) > 0, live), name
+
+
+def test_lj_force_param_kernel_on_walk_edges(cuda):
+    """K7, mode 3 of the i < j walk, against its plain version where the
+    walk's corners lie: N = 2, positions unwrapped by -2 to 2 cells (the
+    IEEE image), the minimum image's edges, and the cutoff edge, where it
+    leaves out exactly the pairs its plain version leaves out; the same
+    bits on a second call."""
+    params = (torch.tensor(0.95, device=cuda), torch.tensor(1.1, device=cuda))
+    only = ("lj_force_param",)
+    _, cell, xyz, _ = _lj_inputs(cuda, 7)
+    _check_half_walks(xyz[:2].contiguous(), None, (cell, 2.5, *params), only)
+    far = torch.tensor(unwrapped(xyz.cpu().numpy(), cell), device=cuda)
+    _check_half_walks(far, None, (cell, 2.5, *params), only)
+    for _, _, xyz_np, cell, cutoff, sigma in lj_edge_cases():
+        _check_half_walks(torch.tensor(xyz_np, device=cuda), None, (
+            cell, cutoff,
+            torch.tensor(sigma, dtype=torch.float32, device=cuda),
+            torch.tensor(1.0, device=cuda)), only)
+    xyz_np, cell, _ = cutoff_edge_case(2.5)
+    (got, ref), = _check_half_walks(torch.tensor(xyz_np, device=cuda), None, (
+        cell, 2.5, torch.tensor(0.9, device=cuda),
+        torch.tensor(1.0, device=cuda)), only).values()
+    live = ref.abs().sum(1) > 0
+    assert int(live.sum()) == 2
+    assert torch.equal(got.abs().sum(1) > 0, live)
 
 
 def test_lj_scratch_is_ops_pair_mirror(cuda):

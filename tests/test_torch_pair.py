@@ -2,8 +2,9 @@
 K5 energy and forces, K6 force, K6b its vjp, K7 force and parameter sums)
 against the JAX package's Pallas kernels in interpret mode and its dense
 XLA path, on the perturbed 108-atom FCC box of tests/test_pallas.py; and
-the i < j decomposition that the CUDA kernels of K5, K6 and K6b walk (its
-sums, its block map, its scratch sizes), which runs here with no card.
+the i < j decomposition that the one CUDA walk of all four kernels takes
+(its sums, its block map, its scratch sizes), which runs here with no
+card.
 
 float32 comparisons run the same inputs through both packages; float64
 ones run the JAX side inside ``jax.enable_x64(True)`` (never the global
@@ -11,6 +12,7 @@ flag) against its dense autodiff force.
 """
 
 import ast
+import functools
 import pathlib
 import re
 
@@ -19,9 +21,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from mdgrad_tpu import potentials as potentials_j
 from mdgrad_tpu.interface import PairPotentials as PairPotentialsJ
+from mdgrad_tpu.ops import pallas_pair as pallas_pair_j
 from mdgrad_tpu.ops.pallas_pair import lj_energy_forces as lj_energy_forces_j
 from mdgrad_tpu.ops.pallas_pair import make_lj_force as make_lj_force_j
 from mdgrad_tpu.system import System as SystemJ
@@ -156,6 +161,62 @@ def test_force_param_matches_jax_dense_f64(fcc, rep, attr):
                                atol=1e-10 * np.abs(f_j).max())
     np.testing.assert_allclose(dsig.item(), dsig_j, rtol=1e-10)
     np.testing.assert_allclose(ueps.item(), u_j / EPS, rtol=1e-10)
+
+
+def _jax_force_param_kernel(xyz, cell, cutoff, sigma, eps, rep, attr):
+    """The JAX package's ``_force_param_kernel`` (K7's Pallas body) in
+    interpret mode, called with the specs ``make_lj_force._call`` gives its
+    kernels, two (8, 128) scalar outputs summed: (forces (N, 3), dU/dsigma,
+    U/eps) as numpy.  ``make_lj_force`` itself never calls it."""
+    tile_r, tile_c = pallas_pair_j.TILE_R, pallas_pair_j.TILE_C
+    n = xyz.shape[0]
+    n_pad = pallas_pair_j._round_up(max(n, tile_r), tile_c)
+    xyz_t = jnp.zeros((3, n_pad), jnp.float32).at[:, :n].set(
+        jnp.asarray(xyz, jnp.float32).T)
+    params = jnp.asarray([sigma, eps, cutoff], jnp.float32)
+    grid = n_pad // tile_r
+    row_spec = pl.BlockSpec((3, tile_r), lambda i: (0, i),
+                            memory_space=pltpu.VMEM)
+    scalar_spec = pl.BlockSpec((8, 128), lambda i: (i, 0),
+                               memory_space=pltpu.VMEM)
+    scalar_shape = jax.ShapeDtypeStruct((grid * 8, 128), jnp.float32)
+    kernel = functools.partial(pallas_pair_j._force_param_kernel, rep, attr,
+                               n_pad // tile_c, n)
+    f, dsig, ueps = pl.pallas_call(
+        kernel, grid=(grid,),
+        in_specs=[row_spec,
+                  pl.BlockSpec((3, n_pad), lambda i: (0, 0),
+                               memory_space=pltpu.VMEM),
+                  pl.BlockSpec(memory_space=pltpu.SMEM),
+                  pl.BlockSpec(memory_space=pltpu.SMEM)],
+        out_specs=[row_spec, scalar_spec, scalar_spec],
+        out_shape=[jax.ShapeDtypeStruct((3, n_pad), jnp.float32),
+                   scalar_shape, scalar_shape],
+        interpret=True)(xyz_t, xyz_t, jnp.asarray(cell, jnp.float32),
+                        params)
+    return np.asarray(f[:, :n].T), float(dsig.sum()), float(ueps.sum())
+
+
+@pytest.mark.parametrize("rep,attr", [(12, 6), (9, 6), (12, 0)])
+@pytest.mark.parametrize("n", [100, 108])
+def test_force_param_matches_jax_pallas_kernel(fcc, n, rep, attr):
+    """K7's plain version against the JAX ``_force_param_kernel`` itself
+    in interpret mode, at 108 atoms and 100 of them (the kernel pads to
+    its tile and masks the ghosts): f32 sums in another order, at
+    test_energy_forces_match_jax_kernel's bounds."""
+    cell, xyz = fcc
+    xyz = xyz[:n].astype(np.float32)
+    f_j, dsig_j, ueps_j = _jax_force_param_kernel(xyz, cell, CUTOFF, SIGMA,
+                                                  EPS, rep, attr)
+    ops.reset_counts()
+    f, dsig, ueps = pair.lj_force_param(_t(xyz), cell, CUTOFF, SIGMA, EPS,
+                                        rep, attr)
+    assert ops.counts()["plain_calls"]["lj_force_param"] == 1
+    assert f.shape == (n, 3) and dsig_j != 0 and ueps_j != 0
+    np.testing.assert_allclose(f.numpy(), f_j, rtol=0,
+                               atol=1e-4 * np.abs(f_j).max())
+    np.testing.assert_allclose(dsig.item(), dsig_j, rtol=1e-5)
+    np.testing.assert_allclose(ueps.item(), ueps_j, rtol=1e-5)
 
 
 def test_force_and_vjp_match_jax_dense_f64(fcc):
@@ -304,15 +365,16 @@ def test_force_on_image_edges_matches_jax(case):
                                atol=2e-5 * scale)
 
 
-# ---- the i < j decomposition of K5, K6 and K6b (csrc/pair.cu) -----------
+# ---- the i < j decomposition of K5, K6, K6b and K7 (csrc/pair.cu) ------
 
 def _half_walk(xyz, w, cell, cutoff, sigma, eps, rep, attr):
-    """K5's and K6b's sums as the CUDA kernels take them, over i < j pairs
-    only (float64 here): each pair's term T_ij = h (W_ij . d_ij) d_ij +
-    g W_ij to the row and -T_ij to the column, d(W.F)/dsigma and
+    """K5's, K6b's and K7's sums as the CUDA kernel takes them, over i < j
+    pairs only (float64 here): each pair's term T_ij = h (W_ij . d_ij) d_ij
+    + g W_ij to the row and -T_ij to the column, d(W.F)/dsigma and
     d(W.F)/deps as +sum (dg/dsigma, g / eps) (W_ij . d_ij), the force -g d
-    to the row and +g d to the column, u once.  (E, F, vjp, dsigma,
-    deps)."""
+    to the row and +g d to the column, u, du/dsigma and u / eps once (the
+    ordered sums' 1/2 dropped with the second visit).  (E, F, vjp,
+    dsigma, deps, dU/dsigma, U/eps)."""
     n = xyz.shape[0]
     i, j = torch.triu_indices(n, n, 1)
     L = torch.tensor(np.asarray(cell), dtype=xyz.dtype)
@@ -336,7 +398,9 @@ def _half_walk(xyz, w, cell, cutoff, sigma, eps, rep, attr):
     gd = g[:, None] * d
     f = zero.index_add(0, i, -gd).index_add(0, j, gd)
     e = (4 * eps * (sr_r - sr_a)).sum()
-    return e, f, vjp, (dgds * wd).sum(), (g0 * wd).sum()
+    dudsig = (4 * eps * (rep * sr_r - attr * sr_a) / sigma).sum()
+    return (e, f, vjp, (dgds * wd).sum(), (g0 * wd).sum(), dudsig,
+            (4 * (sr_r - sr_a)).sum())
 
 
 @pytest.mark.parametrize("rep,attr", [(12, 6), (9, 6), (12, 0)])
@@ -351,8 +415,8 @@ def test_half_walk_matches_plain_and_jax(fcc, n, rep, attr):
     w = np.random.default_rng(7).normal(size=(n, 3)).astype(np.float32)
     x64, w64 = _t(xyz, torch.float64), _t(w, torch.float64)
     sigma, eps = _t(SIGMA, torch.float64), _t(EPS, torch.float64)
-    e, f, vjp, dsig, deps = _half_walk(x64, w64, cell, CUTOFF, sigma, eps,
-                                       rep, attr)
+    e, f, vjp, dsig, deps, _, _ = _half_walk(x64, w64, cell, CUTOFF, sigma,
+                                             eps, rep, attr)
     e_p, f_p = pair.lj_energy_forces_plain(x64, cell, CUTOFF, sigma, eps,
                                            rep, attr)
     ref = pair.lj_force_vjp_plain(x64, w64, cell, CUTOFF, sigma, eps, rep,
@@ -380,6 +444,32 @@ def test_half_walk_matches_plain_and_jax(fcc, n, rep, attr):
         np.testing.assert_allclose(a.numpy(), b, rtol=2e-3,
                                    atol=2e-5 * max(np.abs(b).max(), 1e-8),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("rep,attr", [(12, 6), (9, 6), (12, 0)])
+@pytest.mark.parametrize("n", [2, 100, 108])
+def test_half_walk_force_param_matches_plain_and_jax(fcc, n, rep, attr):
+    """K7's i < j sums, each pair's dU/dsigma and U/eps terms taken once,
+    reproduce its plain version (half of each term over ordered pairs) in
+    float64 (rel 1e-10) and the JAX ``_force_param_kernel`` in interpret
+    mode in float32 (rtol 1e-5: f32 sums in another order)."""
+    cell, xyz = fcc
+    xyz = xyz[:n].astype(np.float32)
+    x64 = _t(xyz, torch.float64)
+    sigma, eps = _t(SIGMA, torch.float64), _t(EPS, torch.float64)
+    _, f, _, _, _, dsig, ueps = _half_walk(x64, torch.zeros_like(x64), cell,
+                                           CUTOFF, sigma, eps, rep, attr)
+    f_p, dsig_p, ueps_p = pair.lj_force_param_plain(x64, cell, CUTOFF, sigma,
+                                                    eps, rep, attr)
+    assert float(dsig_p) != 0 and float(ueps_p) != 0
+    np.testing.assert_allclose(f.numpy(), f_p.numpy(), rtol=0,
+                               atol=1e-10 * f_p.abs().max().item())
+    for got, want in ((dsig, dsig_p), (ueps, ueps_p)):
+        np.testing.assert_allclose(got.item(), want.item(), rtol=1e-10)
+    _, dsig_j, ueps_j = _jax_force_param_kernel(xyz, cell, CUTOFF, SIGMA, EPS,
+                                                rep, attr)
+    np.testing.assert_allclose(dsig.item(), dsig_j, rtol=1e-5)
+    np.testing.assert_allclose(ueps.item(), ueps_j, rtol=1e-5)
 
 
 def _block_tiles(b):
@@ -443,13 +533,14 @@ def test_lj_scratch_mirror_sizes_the_launch_buffers():
     """``_launch`` takes its buffers from ``_scratch``, sized by the
     library's mdg_lj_scratch: with a library that answers by ops/pair.py's
     lj_scratch, every kernel's buffers hold exactly the mirror's float
-    counts (K6 none for scalars).  The mirror's tiles are csrc/pair.cu's
-    constants, and its block counts the ones the source states (253 at N =
-    1372 and 2016 at 4000 for the i < j walks, tiles^2 for K7)."""
+    counts (K6 none for scalars).  The mirror's tile is csrc/pair.cu's
+    constant, and its block counts the ones the source states (253 at N =
+    1372 and 2016 at 4000, the one i < j walk of all four kernels; the
+    ordered-pair tile is gone)."""
     src = (REPO / "mdgrad_tpu_torch/csrc/pair.cu").read_text()
     const = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", src))
     warp_tile = int(const["kWarpTile"])
-    assert int(const["kPairTile"]) == pair.PAIR_TILE
+    assert "kPairTile" not in src and "mdg_pair_tile" not in src
     assert const["kForceTile"] == "2 * kWarpTile"
     assert 2 * warp_tile == pair.FORCE_TILE
 
@@ -468,5 +559,7 @@ def test_lj_scratch_mirror_sizes_the_launch_buffers():
     assert pair.lj_scratch("lj_force_vjp", 1372) == (22 * 1372 * 3, 2 * 253)
     assert pair.lj_scratch("lj_energy_forces", 4000) == (63 * 4000 * 3, 2016)
     assert pair.lj_scratch("lj_force", 4000) == (63 * 4000 * 3, 0)
-    assert pair.lj_scratch("lj_force_param", 4000) == (32 * 4000 * 3,
-                                                       2 * 32 * 32)
+    assert pair.lj_scratch("lj_force_param", 4000) == (63 * 4000 * 3,
+                                                       2 * 2016)
+    assert pair.lj_scratch("lj_force_param", 1372) == (22 * 1372 * 3,
+                                                       2 * 253)
