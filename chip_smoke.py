@@ -28,7 +28,8 @@ its phases, printing one line as each check ends:
    lies within an ulp of cutoff^2, each giving the same bits twice, with
    the library's scratch sizes equal to ``ops/pair.py``'s; K3/K4 and
    K3b/K4b at 1, 3 and 50 frames of the water box and K3/K4 at the fit's
-   inference shape (1 frame, 800 bins), each giving the same bits twice,
+   inference shape (1 frame, 800 bins), both at the water pair fits' (10
+   frames, 400 bins), each giving the same bits twice,
    and on ``ops/time_rdf.py``'s edge cases (N = 2-1372, F =
    1-10, 1500 bins, unsorted centres, an unbounded bin, pairs at the
    cutoff and the image's edges); the library's reach argument equal to
@@ -77,7 +78,8 @@ its phases, printing one line as each check ends:
    dense layers' bf16 GEMMs on cuBLAS against an f32-accumulated product
    (one bf16 ulp at most); the bf16 force against the f32 force of the same
    weights and against the port's bf16 force on the CPU (the plain
-   versions); then phase 3's sampling run (1000 steps and the RDF) and 3
+   versions); then phase 3's sampling run cut to 500 steps (25 frames and
+   their RDF) and 3
    optimizer steps of ``bench.py``'s loss (a tau = 52 epoch through the
    replay adjoint, mean((g - 1)^2) of the 109-bin g(r) of every 10th frame,
    here through K3/K4; clipped Adam), and the same 3 steps in f32.  The bf16
@@ -87,10 +89,30 @@ its phases, printing one line as each check ends:
    (the f32 gather kernels, a bf16 node filter) for one epoch, then with
    ``gnn_skin`` 0.5 and ``topology_update_freq`` 3 for two; K, the
    launches an epoch and epochs/s beside 4c's skinless fit.
+4f. pair  -- the pair slice at full width.  ``fit_lj`` at
+   ``scripts/run_lj.py``'s assignments (lj_0.7_1 at size 4, 256 atoms; a
+   PairMLP of 24 Gaussians, width 128, 3 layers, SELU; the LJ-family
+   prior; NHC Q 50 x 5; 120-step epochs, 100 bins, t_range 50,
+   frame_skip 5), cut to 3 epochs after 100 pretraining iterations, then
+   one epoch with the VACF and virial-pressure terms against a
+   self-generated target (the ground truth simulated, 4 runs of 100
+   steps); ``fit_rdf`` at
+   ``scripts/run_water.py --pair -rdf_backend pallas``'s settings (512
+   sites, a PairMLP of 40 Gaussians, width 115, 3 layers, ELU, cutoff 6.0,
+   400 bins, 192-step epochs, the ExcludedVolume prior) for 2 epochs, then
+   ``--tpair`` for 1, each after 100 pretraining iterations; the water GNN
+   fit at 1728 sites (size 6), whose prior takes 'sparse': one 20-step
+   sampling epoch, then that prior's energy and forces against the dense
+   prior's.  ``fit_lj`` launches no kernel (its RDF is the dense plain
+   one, as in the JAX package); the water pair fits launch K3/K4 and
+   K3b/K4b in every epoch and nothing else; the 1728-site epoch K1, K2a,
+   K2b and the CSR build.  Losses, gradient norms, epochs/s and peak
+   memory.
 5. times   -- each kernel, its plain version and its library yardstick with
    CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms; K3/K4 at 50
-   and 3 frames of 512 sites, at 10 of 1372 and at 1 of 512 with 800
-   bins, K3b/K4b at 3 x 512 and 10 x 1372,
+   and 3 frames of 512 sites, at 10 of 1372, at 1 of 512 with 800
+   bins and at 10 of 512 with 400, K3b/K4b at 3 x 512, 10 x 1372 and
+   10 x 512 x 400,
    with bounds that count the exponentials inside the reach on these
    frames at the SFU's rate; K2b's CSR
    build at every water table width (K = 16-72) with the path it takes,
@@ -99,8 +121,8 @@ its phases, printing one line as each check ends:
    their inputs in the L2 as on the MD path, and cold, cycling over input
    sets larger than the L2, with the cold share of the bound, in f32 and
    in bf16), MD, training and fit steps/s, bf16 against f32 from phase
-   4d, the skinned fit against the skinless, and the card's name and power
-   limit.
+   4d, the skinned fit against the skinless, the wall seconds of each
+   phase, and the card's name and power limit.
 5b. a/b    -- only with ``--against``: each OTHER.cu, another version of
    ``csrc/gather.cu`` (a file named ``gather*.cu``), ``csrc/rdf.cu``
    (``rdf*.cu``) or ``csrc/pair.cu`` (``pair*.cu``), built alone into a
@@ -120,9 +142,10 @@ its phases, printing one line as each check ends:
    outputs in the two libraries; one JSON line ``{"pair_ab": ...}``.
 
 Launch counts are zeroed just before phases 3, 3b, 4 and 4b, each call
-of 4c and 4e and each run of 4d, and read just after each: phases 3, 4,
-4c and 4e must launch every water kernel, the CSR build included, 4d the
-bf16 gather kernels in their place, and none may call a plain version.  The line before the last is a JSON object with one record per
+of 4c, 4e and 4f and each run of 4d, and read just after each: phases 3,
+4, 4c and 4e must launch every water kernel, the CSR build included, 4d
+the bf16 gather kernels in their place, 4f's water pair fits K3/K4 and
+K3b/K4b in every epoch, and none may call a plain version.  The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits non-zero.  Without a CUDA device it exits
 1 and prints no result.
@@ -154,9 +177,11 @@ RDF_REPLACES = {
                       "(counts_frames_bwd)"}
 # the shapes each RDF kernel runs at on a path: the sampling run's 50
 # frames (K3/K4 only), a training step's 3, the LJ fit's 10 of 1372 atoms,
-# and the fit's inference, one frame at 800 bins (K3/K4 only)
-RDF_SHAPES = {"rdf_counts": ("50x512", "3x512", "10x1372", "1x512x800"),
-              "rdf_counts_bwd": ("3x512", "10x1372")}
+# the fit's inference, one frame at 800 bins (K3/K4 only), and the water
+# pair fits' epoch, 10 frames at 400 bins
+RDF_SHAPES = {"rdf_counts": ("50x512", "3x512", "10x1372", "1x512x800",
+                             "10x512x400"),
+              "rdf_counts_bwd": ("3x512", "10x1372", "10x512x400")}
 # the shape of each RDF row's own numbers in the JSON line (every shape is
 # under its "by_shape"): K3/K4 at the sampling run's 50 frames, K3b/K4b at
 # a training step's 3
@@ -423,21 +448,26 @@ def fit_call(torch, fit_rdf, ops, gather, model_path, assignments=None,
     return out, msgs, marks, widths, wall
 
 
-def check_fit_counts(counts, what):
-    """Every water kernel launched (the f32 gather kernels: the fits run
-    float32 or 'mixed'), no bf16 instantiation, no LJ kernel, no plain
-    version."""
-    for name in WATER_KERNELS:
-        require(counts["launches"][name] > 0,
-                f"kernel {name} launched in the {what}")
-    for name in LJ_KERNELS:
-        require(counts["launches"][name] == 0,
-                f"the {what} launches no {name}")
+def check_no_kernel(counts, what, allowed=()):
+    """No kernel outside ``allowed`` launched, no bf16 instantiation, no
+    plain version called."""
+    for name, c in counts["launches"].items():
+        if name not in allowed:
+            require(c == 0, f"the {what} launches no {name}")
     for name, c in counts["launches_bf16"].items():
         require(c == 0, f"the {what} launches no bf16 {name}")
     for group in ("plain_calls", "plain_calls_bf16"):
         for name, c in counts[group].items():
             require(c == 0, f"plain version of {name} not used in the {what}")
+
+
+def check_fit_counts(counts, what):
+    """Every water kernel launched (the f32 gather kernels: the fits run
+    float32 or 'mixed'), nothing else, no plain version."""
+    for name in WATER_KERNELS:
+        require(counts["launches"][name] > 0,
+                f"kernel {name} launched in the {what}")
+    check_no_kernel(counts, what, allowed=WATER_KERNELS)
 
 
 def fit_phase(mt, torch, dev, records):
@@ -629,6 +659,236 @@ def mixed_and_skin_phase(torch, records, fitted):
             "epochs_per_s": 2 / marks[-1][0], "tables": tables}
 
 
+# ---- the pair slice ------------------------------------------------------
+# fit_lj at scripts/run_lj.py's assignments and defaults: the lj_0.7_1
+# target at size 4 (256 atoms), a PairMLP of 2.5 // 0.1 = 24 Gaussians,
+# width 128, 3 layers, SELU, over the LJ-family prior, NHC Q 50 x 5 chains,
+# 120-step epochs, 100 bins, t_range 50, frame_skip 5, lr 2e-3; cut from
+# 300 epochs and 1000 pretraining iterations to 3 and 100
+LJ_FIT_ASSIGNMENTS = {
+    "nbins": 100, "opt_freq": 120, "lr": 2e-3, "sigma": 0.9,
+    "gaussian_width": 0.1, "n_width": 128, "n_layers": 3,
+    "nonlinear": "SELU", "grad_clip": 10.0, "rdf_weight": 1.0,
+    "vacf_weight": 0.0, "pressure_weight": 0.0, "train_vacf": "False"}
+LJ_FIT_SYS = {
+    "size": 4, "cutoff": 2.5, "t_range": 50, "n_epochs": 3, "n_sim": 10,
+    "data": ["lj_0.7_1"], "val": None, "topology_update_freq": 1,
+    "pretrain_iters": 100, "burnin_epochs": 0, "frame_skip": 5,
+    "state_reset_every": 0, "eval_every": 0, "eval_eq_epochs": 4,
+    "eval_sample_epochs": 8, "capacity_slack": 1.6, "target_nsim": 8,
+    "init_pkl": None}
+# one more epoch with the VACF and virial-pressure terms on, against a
+# self-generated target: lj_0.7_1's state point without its files, the
+# ground truth simulated (cut from the fit's 8 runs of 100 steps to 4)
+LJ_FIT_PRESSURE = {"vacf_weight": 0.1, "train_vacf": "True",
+                   "pressure_weight": 1e-3}
+LJ_FIT_PRESSURE_SYS = {**LJ_FIT_SYS, "n_epochs": 1, "target_nsim": 4,
+                       "data": ["lj_0.7_1_sim"]}
+# fit_rdf at scripts/run_water.py --pair -rdf_backend pallas: 512 sites of
+# H20_298K_redd, a PairMLP of 6.0 // 0.15 = 40 Gaussians, width 115, 3
+# layers, ELU, cutoff 6.0, 400 bins, 192-step epochs, the ExcludedVolume
+# prior, dt 0.5 fs; cut from 700 epochs to 2 (then 1 with --tpair), from
+# 1000 pretraining iterations to 100, and from 20 inference rollouts to
+# none (the 800-bin RDF of the last training frame)
+PAIR_FIT_ASSIGNMENTS = {
+    "cutoff": 6.0, "epsilon": 1.8245160642515632, "gaussian_width": 0.15,
+    "lr": 0.0006548601438181719, "mse_weight": 0.345, "n_layers": 3,
+    "n_width": 115, "nbins": 400, "nonlinear": "ELU", "opt_freq": 192,
+    "power": 12, "sigma": 1.68191635809129, "rdf_backend": "pallas"}
+PAIR_FIT_SYS = {**FIT_SYS_PARAMS, "n_epochs": 2, "n_sim": 0,
+                "pair_flag": True, "pretrain_iters": 100, "ckpt_every": 10}
+PAIR_FIT_TPAIR = {"n_epochs": 1, "pair_flag": False, "tpair_flag": True}
+RDF_KERNELS = ("rdf_counts", "rdf_counts_bwd")
+
+
+def pair_fit_call(torch, fn, *args, **kwargs):
+    """``fn(*args, log=..., **kwargs)`` (``fit_lj`` or ``fit_rdf``) on the
+    card, its launch counts zeroed just before; returns (result, log
+    lines, per-epoch marks (time, counts), the unclipped gradient norm of
+    each optimizer step, peak memory, wall seconds)."""
+    from mdgrad_tpu_torch import ops
+    from mdgrad_tpu_torch.train import optim
+    msgs, marks, norms = [], [], []
+
+    def log(msg):
+        msgs.append(str(msg))
+        if " | loss" in str(msg):
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), ops.counts()))
+
+    real = optim.FitUpdate.__call__
+
+    def record(self, value=None, step_scale=1.0):
+        norm = real(self, value, step_scale)
+        if norm is not None:          # the fit's steps, not pretraining's
+            norms.append(norm.item())
+        return norm
+
+    optim.FitUpdate.__call__ = record
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out = fn(*args, log=log, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        optim.FitUpdate.__call__ = real
+    wall = time.perf_counter() - t0
+    return (out, msgs, [(t - t0, c) for t, c in marks], norms,
+            torch.cuda.max_memory_allocated(), wall)
+
+
+def epoch_rates(marks, n_epochs):
+    """(epochs/s from the call, set-up included; seconds an epoch after
+    the first, or with one epoch the seconds into the call it ended)."""
+    steady = ((marks[-1][0] - marks[0][0]) / (n_epochs - 1)
+              if n_epochs > 1 else marks[0][0])
+    return n_epochs / marks[-1][0], steady
+
+
+def pair_phase(mt, torch, dev, records):
+    """Phase 4f (see the module docstring): fit_lj at run_lj.py's
+    assignments and an epoch with the pressure and VACF terms, fit_rdf's
+    pair and T-dependent pair fits through the RDF kernels, and the water
+    GNN fit's 'sparse' prior at 1728 sites against the dense one."""
+    import numpy as np
+    from mdgrad_tpu_torch import ops, units
+    from mdgrad_tpu_torch.data.registry import pair_data_dict
+    from mdgrad_tpu_torch.ops import gather
+    from mdgrad_tpu_torch.train import fit_rdf, fit_rdf_pair
+    out = {}
+
+    # (a) fit_lj
+    res, msgs, marks, norms, peak, wall = pair_fit_call(
+        torch, fit_rdf_pair.fit_lj, LJ_FIT_ASSIGNMENTS, LJ_FIT_SYS,
+        rng=np.random.default_rng(SEED), device=dev)
+    for msg in msgs:
+        line(f"fit_lj: {msg}")
+    losses = res["loss_log"]
+    n_ep = LJ_FIT_SYS["n_epochs"]
+    rate, steady = epoch_rates(marks, n_ep)
+    line(f"fit_lj: losses {losses}  gradient norms {norms}  peak memory "
+         f"{peak} B  u(r) at r = {res['r_grid'][60]:.3f}: fit "
+         f"{res['u_fit'][60]:.4f}, truth {res['u_target'][60]:.4f}")
+    require(not res.get("nan_bailout") and len(losses) == n_ep
+            and bool(np.isfinite(losses).all()) and min(losses) > 0,
+            "fit_lj gives finite nonzero losses")
+    require(len(norms) == n_ep and all(np.isfinite(norms))
+            and min(norms) > 0, "fit_lj's MLP gradients are finite and "
+            "nonzero")
+    require(bool(np.isfinite(res["u_fit"]).all()), "a finite u(r)")
+    check_no_kernel(ops.counts(), "fit_lj")
+    out["lj"] = {"epochs_per_s": rate, "steady_s": steady, "wall": wall,
+                 "peak": peak, "losses": losses, "norms": norms}
+
+    entry = dict(pair_data_dict["lj_0.7_1"], rdf_fn=None, vacf_fn=None)
+    res, msgs, marks, norms, peak, wall = pair_fit_call(
+        torch, fit_rdf_pair.fit_lj, {**LJ_FIT_ASSIGNMENTS, **LJ_FIT_PRESSURE},
+        LJ_FIT_PRESSURE_SYS, registry={"lj_0.7_1_sim": entry}, rng=np.random.default_rng(SEED),
+        device=dev)
+    for msg in msgs:
+        line(f"fit_lj pressure+vacf: {msg}")
+    p = res["obs_log"]["lj_0.7_1_sim"]["pressure"]
+    line(f"fit_lj pressure+vacf: loss {res['loss_log']}  P {p}  gradient "
+         f"norm {norms}  peak memory {peak} B  call {wall:.3f} s")
+    require(len(res["loss_log"]) == 1 and np.isfinite(res["loss_log"][0])
+            and np.isfinite(p[0]) and p[0] != 0.0,
+            "the pressure epoch gives a finite loss and pressure")
+    require(len(norms) == 1 and np.isfinite(norms[0]) and norms[0] > 0,
+            "the pressure epoch's MLP gradient is finite and nonzero")
+    check_no_kernel(ops.counts(), "pressure fit_lj")
+    out["lj_pressure"] = {"wall": wall, "peak": peak,
+                          "first_s": marks[0][0]}
+
+    # (b) fit_rdf's pair and T-dependent pair fits, the pallas RDF
+    for tag, extra in (("pair", {}), ("tpair", PAIR_FIT_TPAIR)):
+        sys_params = {**PAIR_FIT_SYS, **extra}
+        res, msgs, marks, norms, peak, wall = pair_fit_call(
+            torch, fit_rdf.fit_rdf, PAIR_FIT_ASSIGNMENTS, sys_params,
+            rng=np.random.default_rng(SEED), device=dev)
+        for msg in msgs:
+            line(f"fit {tag}: {msg}")
+        n_ep = sys_params["n_epochs"]
+        losses = res["loss_log"]
+        per_epoch = {name: marks[-1][1]["launches"][name]
+                     - (marks[-2][1]["launches"][name] if n_ep > 1 else 0)
+                     for name in RDF_KERNELS}
+        total = ops.counts()
+        line(f"fit {tag}: losses {losses}  gradient norms {norms}  objective "
+             f"{res['objective']!r}  peak memory {peak} B; launches in the "
+             f"call {total['launches']}; K3/K4 and K3b/K4b in the last "
+             f"epoch {per_epoch}")
+        require(not res.get("nan_bailout") and len(losses) == n_ep
+                and bool(np.isfinite(losses).all())
+                and np.isfinite(res["objective"]),
+                f"the {tag} fit gives finite losses")
+        require(len(norms) == n_ep and all(np.isfinite(norms))
+                and min(norms) > 0, f"the {tag} fit's gradients are finite "
+                "and nonzero")
+        for name in RDF_KERNELS:
+            require(per_epoch[name] > 0,
+                    f"kernel {name} launched in each {tag} fit epoch")
+        require(res["final"]["H20_298K_redd"]["g_sim"].shape == (800,),
+                f"the {tag} fit's inference RDF has 800 bins")
+        check_no_kernel(total, f"{tag} fit", allowed=RDF_KERNELS)
+        rate, steady = epoch_rates(marks, n_ep)
+        for name in RDF_KERNELS:
+            records.setdefault(name, {})[f"launches_{tag}_fit_per_epoch"] = \
+                per_epoch[name]
+        out[tag] = {"epochs_per_s": rate, "steady_s": steady, "wall": wall,
+                    "first_s": marks[0][0], "peak": peak,
+                    "per_epoch": per_epoch, "launches": total["launches"]}
+
+    # (c) the water GNN fit at 1728 sites: its prior is 'sparse'
+    comps = fit_rdf.build_fit(FIT_ASSIGNMENTS, {**FIT_SYS_PARAMS, "size": 6},
+                              rng=np.random.default_rng(SEED), device=dev)
+    system, sim = comps["systems"][0], comps["sims"][0]
+    prior = sim.integrator.model.models["pair"]
+    gnn = sim.integrator.model.models["nn"]
+    n = system.get_number_of_atoms()
+    require(n == 1728 and prior.mode == "sparse",
+            "the 1728-site water fit's prior is 'sparse'")
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    with CsrWidths(gather) as widths:
+        sim.simulate(steps=21, dt=0.5 * units.fs, frequency=21)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    counts = ops.counts()
+    require(not sim.overflowed and bool(torch.isfinite(sim.state.q).all()),
+            "the 1728-site epoch is finite, no overflow")
+    dense = mt.PairPotentials(system, comps["prior"], cutoff=6.0,
+                              mode="dense", device=dev)
+    q = sim.state.q.detach()
+    ef = {}
+    for label, inter in (("sparse", prior), ("dense", dense)):
+        x = q.clone().requires_grad_(True)
+        e = inter.energy(x, inter.aux_init(q))
+        (g,) = torch.autograd.grad(e, x)
+        ef[label] = (e, -g)
+    e_rel = abs(ef["sparse"][0].item() - ef["dense"][0].item()) / abs(
+        ef["dense"][0].item())
+    f_err, _, f_scale = max_errs(ef["sparse"][1], ef["dense"][1])
+    line(f"sparse prior (N = {n}, capacity {prior.capacity}, SchNet K = "
+         f"{gnn.k_max}): one 20-step sampling epoch {epoch_s:.3f} s; "
+         f"launches {counts['launches']}; CSR builds {widths.describe()}; "
+         f"prior energy sparse {ef['sparse'][0].item():.7g} vs dense "
+         f"{ef['dense'][0].item():.7g} (rel {e_rel:.3e}, tol 1e-5); forces "
+         f"max_abs_err {f_err:.3e} (tol {1e-5 * f_scale:.3e})")
+    require(e_rel <= 1e-5 and f_err <= 1e-5 * f_scale,
+            "the sparse prior's energy and forces equal the dense prior's")
+    for name in WATER_KERNELS[:4]:
+        require(counts["launches"][name] > 0,
+                f"kernel {name} launched in the 1728-site epoch")
+    check_no_kernel(counts, "1728-site epoch", allowed=WATER_KERNELS[:4])
+    out["sparse"] = {"epoch_s": epoch_s, "capacity": prior.capacity,
+                     "k": gnn.k_max, "paths": sorted(widths.paths()),
+                     "e_rel": e_rel, "f_err": f_err}
+    return out
+
+
 def bench_loss_steps(torch, fit_rdf, sim, obs, stack, n_epochs):
     """``n_epochs`` optimizer steps of bench.py's loss: one tau = 52 epoch
     through the replay adjoint, the 109-bin g(r) of every 10th frame,
@@ -753,13 +1013,14 @@ def bf16_phase(mt, torch, dev, records, main):
                               "CPU's bf16 force than bf16 is to f32")
     del stack_cpu, stack32, f_cpu
 
-    # the sampling run: as phase 3's, at bf16
+    # the sampling run: as phase 3's, at bf16, cut from its 1000 steps to
+    # 500 (a frame every 20 steps, as there)
     obs = mt.observables.rdf(system, nbins=109, r_range=(1.8, 7.5),
                              backend="pallas", device=dev)
     integ = mt.NoseHooverChain(stack, system, T=298.0, Q=50.0, num_chains=5,
                                adjoint=True, device=dev)
     sim = mt.Simulation(system, integ)
-    n_epochs, frequency = 50, 21
+    n_epochs, frequency = 25, 21
     torch.cuda.synchronize()
     ops.reset_counts()
     t0 = time.perf_counter()
@@ -823,6 +1084,7 @@ def bf16_phase(mt, torch, dev, records, main):
     return {"sample_steps_per_s": n_steps / sample_s,
             "train_steps_per_s": 3 * 51 / wall, "peak": peak,
             "train32_steps_per_s": 3 * 51 / wall32, "peak32": peak32,
+            "sample_steps": n_steps,
             "f32_sample_steps_per_s": main["steps_per_s"],
             "err32": err32, "err_cpu": err_cpu}
 
@@ -1160,13 +1422,14 @@ def lib_csr_path(lib, e, n):
     return "unknown"
 
 
-def rdf_phase(torch, dev, gen, rdf_ops, time_rdf, op, op_infer, frames_test,
-              compare):
+def rdf_phase(torch, dev, gen, rdf_ops, time_rdf, op, op_infer, op_pair,
+              frames_test, compare):
     """K3/K4 and K3b/K4b against their plain versions at the water path's
     shapes (1, 3 and 50 frames of 512), the same bits on a second call;
     K3/K4 likewise at the fit's inference shape (``op_infer``: 1 frame, 800
-    bins); then on ``time_rdf.edge_cases``; and the library's reach
-    argument is ``ops/rdf.py``'s ``REACH_ARG``."""
+    bins); both at the water pair fits' (``op_pair``: 10 frames, 400 bins);
+    then on ``time_rdf.edge_cases``; and the library's reach argument is
+    ``ops/rdf.py``'s ``REACH_ARG``."""
     from mdgrad_tpu_torch.ops import _build
     reach_arg = _build.library().mdg_rdf_reach_arg()
     line(f"  rdf reach argument: csrc/rdf.cu {reach_arg!r}, ops/rdf.py "
@@ -1201,6 +1464,22 @@ def rdf_phase(torch, dev, gen, rdf_ops, time_rdf, op, op_infer, frames_test,
     compare("rdf_counts", got, rdf_ops.rdf_counts_plain(x, *args), 1e-4)
     require(torch.equal(got, rdf_ops._launch(x, *args)),
             "K3/K4 give the same bits on a second call at 800 bins")
+    x = frames_test[:10].contiguous()
+    args = (op_pair.cell_len, op_pair.mu, op_pair.coeff, op_pair.cutoff)
+    ct_pair = torch.randn(op_pair.mu.shape[0], device=dev, generator=gen)
+    got = rdf_ops._launch(x, *args)
+    line(f"  rdf_counts F=10 bins={op_pair.mu.shape[0]} (the water pair "
+         f"fits):")
+    compare("rdf_counts", got, rdf_ops.rdf_counts_plain(x, *args), 1e-4)
+    require(torch.equal(got, rdf_ops._launch(x, *args)),
+            "K3/K4 give the same bits on a second call at 400 bins")
+    got = rdf_ops._launch_bwd(x, *args, ct_pair)
+    line(f"  rdf_counts_bwd F=10 bins={op_pair.mu.shape[0]} (the water pair "
+         f"fits):")
+    compare("rdf_counts_bwd", got,
+            rdf_ops.rdf_counts_bwd_plain(x, *args, ct_pair), 1e-4, floor=0.0)
+    require(torch.equal(got, rdf_ops._launch_bwd(x, *args, ct_pair)),
+            "K3b/K4b give the same bits on a second call at 400 bins")
     for name, xyz, cell, mu, widths, cutoff, ct in time_rdf.edge_cases():
         case = rdf_ops.RDFCounts(cell, mu, widths, cutoff, dev)
         x = torch.tensor(xyz, device=dev)
@@ -1898,11 +2177,17 @@ def main():
     import numpy as np
     import mdgrad_tpu_torch as mt
     from mdgrad_tpu_torch import ops, units
+    from mdgrad_tpu_torch.data.registry import exp_rdf_data_dict
     from mdgrad_tpu_torch.ops import (_build, gather, rdf as rdf_ops,
                                       time_gather, time_rdf, timing)
     dev = torch.device("cuda", 0)
     line(f"device: {torch.cuda.get_device_name(0)}  torch {torch.__version__}"
          f"  cuda {torch.version.cuda}")
+    phase_ends = [("start", t_start)]
+
+    def phase_done(name):
+        torch.cuda.synchronize()
+        phase_ends.append((name, time.perf_counter()))
 
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -1917,6 +2202,7 @@ def main():
                 line("  ptxas: " + ln.split("ptxas info    :")[-1].strip())
     line(f"build: {build_wall:.3f} s (nvcc {_build.build_seconds} s; "
          f"{_build.library_path().name})")
+    phase_done("build")
 
     # ---- 2. kernels against their plain versions --------------------------
     system, stack = build_water(mt, dev)
@@ -1975,10 +2261,16 @@ def main():
     # the fit's inference RDF: 800 bins over the same range
     op_infer = mt.observables.rdf(system, nbins=800, r_range=(1.8, 7.5),
                                   backend="pallas", device=dev)._counts
+    # the water pair fits' RDF: 400 bins over H20_298K_redd's range
+    pair_entry = exp_rdf_data_dict["H20_298K_redd"]
+    op_pair = mt.observables.rdf(
+        system, nbins=PAIR_FIT_ASSIGNMENTS["nbins"],
+        r_range=(pair_entry["start"], pair_entry["end"]), backend="pallas",
+        device=dev)._counts
     frames_test = xyz0 + 0.1 * torch.randn((50, n, 3), device=dev,
                                            generator=gen)
-    rdf_phase(torch, dev, gen, rdf_ops, time_rdf, op, op_infer, frames_test,
-              compare)
+    rdf_phase(torch, dev, gen, rdf_ops, time_rdf, op, op_infer, op_pair,
+              frames_test, compare)
 
     # the SchNet force through the kernels vs the plain gather path, same
     # seeded weights: f32 through two convolutions in another order
@@ -2038,6 +2330,7 @@ def main():
                                          rec.get("max_rel_err_scalars", 0.0))
 
     lj_kernel_phase(mt, torch, dev, gen, compare, compare_scalar)
+    phase_done("checks")
 
     # ---- 3. the main path -------------------------------------------------
     integ = mt.NoseHooverChain(stack, system, T=298.0, Q=50.0, num_chains=5,
@@ -2092,28 +2385,40 @@ def main():
             "the main path's CSR builds take the cluster kernel")
     steps_per_s = n_steps / main_s
     del integ_k, integ_p, stack_plain, aux
+    phase_done("main")
 
     # ---- 3b. the LJ sampling path ---------------------------------------
     lj_sampled = lj_sampling_phase(mt, torch, dev, records)
+    phase_done("lj sampling")
 
     # ---- 4. train ---------------------------------------------------------
     trained = train_phase(mt, torch, dev, records)
+    phase_done("train")
 
     # ---- 4b. the LJ differentiation path ---------------------------------
     lj_fitted = lj_fit_phase(mt, torch, dev, gen, compare, records)
+    phase_done("lj fit")
 
     # ---- 4c. the fit driver -------------------------------------------------
     fitted = fit_phase(mt, torch, dev, records)
+    phase_done("fit")
 
     # ---- 4d. bench.py's bf16 configuration --------------------------------
     bf16_run = bf16_phase(mt, torch, dev, records,
                           {"steps_per_s": steps_per_s})
+    phase_done("bf16")
 
     # ---- 4e. 'mixed' and the Verlet skin through the fit driver -----------
     skinned = mixed_and_skin_phase(torch, records, fitted)
+    phase_done("mixed and skin")
+
+    # ---- 4f. the pair slice: fit_lj, the water pair fits, 'sparse' ---------
+    paired = pair_phase(mt, torch, dev, records)
     reach_phase(time_rdf, {"water": op, "water fit": trained["rdf_op"],
                            "lj fit": lj_fitted["rdf_op"],
-                           "fit inference": op_infer})
+                           "fit inference": op_infer,
+                           "water pair fit": op_pair})
+    phase_done("pair")
 
     # ---- 5. times ---------------------------------------------------------
     e_real = n_real
@@ -2339,7 +2644,8 @@ def main():
     rdf_inputs = {"50x512": (frames.contiguous(), op),
                   "3x512": (frames[-3:].contiguous(), op),
                   "10x1372": (lj_fitted["rdf_frames"], lj_fitted["rdf_op"]),
-                  "1x512x800": (frames[-1:].contiguous(), op_infer)}
+                  "1x512x800": (frames[-1:].contiguous(), op_infer),
+                  "10x512x400": (frames[-10:].contiguous(), op_pair)}
     for name, timed in rdf_times(torch, rdf_ops, time_rdf, timing, gen,
                                  rdf_inputs).items():
         rec = records[name]
@@ -2352,6 +2658,9 @@ def main():
             "launches_lj_fit": rec["launches_lj_fit"],
             "launches_fit_per_epoch": rec["launches_fit_per_epoch"],
             "launches_fit_inference": rec["launches_fit_inference"],
+            "launches_pair_fit_per_epoch": rec["launches_pair_fit_per_epoch"],
+            "launches_tpair_fit_per_epoch":
+                rec["launches_tpair_fit_per_epoch"],
             "max_abs_err": rec["max_abs_err"], "shape": RDF_ROW_SHAPE[name],
             **{key: timed[RDF_ROW_SHAPE[name]][key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_pipe")},
@@ -2372,8 +2681,9 @@ def main():
          f"memory {fitted['peak']} B; resume call {fitted['resume_s']:.3f} "
          f"s, regrow call {fitted['regrow_s']:.3f} s")
     line(f"time bf16 (bench.py's configuration, K = 40): sampling "
-         f"{bf16_run['sample_steps_per_s']:.2f} steps/s against f32 "
-         f"{bf16_run['f32_sample_steps_per_s']:.2f} (1000 steps + rdf each); "
+         f"{bf16_run['sample_steps_per_s']:.2f} steps/s ("
+         f"{bf16_run['sample_steps']} steps + rdf) against f32 "
+         f"{bf16_run['f32_sample_steps_per_s']:.2f} ({n_steps} steps + rdf); "
          f"training {bf16_run['train_steps_per_s']:.2f} steps/s against f32 "
          f"{bf16_run['train32_steps_per_s']:.2f} (3 x 51 steps of bench.py's "
          f"loss each); replay epoch peak memory {bf16_run['peak']} B against "
@@ -2384,12 +2694,37 @@ def main():
          f"the skin K = {fitted['k']}, {fitted['epochs_per_s']:.4f} "
          f"epochs/s, {fitted['steady_s']:.3f} s an epoch, a table every "
          f"step")
+    lj, lj_p = paired["lj"], paired["lj_pressure"]
+    line(f"time fit_lj: {lj['epochs_per_s']:.4f} fit epochs/s from the call "
+         f"(3 x 119 steps, N = 256; the call's set-up and 100 pretraining "
+         f"iterations included), {lj['steady_s']:.3f} s an epoch over epochs "
+         f"1-2; peak memory {lj['peak']} B; call {lj['wall']:.3f} s; the "
+         f"pressure+VACF call (target simulated, 1 epoch) {lj_p['wall']:.3f} "
+         f"s, its epoch ended {lj_p['first_s']:.3f} s into it, peak memory "
+         f"{lj_p['peak']} B")
+    for tag in ("pair", "tpair"):
+        r = paired[tag]
+        line(f"time {tag} fit: {r['epochs_per_s']:.4f} fit epochs/s from the "
+             f"call (N = 512, 191 steps an epoch, 100 pretraining iterations "
+             f"included), "
+             + f"epoch 0 ended {r['first_s']:.3f} s into the call"
+             + (f", {r['steady_s']:.3f} s an epoch over epoch 1"
+                if tag == "pair" else "")
+             + f"; peak memory {r['peak']} B; call {r['wall']:.3f} s")
+    sp = paired["sparse"]
+    line(f"time sparse prior: N = 1728, capacity {sp['capacity']}, SchNet "
+         f"K = {sp['k']} (CSR {'/'.join(sp['paths'])} path); one 20-step "
+         f"sampling epoch {sp['epoch_s']:.3f} s")
     line(f"time lj sampling: {lj_sampled['steps_per_s']:.2f} steps/s (N=4000 "
          f"NVE, 950 steps, energy drift {lj_sampled['drift']:.3e})")
     line(f"time lj fit: {lj_fitted['steps_per_s']:.2f} fwd+bwd MD steps/s "
          f"(N=1372, 3 x 49 steps, in {lj_fitted['wall']:.3f} s); replay "
          f"epoch peak memory {lj_fitted['peak']} B, "
          f"{lj_fitted['epoch_peak']} B above the resident")
+    phase_done("times")
+    line("time phases: " + ", ".join(
+        f"{name} {t - t_prev:.3f} s" for (_, t_prev), (name, t)
+        in zip(phase_ends, phase_ends[1:])))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -8,12 +8,13 @@ tests pass ``device="cpu"``.  Hand-written CUDA kernels live in ``csrc/``
 and are built at their first launch (``ops/_build.py``).
 """
 
-from . import observables, ops, potentials, topology, units
-from .interface import GNNPotentials, PairPotentials, Stack
+from . import observables, ops, potentials, thermo, topology, units
+from .interface import GNNPotentials, PairPotentials, Stack, TPairPotentials
 from .md import NVE, NoseHooverChain, Simulation
-from .nn import SchNet
+from .nn import MLP, MLP2d, PairMLP, SchNet, TPairMLP
 from .system import System
 
-__all__ = ["GNNPotentials", "NVE", "NoseHooverChain", "PairPotentials",
-           "SchNet", "Simulation", "Stack", "System", "observables", "ops",
-           "potentials", "topology", "units"]
+__all__ = ["GNNPotentials", "MLP", "MLP2d", "NVE", "NoseHooverChain",
+           "PairMLP", "PairPotentials", "SchNet", "Simulation", "Stack",
+           "System", "TPairMLP", "TPairPotentials", "observables", "ops",
+           "potentials", "thermo", "topology", "units"]

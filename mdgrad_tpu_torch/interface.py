@@ -1,22 +1,28 @@
 """Interactions: potential models adapted to the integrators.
 
-Port of ``mdgrad_tpu/interface.py`` for the sampling slice: the
-:class:`Interaction` contract, :class:`PairPotentials` in dense mode,
-:class:`GNNPotentials` over an (N, K) neighbor table or an edge list,
-and :class:`Stack`.
+Port of ``mdgrad_tpu/interface.py``: the :class:`Interaction` contract,
+:class:`PairPotentials` in modes 'dense', 'table' and 'sparse',
+:class:`TPairPotentials`, :class:`GNNPotentials` over an (N, K) neighbor
+table or an edge list, and :class:`Stack`.
 
 The JAX contract passes a params pytree into pure functions; here every
 interaction is an ``nn.Module`` that owns its parameters:
 
-    ``aux_init(xyz)          -> aux``     neighbor state (or ())
-    ``aux_update(xyz, aux)   -> aux``     refresh of that state
-    ``energy(xyz, aux)       -> scalar``  differentiable in xyz and the
-                                          module's parameters
-    ``grow_capacity(factor)  -> bool``    enlarge a fixed neighbor capacity
-                                          after an overflow
+    ``aux_init(xyz, cell=None)          -> aux``     neighbor state (or ())
+    ``aux_update(xyz, aux, cell=None)   -> aux``     refresh of that state
+    ``energy(xyz, aux, cell=None)       -> scalar``  differentiable in xyz,
+                                                     the module's parameters
+                                                     and ``cell``
+    ``grow_capacity(factor)             -> bool``    enlarge a fixed neighbor
+                                                     capacity after an
+                                                     overflow
 
-Each interaction takes ``device`` (default ``"cuda"``; a CUDA device
-without a card raises) and moves itself there.
+``cell`` overrides the system's cell with a dynamic one, as the JAX
+contract's: a diagonal cell, given as its (3,) lengths (a 3x3 matrix
+gives its diagonal), which gradients reach -- ``thermo.pressure`` scales
+it with the positions to take the virial.  Each interaction takes
+``device`` (default ``"cuda"``; a CUDA device without a card raises) and
+moves itself there.
 """
 
 import warnings
@@ -25,21 +31,28 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import topology
+from . import topology, units
 from ._device import resolve_device
 from .system import check_system
+
+
+def _lengths(cell):
+    """(3,) lengths of an override cell given as lengths or a 3x3
+    diagonal matrix."""
+    cell = torch.as_tensor(cell)
+    return torch.diagonal(cell) if cell.dim() == 2 else cell
 
 
 class Interaction(nn.Module):
     """Base of the interaction contract."""
 
-    def aux_init(self, xyz):
+    def aux_init(self, xyz, cell=None):
         return ()
 
-    def aux_update(self, xyz, aux):
+    def aux_update(self, xyz, aux, cell=None):
         return aux
 
-    def energy(self, xyz, aux):
+    def energy(self, xyz, aux, cell=None):
         raise NotImplementedError
 
     def grow_capacity(self, factor=1.5):
@@ -50,11 +63,11 @@ class Interaction(nn.Module):
         return False
 
     def _register_cell(self, name, system):
-        """Register the cell as (3,) lengths when diagonal (the elementwise
-        minimum image, no host check per call), else the 3x3 matrix: buffer
-        ``name`` in float32, as the JAX package rounds it, and
-        ``name + "_f64"`` exact, for float64 runs (``.double()`` would only
-        widen the rounded one)."""
+        """Register ``system``'s cell as (3,) lengths when diagonal (the
+        elementwise minimum image, no host check per call), else the 3x3
+        matrix: buffer ``name`` in float32, as the JAX package rounds it,
+        and ``name + "_f64"`` exact, for float64 runs (``.double()`` would
+        only widen the rounded one)."""
         cell = np.asarray(system.get_cell(), dtype=np.float64)
         if topology._is_diagonal(cell):
             cell = np.diag(cell)
@@ -63,55 +76,157 @@ class Interaction(nn.Module):
                                  torch.tensor(cell, dtype=dtype),
                                  persistent=False)
 
-    def _cell(self, name, xyz):
-        """Buffer ``name`` for ``xyz``'s dtype, with no cast per call."""
+    def _cell(self, name, xyz, cell=None):
+        """The override ``cell`` as lengths, else buffer ``name`` for
+        ``xyz``'s dtype, with no cast per call."""
+        if cell is not None:
+            return _lengths(cell)
         return getattr(self, name + "_f64" if xyz.dtype == torch.float64
                        else name)
 
 
 class PairPotentials(Interaction):
-    """Sum of an isotropic pair potential over pairs within ``cutoff``.
+    """Sum of an isotropic pair potential over pairs within ``cutoff``,
+    with ``index_tuple`` species selection and ``ex_pairs`` exclusions.
 
-    Only ``mode='dense'`` is ported (masked N x N evaluation, no neighbor
-    state); ``'auto'`` resolves to it for N^2 <= 2^20 as in the JAX
-    package.  The 'sparse' and 'table' modes come with the pair slice.
+    ``mode``:
+
+    * ``'dense'``: the masked N x N evaluation, no neighbor state;
+    * ``'table'``: the pair model on each atom's (N, K) neighbor table,
+      every pair seen from both rows and weighted 0.5 -- N K evaluations
+      instead of N^2, the mode of the pair-MLP fits.  Diagonal cells only.
+      ``k_max`` is the largest neighbor count at the system's positions
+      times ``capacity_slack``, rounded up to 8.  The table's mask is
+      re-applied at the current distances (a stale or shared table stays
+      exact), the image offset is computed without gradient, and masked
+      slots take distance 1 before the model sees them;
+    * ``'sparse'``: a fixed-capacity (i < j) edge list
+      (``topology.generate_nbr_list``, ``capacity`` from
+      ``topology.estimate_capacity``), distances by
+      ``topology.compute_dis``;
+    * ``'auto'``: dense when N^2 <= 2^20, else sparse.
     """
 
     def __init__(self, system, pair_model, cutoff=2.5, index_tuple=None,
-                 ex_pairs=None, mode="auto", device="cuda"):
+                 ex_pairs=None, mode="auto", capacity_slack=1.6,
+                 device="cuda"):
         super().__init__()
         check_system(system)
         device = resolve_device(device)
         self.model = pair_model
         self.cutoff = cutoff
-        half_box = float(np.abs(np.diag(system.get_cell())).min()) / 2
+        self._register_cell("cell", system)
+        lengths = self.cell if self.cell.dim() == 1 else \
+            torch.diagonal(self.cell)
+        half_box = float(lengths.abs().min()) / 2
         if cutoff > half_box:
             warnings.warn(
                 f"cutoff {cutoff} exceeds half the box ({half_box:.3f}); "
                 "minimum-image pair selection is ambiguous -- enlarge the "
                 "box or reduce the cutoff", stacklevel=2)
         n = system.get_number_of_atoms()
-        if mode == "auto":
-            mode = "dense" if n * n <= (1 << 20) else "sparse"
-        if mode != "dense":
-            raise NotImplementedError(f"PairPotentials mode {mode!r}: only "
-                                      "'dense' is ported so far")
-        self.mode = mode
-        self._register_cell("cell", system)
+        self.n_atoms = n
         self.register_buffer(
             "select_mask", topology.pair_index_mask(n, index_tuple, ex_pairs),
             persistent=False)
+        if mode == "auto":
+            mode = "dense" if n * n <= (1 << 20) else "sparse"
+        if mode not in ("dense", "table", "sparse"):
+            raise ValueError(f"mode {mode!r} not in ('dense', 'table', "
+                             "'sparse', 'auto')")
+        self.mode = mode
+        xyz0 = torch.as_tensor(system.get_positions(), dtype=torch.float32)
+        if mode == "sparse":
+            self.capacity = topology.estimate_capacity(
+                xyz0, cutoff, self.cell, self.select_mask)
+        elif mode == "table":
+            if self.cell.dim() != 1:
+                raise ValueError("mode='table' requires a diagonal cell")
+            k0 = topology.max_neighbors(xyz0, cutoff, self.cell,
+                                        self.select_mask)
+            self.k_max = min(
+                int(np.ceil(max(k0, 1) * capacity_slack / 8) * 8), n)
         self.to(device)
 
-    def energy(self, xyz, aux):
-        dist, valid = topology.distance_matrix(xyz, self._cell("cell", xyz))
-        mask = valid & torch.triu(torch.ones_like(valid), diagonal=1)
-        mask = mask & (dist < self.cutoff)
-        if self.select_mask is not None:
-            mask = mask & self.select_mask
-        safe = torch.where(mask, dist, torch.ones_like(dist))
-        u = self.model(safe[..., None]).squeeze(-1)
-        return torch.where(mask, u, torch.zeros_like(u)).sum()
+    def grow_capacity(self, factor=1.5):
+        """'table': ``k_max`` times ``factor``, rounded up to 8 and capped
+        at N; 'sparse': ``capacity`` times ``factor``, capped at
+        N (N - 1) / 2; True if it grew."""
+        n = self.n_atoms
+        if self.mode == "table":
+            new_k = min(int(np.ceil(self.k_max * factor / 8) * 8), n)
+            if new_k > self.k_max:
+                self.k_max = new_k
+                return True
+        elif self.mode == "sparse":
+            new_c = min(int(np.ceil(self.capacity * factor)),
+                        n * (n - 1) // 2)
+            if new_c > self.capacity:
+                self.capacity = new_c
+                return True
+        return False
+
+    def aux_init(self, xyz, cell=None):
+        if self.mode == "dense":
+            return ()
+        cell = self._cell("cell", xyz, cell)
+        if self.mode == "table":
+            return topology.generate_neighbor_table(
+                xyz, self.cutoff, cell, self.k_max, self.select_mask)
+        return topology.generate_nbr_list(xyz, self.cutoff, cell,
+                                          self.capacity, self.select_mask)
+
+    def aux_update(self, xyz, aux, cell=None):
+        return self.aux_init(xyz, cell)
+
+    def _pair_energy(self, r):
+        return self.model(r)
+
+    def energy(self, xyz, aux, cell=None):
+        cell = self._cell("cell", xyz, cell)
+        if self.mode == "dense":
+            dist, valid = topology.distance_matrix(xyz, cell)
+            mask = valid & torch.triu(torch.ones_like(valid), diagonal=1)
+            mask = mask & (dist < self.cutoff)
+            if self.select_mask is not None:
+                mask = mask & self.select_mask
+            safe = torch.where(mask, dist, torch.ones_like(dist))
+            u = self._pair_energy(safe[..., None]).squeeze(-1)
+            return torch.where(mask, u, torch.zeros_like(u)).sum()
+        if self.mode == "table":
+            ext = torch.cat([xyz, torch.zeros_like(xyz[:1])])
+            d_raw = xyz[:, None, :] - ext[aux.table.long()]
+            # elementwise minimum image: the offset is piecewise constant
+            with torch.no_grad():
+                off = (-(d_raw > 0.5 * cell).to(d_raw.dtype)
+                       + (d_raw < -0.5 * cell).to(d_raw.dtype))
+            d = d_raw + off * cell
+            dist_sq = (d ** 2).sum(-1)
+            mask = aux.mask & (dist_sq < self.cutoff ** 2)
+            safe = torch.sqrt(torch.where(mask, dist_sq,
+                                          torch.ones_like(dist_sq)))
+            u = self._pair_energy(safe[..., None]).squeeze(-1)
+            # every pair lies in both of its atoms' rows
+            return 0.5 * torch.where(mask, u, torch.zeros_like(u)).sum()
+        r = topology.compute_dis(xyz, aux.idx, aux.offsets, cell)
+        u = self._pair_energy(r).squeeze(-1)
+        return torch.where(aux.mask, u, torch.zeros_like(u)).sum()
+
+
+class TPairPotentials(PairPotentials):
+    """Temperature-dependent pair potential u(r, kT) (a ``TPairMLP``).
+    ``kT`` (energy units, from ``T_kelvin``) is a buffer, not a parameter:
+    annealing sets it and no optimizer sees it."""
+
+    def __init__(self, system, pair_model, T_kelvin, **kw):
+        super().__init__(system, pair_model, **kw)
+        # float64, cast at each call: float32 runs get the JAX package's
+        # rounding, float64 runs the exact value
+        self.register_buffer("kT", torch.tensor(
+            T_kelvin * units.kB, dtype=torch.float64, device=self.cell.device))
+
+    def _pair_energy(self, r):
+        return self.model(r, self.kT.to(r.dtype))
 
 
 class GNNPotentials(Interaction):
@@ -199,8 +314,11 @@ class GNNPotentials(Interaction):
             return True
         return False
 
-    def aux_init(self, xyz):
-        cell = self._cell("cell", xyz)
+    def aux_init(self, xyz, cell=None):
+        if cell is not None and self.nbr_mode != "table":
+            raise ValueError("dynamic cell override requires "
+                             "nbr_mode='table'")
+        cell = self._cell("cell", xyz, cell)
         if self.nbr_mode == "table":
             return topology.generate_neighbor_table(
                 xyz, self.build_cutoff, cell, self.k_max, self.select_mask,
@@ -212,8 +330,8 @@ class GNNPotentials(Interaction):
         return topology.generate_nbr_list(xyz, self.cutoff, cell,
                                           self.capacity, self.select_mask)
 
-    def aux_update(self, xyz, aux):
-        return self.aux_init(xyz)
+    def aux_update(self, xyz, aux, cell=None):
+        return self.aux_init(xyz, cell)
 
     def _real(self, offsets, cell):
         """Fractional offsets in real space, in full f32 (TF32 is off)."""
@@ -221,8 +339,12 @@ class GNNPotentials(Interaction):
             return offsets * cell
         return torch.matmul(offsets, cell)
 
-    def energy(self, xyz, aux):
-        cell = self._cell("cell", xyz)
+    def energy(self, xyz, aux, cell=None):
+        if cell is not None and not (self.nbr_mode == "table"
+                                     and not self.store_offsets):
+            raise ValueError("dynamic cell override requires "
+                             "nbr_mode='table' with a diagonal cell")
+        cell = self._cell("cell", xyz, cell)
         if self.nbr_mode == "table":
             return self.gnn.energy(
                 self.z, xyz, aux.table, aux.mask,
@@ -244,18 +366,22 @@ class Stack(Interaction):
         super().__init__()
         self.models = nn.ModuleDict(model_dict)
 
-    def aux_init(self, xyz):
-        return {k: m.aux_init(xyz) for k, m in self.models.items()}
+    def aux_init(self, xyz, cell=None):
+        kw = {} if cell is None else {"cell": cell}
+        return {k: m.aux_init(xyz, **kw) for k, m in self.models.items()}
 
-    def aux_update(self, xyz, aux):
-        return {k: m.aux_update(xyz, aux[k]) for k, m in self.models.items()}
+    def aux_update(self, xyz, aux, cell=None):
+        kw = {} if cell is None else {"cell": cell}
+        return {k: m.aux_update(xyz, aux[k], **kw)
+                for k, m in self.models.items()}
 
     def grow_capacity(self, factor=1.5):
         """Grow every child's capacity; True if any grew."""
         return any([m.grow_capacity(factor) for m in self.models.values()])
 
-    def energy(self, xyz, aux):
+    def energy(self, xyz, aux, cell=None):
+        kw = {} if cell is None else {"cell": cell}
         total = 0.0
         for k, m in self.models.items():
-            total = total + m.energy(xyz, aux[k])
+            total = total + m.energy(xyz, aux[k], **kw)
         return total

@@ -1,7 +1,7 @@
-"""Cubic crystal lattices (port of ``cubic_lattice`` from
-``mdgrad_tpu/lattice.py``).
+"""Crystal lattices (port of ``cubic_lattice`` and ``square_lattice_2d``
+from ``mdgrad_tpu/lattice.py``).
 
-``cubic_lattice`` returns ``(positions (N, 3) float64, cell (3, 3)
+Each returns ``(positions (N, 3) float64, cell (3, 3)
 float64)`` with the same atom order as the JAX package, so that systems
 built from the same arguments agree bit for bit.
 """
@@ -36,3 +36,15 @@ def cubic_lattice(kind, size, latticeconstant):
     cell = np.diag(np.asarray(size, dtype=np.float64) * latticeconstant)
     return positions, cell
 
+
+
+def square_lattice_2d(rho, size):
+    """2-D square lattice of size x size sites at number density ``rho``,
+    in the z = 0 plane of a cubic box of side ``size * L``, ``L =
+    sqrt(size^2 / rho) / size``."""
+    L = np.sqrt(size ** 2 / rho) / size
+    i, j = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    positions = np.stack(
+        [j.ravel() * L, i.ravel() * L, np.zeros(size * size)], axis=-1)
+    cell = np.diag([L * size] * 3)
+    return positions, cell

@@ -7,14 +7,18 @@ matter: a flax ``Dense`` kernel is (in, out) while ``nn.Linear.weight``
 is (out, in); the ``Embed_0/embedding`` table has 100 rows; the readout
 heads are ``<key>_d0`` and ``<key>_d1``; and with ``trainable_gauss``
 each ``SchNetConv_i`` holds ``gauss_offsets`` and ``gauss_widths``, the
-port's ``convs.i.offsets`` and ``convs.i.widths``.  Nothing here imports
-JAX.
+port's ``convs.i.offsets`` and ``convs.i.widths``.  The pair MLPs'
+trees name their featurizer ``_TrainableSmearing_0`` and their layers
+``Dense_k``; a ``TPairMLP`` nests its two networks as
+``_PairMLPModule_0`` (E) and ``_PairMLPModule_1`` (S).  Nothing here
+imports JAX.
 """
 
 import numpy as np
 import torch
 
-from ..interface import GNNPotentials, PairPotentials
+from ..interface import GNNPotentials, PairPotentials, TPairPotentials
+from .pair_mlp import MLP, PairMLP, TPairMLP
 
 # flax auto-names inside SchNetConv, in creation order -> port submodules
 _CONV_DENSE = {"Dense_0": "filter_in", "Dense_1": "filter_out",
@@ -53,16 +57,57 @@ def schnet_params_from_numpy(tree):
     return state
 
 
+def _pair_net(tree, prefix):
+    """One flax ``_PairMLPModule`` tree as the port's ``_PairNet``."""
+    state = {f"{prefix}smear.{k}": _t(tree["_TrainableSmearing_0"][k])
+             for k in ("offsets", "widths")}
+    for i in range(sum(k.startswith("Dense_") for k in tree)):
+        state.update(_dense(tree[f"Dense_{i}"], f"{prefix}dense.{i}"))
+    return state
+
+
+def pair_mlp_params_from_numpy(tree):
+    """State_dict of a ``PairMLP``, ``TPairMLP`` or ``MLP`` / ``MLP2d``
+    from the flax tree of the JAX package's counterpart (its
+    ``init_params()``), told apart by the tree's keys."""
+    if "_PairMLPModule_0" in tree:
+        return {**_pair_net(tree["_PairMLPModule_0"], "nets.0."),
+                **_pair_net(tree["_PairMLPModule_1"], "nets.1.")}
+    if "_TrainableSmearing_0" in tree:
+        return _pair_net(tree, "net.")
+    state = {}
+    for i in range(len(tree)):
+        state.update(_dense(tree[f"Dense_{i}"], f"dense.{i}"))
+    return state
+
+
+def pair_params_from_numpy(tree, pair):
+    """State_dict of a ``PairPotentials`` / ``TPairPotentials`` from its
+    JAX ``init_params()`` tree: a pair MLP's flax tree, an analytic
+    potential's leaves (``sigma``, ``epsilon``, ``tab``, ...), and for a
+    ``TPairPotentials`` the model under ``model`` beside ``kT``."""
+    state = {}
+    if isinstance(pair, TPairPotentials):
+        state["kT"] = _t(tree["kT"])
+        tree = tree["model"]
+    if isinstance(pair.model, (PairMLP, TPairMLP, MLP)):
+        sub = pair_mlp_params_from_numpy(tree)
+    else:
+        sub = {k: _t(v) for k, v in tree.items()}
+    state.update({f"model.{k}": v for k, v in sub.items()})
+    return state
+
+
 def stack_params_from_numpy(tree, stack):
     """``Stack`` state_dict from the JAX ``Stack.init_params()`` tree:
-    GNN children take :func:`schnet_params_from_numpy`, pair children their
-    scalar parameters (``sigma``, ``epsilon``, ...)."""
+    GNN children take :func:`schnet_params_from_numpy`, pair children
+    :func:`pair_params_from_numpy`."""
     state = {}
     for name, child in stack.models.items():
         if isinstance(child, GNNPotentials):
             sub, prefix = schnet_params_from_numpy(tree[name]), "gnn."
         elif isinstance(child, PairPotentials):
-            sub, prefix = {k: _t(v) for k, v in tree[name].items()}, "model."
+            sub, prefix = pair_params_from_numpy(tree[name], child), ""
         else:
             raise TypeError(f"no parameter conversion for {type(child)}")
         state.update({f"models.{name}.{prefix}{k}": v

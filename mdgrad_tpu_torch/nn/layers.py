@@ -1,6 +1,7 @@
-"""Shared layers: the shifted softplus and the Gaussian basis (port of
-``mdgrad_tpu/nn/layers.py``).  The Gaussian basis is the SchNet edge
-featurizer and the soft histogram of the RDF."""
+"""Shared layers: the shifted softplus, the activations by name and the
+Gaussian basis (port of ``mdgrad_tpu/nn/layers.py``).  The Gaussian basis
+is the SchNet edge featurizer, the pair MLPs' featurizer and the soft
+histogram of the RDF."""
 
 import math
 
@@ -40,6 +41,27 @@ def shifted_softplus(x):
         return _NarrowSoftplus.apply(x) - torch.tensor(math.log(2.0),
                                                         dtype=x.dtype)
     return F.softplus(x) - math.log(2.0)
+
+
+def _tanhshrink(x):
+    return x - torch.tanh(x)
+
+
+# the JAX package's ACTIVATIONS by name, with jax.nn's constants: SELU's
+# alpha 1.6732632423543772 and scale 1.0507009873554805 (torch's are the
+# same), ELU's and CELU's alpha 1, LeakyReLU's slope 0.01
+ACTIVATIONS = {
+    "ReLU": F.relu,
+    "ELU": F.elu,
+    "Tanh": torch.tanh,
+    "LeakyReLU": F.leaky_relu,
+    "ReLU6": F.relu6,
+    "SELU": F.selu,
+    "CELU": F.celu,
+    "Tanhshrink": _tanhshrink,
+    "shifted_softplus": shifted_softplus,
+    "relu": F.relu,
+}
 
 
 def gaussian_smearing(distances, offsets, widths, centered=False):

@@ -1,5 +1,6 @@
-"""The soft-histogram RDF (port of ``mdgrad_tpu/observables.py``:
-``generate_vol_bins`` and ``rdf``).
+"""The soft-histogram RDF and the velocity autocorrelation (port of
+``mdgrad_tpu/observables.py``: ``generate_vol_bins``, ``rdf`` and
+``vacf``).
 
 ``backend='pallas'`` counts pairs with the K3/K4 kernel of ``ops/rdf.py``
 and differentiates through its K3b/K4b backward kernel (their plain
@@ -100,3 +101,30 @@ class rdf:
                     else self.vol_bins)
         g_r = count / (vol_bins / self.V)
         return count, self.bins, g_r
+
+
+class vacf:
+    """Velocity autocorrelation over lags 0 .. ``t_range`` - 1 of a
+    (T, N, 3) velocity trajectory: C(t) = mean over the T - t frame pairs
+    (i, i + t) of v_i . v_{i+t} / (3N), differentiable.
+
+    One (T, T) gram product over the flattened N x 3 axis in full f32
+    (TF32 is off: the correlation's tail decays to ~1e-3 of C(0)), then a
+    gather of its first ``t_range`` superdiagonals, as the JAX package.
+    """
+
+    def __init__(self, system, t_range):
+        check_system(system)
+        self.t_range = t_range
+
+    def __call__(self, vel):
+        T, tr = vel.shape[0], self.t_range
+        S = vel.reshape(T, -1)
+        gram = torch.matmul(S, S.T)
+        padded = torch.nn.functional.pad(gram, (0, tr))
+        rows = torch.arange(T, device=vel.device)[:, None]
+        cols = rows + torch.arange(tr, device=vel.device)[None, :]
+        band = padded[rows, cols]                       # (T, t_range)
+        valid = cols < T
+        denom = valid.sum(0) * S.shape[1]
+        return (band * valid).sum(0) / denom

@@ -1,10 +1,11 @@
 """Periodic-boundary geometry and the (N, K) neighbor table.
 
-Port of ``mdgrad_tpu/topology.py`` less ``compute_dis``: minimum image,
+Port of ``mdgrad_tpu/topology.py``: minimum image,
 dense distance matrices, pair selection masks, the per-atom neighbor
 table (with stored offsets for triclinic cells) with its overflow and
 drift flags, the padded edge lists (``generate_nbr_list`` and the
-``top_k`` builder ``generate_nbr_list_topk``), and the capacity estimate.
+``top_k`` builder ``generate_nbr_list_topk``), the capacity estimate, and
+the differentiable distances of an edge list (``compute_dis``).
 ``lax.approx_min_k`` and ``lax.top_k`` become ``torch.topk`` on the
 masked distance scores, ``jnp.nonzero(size=...)`` a ``torch.nonzero``
 cut or padded to the capacity; the lists keep the JAX package's padding
@@ -235,6 +236,23 @@ def estimate_capacity(xyz, cutoff, cell, select_mask=None, slack=1.35,
     """Pair count x slack, rounded up to a multiple of 128."""
     c = count_pairs(xyz, cutoff, cell, select_mask)
     return int(np.ceil(max(c, 1) * slack / multiple) * multiple)
+
+
+def compute_dis(xyz, nbr_idx, offsets, cell):
+    """(P, 1) differentiable distances |xyz[i] - xyz[j] - offsets @ cell|
+    of a padded (P, 2) edge list; ``cell`` (3,) lengths or a 3x3 matrix.
+    Padded rows (index N) gather a zero sentinel row and take distance 1:
+    a safe value BEFORE any potential sees it, since u'(r -> 0) = inf and
+    0 * inf = NaN in the force even where the list's mask drops the row."""
+    n = xyz.shape[-2]
+    ext = torch.cat([xyz, torch.zeros_like(xyz[:1])], dim=-2)
+    off_real = (offsets * cell if cell.dim() == 1
+                else torch.matmul(offsets, cell))
+    i, j = nbr_idx[:, 0].long(), nbr_idx[:, 1].long()
+    d = ext[i] - ext[j] - off_real
+    dist_sq = torch.where(i < n, (d ** 2).sum(-1),
+                          torch.ones_like(d[:, 0]))
+    return torch.sqrt(dist_sq)[:, None]
 
 
 def max_neighbors(xyz, cutoff, cell, select_mask=None):

@@ -1,1 +1,2 @@
-"""Fitting of the port: losses and the RDF fit's epoch loss and update."""
+"""Fitting of the port: the RDF fit (SchNet and pair MLPs), the LJ pair
+fit, their losses, optimizer, pretraining and checkpoints."""

@@ -1,5 +1,7 @@
-"""Checkpoint and resume for the fitting driver (port of
-``mdgrad_tpu/train/checkpoint.py``'s ``FitCheckpointer``).
+"""Checkpoint and resume for the fitting drivers (port of
+``mdgrad_tpu/train/checkpoint.py``'s ``FitCheckpointer``), and the
+best-model files ``best.pt`` / ``best_eval.pt`` (the JAX package's
+``best.pkl`` / ``best_eval.pkl``).
 
 Each blob holds the epoch, the learnable module's ``state_dict``, the
 optimizer's state (Adam's ``state_dict`` and the plateau state), every
@@ -100,3 +102,24 @@ class FitCheckpointer:
         os.replace(tmp, out)   # no truncated blob if the process dies
         for old in self._files()[:-self.keep]:
             os.remove(old)
+
+    def save_best(self, epoch, loss, params, fname="best.pt"):
+        """Write ``fname`` (epoch, loss, ``params`` on the CPU) whenever
+        ``loss`` beats the one stored there: a trajectory fit oscillates
+        around its noise floor, so its last epoch is rarely its best."""
+        if not self.path:
+            return
+        best_path = os.path.join(self.path, fname)
+        if os.path.exists(best_path) and self.load_best(fname)["loss"] <= loss:
+            return
+        tmp = best_path + ".tmp"
+        torch.save({"epoch": epoch, "loss": float(loss),
+                    "params": to_plain(params)}, tmp)
+        os.replace(tmp, best_path)
+
+    def load_best(self, fname="best.pt"):
+        """The blob :meth:`save_best` wrote to ``fname``, or None."""
+        best_path = os.path.join(self.path or "", fname)
+        if not self.path or not os.path.exists(best_path):
+            return None
+        return torch.load(best_path, map_location="cpu", weights_only=True)

@@ -1,11 +1,14 @@
 """The RDF-fitting driver: learn a potential from target g(r) through MD
 gradients.
 
-Port of the GNN (SchNet) branch of ``mdgrad_tpu/train/fit_rdf.py``.
-:func:`build_fit` makes one system per state point from a registry entry,
-one SchNet shared by every state point's ``GNNPotentials`` with a frozen
-ExcludedVolume prior in a ``Stack``, a Nose-Hoover chain (Q = 50, 5
-chains) and an RDF observer.  :func:`fit_rdf` then trains: each epoch
+Port of ``mdgrad_tpu/train/fit_rdf.py``.  :func:`build_fit` makes one
+system per state point from a registry entry (the 2-D stripe entries on a
+square lattice), one learnable potential shared by every state point --
+a SchNet under ``GNNPotentials``, or with ``pair_flag`` / ``tpair_flag`` a
+``PairMLP`` / ``TPairMLP`` under ``PairPotentials`` / ``TPairPotentials``
+(mode 'table') -- with a frozen ExcludedVolume
+prior in a ``Stack``, a Nose-Hoover chain (Q = 50, 5 chains) and an RDF
+observer.  :func:`fit_rdf` then trains: each epoch
 simulates ``opt_freq`` frames per state point, takes the soft-histogram
 RDF of every ``frame_skip``-th, and backpropagates ``compute_D`` against
 the target through the trajectory (:func:`make_epoch_loss`, the replay
@@ -16,7 +19,9 @@ annealing, NaN recovery (restore the last good snapshot, rethermalize,
 halve the step scale), a backtrack to an older snapshot when failures
 persist, the ``overflow_policy`` branches ('warn', 'skip', 'regrow'),
 checkpoints and resume (:mod:`.checkpoint`), an ``init_pkl`` warm start,
-and the inference phase: ``n_sim`` rollouts of 100 steps and the
+for the pair families Boltzmann-inversion pretraining (skipped on resume
+and on ``init_pkl``) and the well-depth guard ``u_reg_weight``, and the
+inference phase: ``n_sim`` rollouts of 100 steps and the
 ``test_nbins`` RDF, whose MSE against the target is the ``objective``.
 
 The JAX loop is functional; here the state is mutable, so three things
@@ -29,13 +34,14 @@ order: ``get_system``, the annealing start, each rethermalize.
 The SchNet's ``compute_dtype`` (float32, bf16, 'mixed'), the Verlet skin
 (``gnn_skin``, exact with ``topology_update_freq > 1``) and the neighbor
 modes 'table', 'topk' and 'sparse' (``nbr_mode``) are the JAX driver's.
-The pair-MLP families, Boltzmann-inversion pretraining, the angle target,
-multi-timestep integration, a shared prior table and the 'cells' mode
-are not ported: :func:`build_fit` raises ``NotImplementedError`` naming
-the ROADMAP item that ports each.
+Each ``TPairPotentials`` holds its own state point's kT, where the JAX
+driver grafts it into the shared params (``kT_override``).  The angle
+target, multi-timestep integration, a shared prior table and the 'cells'
+mode are not ported: :func:`build_fit` raises ``NotImplementedError``
+naming the ROADMAP item that ports each; ``u_reg_weight`` with a SchNet
+raises too (the JAX driver ignores it there).
 """
 
-import copy
 import json
 import os
 import pickle
@@ -47,14 +53,17 @@ from .. import units
 from .. import potentials as pot_zoo
 from ..data.registry import (exp_rdf_data_dict, get_exp_rdf, get_unit_len,
                              load_target, number_density_unit_len)
-from ..interface import GNNPotentials, PairPotentials, Stack
+from ..interface import GNNPotentials, PairPotentials, Stack, TPairPotentials
+from ..lattice import square_lattice_2d
 from ..md import NoseHooverChain, Simulation, rethermalize
-from ..nn import SchNet
-from ..nn.convert import schnet_params_from_numpy
+from ..nn import PairMLP, SchNet, TPairMLP
+from ..nn.convert import pair_mlp_params_from_numpy, schnet_params_from_numpy
 from ..observables import rdf
 from ..system import System
 from .checkpoint import FitCheckpointer, from_plain
 from .loss import JS_rdf, compute_D
+from .optim import FitUpdate, ReduceOnPlateau
+from .pretrain import boltzmann_inversion_pretrain
 
 WIDTH_DICT = {"tiny": 64, "low": 128, "mid": 256, "high": 512}
 
@@ -87,13 +96,18 @@ def registry_T_kelvin(entry):
 
 def get_system(data_tag, size, registry=None, rng=None):
     """Lattice-initialised System for the registry entry ``data_tag``,
-    with Maxwell-Boltzmann velocities at its temperature from ``rng``."""
+    with Maxwell-Boltzmann velocities at its temperature from ``rng``.
+    A 2-D entry (the stripe systems, reduced units) takes a square lattice
+    of ``entry['size']`` (else ``size``) sites a side at its density."""
     registry = exp_rdf_data_dict if registry is None else registry
     entry = registry[data_tag]
     if entry.get("dim", 3) == 2:
-        raise NotImplementedError(
-            f"{data_tag}: 2-D registry entries (the stripe systems) are not "
-            "ported yet (ROADMAP Queue 1, Slice B: pair fitting)")
+        positions, cell = square_lattice_2d(entry["rho"],
+                                            entry.get("size", size))
+        system = System(positions, cell, dim=2)
+        system.masses = np.full(len(positions), entry.get("mass", 1.0))
+        system.set_temperature(entry["T"] / units.kB, rng=rng)
+        return system
     if entry.get("reduced_units"):
         L = number_density_unit_len(entry["rho"], entry["N_unitcell"])
     else:
@@ -106,8 +120,8 @@ def get_system(data_tag, size, registry=None, rng=None):
 
 
 def get_observer(system, data_tag, nbins, registry=None, backend="xla",
-                 device="cuda"):
-    """(r_axis, g_obs (nbins,) float32 tensor, rdf observable) for the
+                 device="cuda", dtype=torch.float32):
+    """(r_axis, g_obs (nbins,) ``dtype`` tensor, rdf observable) for the
     registry entry ``data_tag``; its target file is ``entry['fn']`` or,
     for the simulated pair targets, ``entry['rdf_fn']``.  (The JAX
     package reads it comma-delimited only, and so cannot read the argon
@@ -118,8 +132,7 @@ def get_observer(system, data_tag, nbins, registry=None, backend="xla",
     r_range = (entry["start"], entry["end"])
     x, g_obs = get_exp_rdf(data, nbins, r_range)
     obs = rdf(system, nbins, r_range, backend=backend, device=device)
-    return x, torch.tensor(g_obs, dtype=torch.float32,
-                           device=obs.bins.device), obs
+    return x, torch.tensor(g_obs, dtype=dtype, device=obs.bins.device), obs
 
 
 def _check_ported(sys_params):
@@ -127,14 +140,10 @@ def _check_ported(sys_params):
     port does not have yet, naming the ROADMAP item that ports it."""
     get = sys_params.get
     unported = [
-        ("pair_flag", bool(get("pair_flag")),
-         "the pair-MLP fit with its Boltzmann-inversion pretraining "
-         "(ROADMAP Queue 1, Slice B)"),
-        ("tpair_flag", bool(get("tpair_flag")),
-         "the temperature-dependent pair-MLP fit (ROADMAP Queue 1, Slices "
-         "B and D)"),
-        ("u_reg_weight", float(get("u_reg_weight", 0.0)) > 0,
-         "the pair families' well-depth guard (ROADMAP Queue 1, Slice B)"),
+        ("u_reg_weight", float(get("u_reg_weight", 0.0)) > 0
+         and not _pair_family(sys_params),
+         "the well-depth guard with a SchNet (it guards the pair families "
+         "only; the JAX driver ignores it here)"),
         ("share_prior_aux", bool(get("share_prior_aux")),
          "Stack(share_aux=...) (ROADMAP Queue 1, Slice D)"),
         ("mts_inner", int(get("mts_inner", 0) or 0) > 1,
@@ -151,12 +160,27 @@ def _check_ported(sys_params):
             "(ROADMAP Queue 1, Slice E)")
 
 
-def _build_net_and_prior(assignments):
-    """The learnable SchNet and the frozen ExcludedVolume prior."""
+def _pair_family(sys_params):
+    return bool(sys_params.get("pair_flag") or sys_params.get("tpair_flag"))
+
+
+def _build_net_and_prior(assignments, sys_params=None, device="cuda"):
+    """The learnable potential -- a SchNet, or for the pair families a
+    ``PairMLP`` / ``TPairMLP`` without residual connections -- and the
+    frozen ExcludedVolume prior."""
+    sys_params = sys_params or {}
     cutoff = assignments["cutoff"]
     prior = pot_zoo.ExcludedVolume(
         epsilon=assignments["epsilon"], sigma=assignments["sigma"],
         power=assignments.get("power", 12))
+    if _pair_family(sys_params):
+        cls = TPairMLP if sys_params.get("tpair_flag") else PairMLP
+        net = cls(n_gauss=int(cutoff // assignments["gaussian_width"]),
+                  r_start=0.0, r_end=cutoff, n_layers=assignments["n_layers"],
+                  n_width=assignments["n_width"],
+                  nonlinear=assignments["nonlinear"], res=False,
+                  device=device)
+        return net, prior
 
     def w(v):
         return WIDTH_DICT[v] if isinstance(v, str) else int(v)
@@ -172,14 +196,16 @@ def _build_net_and_prior(assignments):
 
 
 def build_fit(assignments, sys_params, registry=None, rng=None,
-              device="cuda"):
+              device="cuda", dtype=torch.float32):
     """Systems, simulations and observers of every state point.
 
     Returns a dict: ``systems``, ``sims``, ``observers``, ``targets``,
     ``r_axes`` (one each per tag of ``all_sys``, the training tags
-    ``train_list`` first, then ``sys_params['val']``), ``net`` (the SchNet
-    every state point shares), ``prior``, ``params`` (the parameters the
-    fit trains: the SchNet's) and ``registry``.
+    ``train_list`` first, then ``sys_params['val']``), ``net`` (the
+    potential every state point shares), ``prior``, ``params`` (the
+    parameters the fit trains: the net's, never a ``TPairPotentials``' kT)
+    and ``registry``.  ``dtype``: the MD's, the models' and the targets'
+    (float64 for parity checks).
     """
     _check_ported(sys_params)
     registry = exp_rdf_data_dict if registry is None else registry
@@ -188,7 +214,7 @@ def build_fit(assignments, sys_params, registry=None, rng=None,
     nbins = assignments["nbins"]
     train_list = list(sys_params["data"])
     all_sys = train_list + list(sys_params.get("val") or [])
-    net, prior = _build_net_and_prior(assignments)
+    net, prior = _build_net_and_prior(assignments, sys_params, device)
     # Q = 50 and 5 chains: the reference convention; nhc_tau selects the
     # N-invariant MTK masses instead
     Q = float(sys_params.get("Q") or 50.0)
@@ -201,24 +227,37 @@ def build_fit(assignments, sys_params, registry=None, rng=None,
         system = get_system(tag, size, registry, rng=rng)
         if str(sys_params.get("anneal_flag")) == "True":
             system.set_temperature(assignments["start_T"], rng=rng)
+        # the pair MLPs run on the (N, K) table: dense mode's
+        # (N, N, hidden) activations are the memory traffic at fit scale
+        if sys_params.get("pair_flag"):
+            nn_int = PairPotentials(system, net, cutoff=cutoff, mode="table",
+                                    capacity_slack=slack, device=device)
+        elif sys_params.get("tpair_flag"):
+            nn_int = TPairPotentials(system, net, registry_T_kelvin(entry),
+                                     cutoff=cutoff, mode="table",
+                                     capacity_slack=slack, device=device)
+        else:
+            nn_int = GNNPotentials(
+                system, net, cutoff=cutoff, capacity_slack=slack,
+                nbr_mode=sys_params.get("nbr_mode", "table"),
+                skin=float(sys_params.get("gnn_skin", 0.0)), device=device)
         stack = Stack({
-            "nn": GNNPotentials(system, net, cutoff=cutoff,
-                                capacity_slack=slack,
-                                nbr_mode=sys_params.get("nbr_mode", "table"),
-                                skin=float(sys_params.get("gnn_skin", 0.0)),
-                                device=device),
+            "nn": nn_int,
             "pair": PairPotentials(system, prior, cutoff=cutoff,
                                    mode=sys_params.get("prior_mode", "auto"),
                                    device=device)})
+        if dtype != torch.float32:
+            stack.to(dtype)
         params = fit_parameters(stack)
         integ = NoseHooverChain(
             stack, system, T=registry_T_kelvin(entry), Q=Q, tau=nhc_tau,
             num_chains=5, adjoint=bool(sys_params.get("adjoint", True)),
             topology_update_freq=sys_params.get("topology_update_freq", 1),
-            device=device)
+            device=device, dtype=dtype)
         x, g_obs, obs = get_observer(
             system, tag, nbins, registry,
-            backend=assignments.get("rdf_backend", "xla"), device=device)
+            backend=assignments.get("rdf_backend", "xla"), device=device,
+            dtype=dtype)
         systems.append(system)
         sims.append(Simulation(system, integ))
         observers.append(obs)
@@ -247,7 +286,8 @@ def make_epoch_loss(sim, obs, g_target, system, tau, dt, frame_skip=20,
     ode = sim.epoch_fn(dt, tau)
     rho = system.get_number_of_atoms() / system.get_volume()
     rrange = torch.linspace(float(obs.bins[0]), float(obs.bins[-1]),
-                            obs.nbins, device=g_target.device)
+                            obs.nbins, dtype=g_target.dtype,
+                            device=g_target.device)
 
     def loss_fn(state, aux, ctrl):
         with torch.set_grad_enabled(backward):
@@ -276,126 +316,6 @@ def fit_parameters(stack, key="nn"):
     return train
 
 
-def clip_by_global_norm_(params, max_norm):
-    """Scale the ``.grad`` of ``params`` in place as
-    ``optax.clip_by_global_norm`` does: ``g / ||g|| * max_norm`` when the
-    global norm ``||g||`` is not below ``max_norm``, else unchanged.
-    (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm and would
-    not match.)  Returns the norm before clipping, a device scalar."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
-    keep = norm < max_norm
-    for g in grads:
-        g.copy_(torch.where(keep, g, g / norm * max_norm))
-    return norm
-
-
-class ReduceOnPlateau:
-    """``optax.contrib.reduce_on_plateau`` with ``rtol`` 1e-4, no cooldown
-    and an accumulation size of 1, in float32 as optax keeps its state.
-
-    :meth:`update` takes this step's value: it improves on the best iff
-    ``value < (1 - rtol) * best - atol``, which resets the plateau count;
-    otherwise the count grows, and at ``patience`` it resets and the scale
-    becomes ``max(scale * factor, min_scale)``.  It returns the new scale,
-    the one that multiplies this step's update.
-    """
-
-    rtol = 1e-4
-
-    def __init__(self, factor=0.5, patience=25, min_scale=1e-4, atol=1e-5):
-        self.factor, self.patience = factor, patience
-        self.min_scale, self.atol = min_scale, atol
-        self.reset()
-
-    def reset(self):
-        self.scale = np.float32(1.0)
-        self.best_value = np.float32(np.inf)
-        self.plateau_count = 0
-
-    def update(self, value):
-        value = np.float32(value)
-        if value < (np.float32(1 - self.rtol) * self.best_value
-                    - np.float32(self.atol)):
-            self.best_value, self.plateau_count = value, 0
-        else:
-            self.plateau_count += 1
-        if self.plateau_count == self.patience:
-            self.plateau_count = 0
-            self.scale = np.maximum(self.scale * np.float32(self.factor),
-                                    np.float32(self.min_scale))
-        return float(self.scale)
-
-    def state_dict(self):
-        return {"scale": float(self.scale),
-                "best_value": float(self.best_value),
-                "plateau_count": self.plateau_count}
-
-    def load_state_dict(self, state):
-        self.scale = np.float32(state["scale"])
-        self.best_value = np.float32(state["best_value"])
-        self.plateau_count = int(state["plateau_count"])
-
-
-class FitUpdate:
-    """The update step of the RDF fit: clip the gradients of ``params`` to
-    global norm ``grad_clip``, then one Adam step (optax's defaults: betas
-    0.9 / 0.999, eps 1e-8), then clear the gradients.
-
-    With ``plateau`` (a :class:`ReduceOnPlateau`), the step is scaled by
-    the plateau scale that this step's ``value`` gives and by
-    ``step_scale``, as the JAX fit multiplies optax's update.  Adam's step
-    is linear in its learning rate, so the scales go into the rate; the
-    gradients, and so Adam's moments, stay unscaled.  A parameter with no
-    gradient takes a zero one, as JAX's zero cotangent, so it moves by 0
-    and Adam's step count is the same for every parameter.
-    """
-
-    def __init__(self, params, lr, grad_clip=10.0, plateau=None):
-        self.params = list(params)
-        self.lr = lr
-        self.grad_clip = grad_clip
-        self.plateau = plateau
-        self.reset()
-
-    def reset(self):
-        """A fresh optimizer state."""
-        self.opt = torch.optim.Adam(self.params, lr=self.lr,
-                                    betas=(0.9, 0.999), eps=1e-8)
-        if self.plateau is not None:
-            self.plateau.reset()
-
-    def __call__(self, value=None, step_scale=1.0):
-        """Returns the gradients' global norm before clipping."""
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        norm = clip_by_global_norm_(self.params, self.grad_clip)
-        scale = 1.0 if self.plateau is None else self.plateau.update(value)
-        for group in self.opt.param_groups:
-            group["lr"] = self.lr * scale * step_scale
-        self.opt.step()
-        self.zero_grad()
-        return norm
-
-    def zero_grad(self):
-        self.opt.zero_grad(set_to_none=True)
-
-    def state_dict(self):
-        """A copy of the optimizer's state, which later steps leave
-        alone."""
-        return {"adam": copy.deepcopy(self.opt.state_dict()),
-                "plateau": (None if self.plateau is None
-                            else self.plateau.state_dict())}
-
-    def load_state_dict(self, state):
-        # Adam adopts the tensors it is given: give it copies, so that its
-        # steps never write into a snapshot
-        self.opt.load_state_dict(copy.deepcopy(state["adam"]))
-        if self.plateau is not None:
-            self.plateau.load_state_dict(state["plateau"])
-
-
 class _NumpyUnpickler(pickle.Unpickler):
     """Reads containers and numpy arrays, nothing else: an ``init_pkl``
     holds parameters only, and unpickling a class could run any code."""
@@ -410,16 +330,66 @@ class _NumpyUnpickler(pickle.Unpickler):
             "arrays are read")
 
 
-def _load_init_pkl(path):
-    """The ``nn`` subtree of the parameters in ``path``: a pickle of
-    ``{'params': {'nn': ...}}`` (or of the parameter dict itself) whose
-    SchNet tree holds dicts and numpy arrays, as the JAX package's
+def _load_init_pkl(path, key="nn"):
+    """The ``key`` subtree of the parameters in ``path``: a pickle of
+    ``{'params': {key: ...}}`` (or of the parameter dict itself) whose
+    flax tree holds dicts and numpy arrays, as the JAX package's
     checkpointer writes them."""
     with open(path, "rb") as f:
         blob = _NumpyUnpickler(f).load()
     params = blob["params"] if isinstance(blob, dict) and \
         "params" in blob else blob
-    return params["nn"]
+    return params[key]
+
+
+def _net_state_from_numpy(net, tree):
+    """The state_dict of ``net`` from the JAX package's tree of its
+    counterpart (a ``TPairPotentials``' tree holds the model under
+    ``model``, beside kT)."""
+    if isinstance(net, SchNet):
+        return schnet_params_from_numpy(tree)
+    return pair_mlp_params_from_numpy(tree.get("model", tree))
+
+
+class _DepthGuard:
+    """``u_reg_weight * sum over training kT of relu(floor - depth)^2``,
+    depth the minimum of net + prior on the guard's grid; calling it adds
+    its gradient to the net's ``.grad`` and returns its value."""
+
+    def __init__(self, energy, kTs, weight, mult):
+        self.energy, self.kTs, self.weight = energy, kTs, weight
+        with torch.no_grad():
+            self.d0 = np.array([self.depth(kT).item() for kT in kTs])
+        self.floor = mult * np.minimum(self.d0, 0.0)
+
+    def depth(self, kT):
+        return self.energy(kT).min()
+
+    def __call__(self):
+        d = torch.stack([self.depth(kT) for kT in self.kTs])
+        floor = torch.as_tensor(self.floor, dtype=d.dtype, device=d.device)
+        reg = self.weight * (torch.relu(floor - d) ** 2).sum()
+        reg.backward()
+        return reg.item()
+
+
+def _depth_guard(net, prior, all_sys, train_list, registry, cutoff, weight,
+                 mult, tpair):
+    """The well-depth guard of the JAX driver: a 200-point grid from the
+    lowest target start + 0.3 to the cutoff, the depths after
+    pretraining."""
+    p0 = next(net.parameters())
+    kw = {"dtype": p0.dtype, "device": p0.device}
+    rr_lo = min(registry[t]["start"] for t in all_sys)
+    grid = torch.linspace(rr_lo + 0.3, cutoff, 200, **kw)[:, None]
+    kTs = [torch.tensor(registry_T_kelvin(registry[t]) * units.kB, **kw)
+           for t in train_list]
+
+    def energy(kT):
+        u = net(grid, kT) if tpair else net(grid)
+        return u.squeeze(-1) + prior(grid).squeeze(-1)
+
+    return _DepthGuard(energy, kTs, weight, mult)
 
 
 def _net_state(net):
@@ -461,14 +431,42 @@ def fit_rdf(assignments, sys_params, model_path=None, log=print,
     # parameters-only warm start: the optimizer and MD states start fresh
     init_pkl = sys_params.get("init_pkl")
     if resume is None and init_pkl:
-        net.load_state_dict(schnet_params_from_numpy(_load_init_pkl(init_pkl)))
+        net.load_state_dict(_net_state_from_numpy(net,
+                                                  _load_init_pkl(init_pkl)))
         log(f"warm start (nn subtree) from {init_pkl}")
 
-    # Adam with reduce-on-plateau on the SchNet only, the prior frozen
+    # Boltzmann-inversion pretraining of the pair families; a resumed or
+    # warm-started fit already holds it
+    pair_family = _pair_family(sys_params)
+    if resume is None and not init_pkl and pair_family:
+        T_list = [registry_T_kelvin(registry[t]) for t in all_sys]
+        rr_lo = min(registry[t]["start"] for t in all_sys)
+        rr_hi = max(registry[t]["end"] for t in all_sys)
+        boltzmann_inversion_pretrain(
+            net, comps["prior"], comps["r_axes"], targets, T_list,
+            rrange=np.linspace(rr_lo + 0.5, rr_hi, 500),
+            n_iters=sys_params.get("pretrain_iters", 1000),
+            temperature_dependent=bool(sys_params.get("tpair_flag")))
+
+    # Adam with reduce-on-plateau on the net only, the prior frozen
     update = FitUpdate(comps["params"], assignments["lr"],
                        assignments.get("grad_clip", 10.0),
                        ReduceOnPlateau(factor=0.5, patience=25,
                                        min_scale=1e-4, atol=1e-5))
+
+    # the pair families' well-depth guard: penalise u(r, kT) deepening past
+    # u_floor_mult times the pretrained depth (at each training kT)
+    u_reg_weight = float(sys_params.get("u_reg_weight", 0.0))
+    depth_guard = None
+    if u_reg_weight > 0 and pair_family:
+        depth_guard = _depth_guard(
+            net, comps["prior"], all_sys, train_list, registry,
+            assignments["cutoff"], u_reg_weight,
+            float(sys_params.get("u_floor_mult", 1.5)),
+            bool(sys_params.get("tpair_flag")))
+        log(f"depth guard: pretrained depths "
+            f"{np.round(depth_guard.d0, 3)}, floors "
+            f"{np.round(depth_guard.floor, 3)}")
 
     def dt_for(tag):
         return sys_params["dt"] * _dt_scale(registry[tag])
@@ -614,6 +612,8 @@ def fit_rdf(assignments, sys_params, model_path=None, log=print,
                     "(overflow_policy='skip')")
             update.zero_grad()
         else:
+            if depth_guard is not None:
+                total_loss += depth_guard()
             update(total_loss, step_scale)
         fails = 0
         if epoch % snap_every == 0:

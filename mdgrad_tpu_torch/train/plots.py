@@ -1,5 +1,5 @@
-"""Plots of the fitting driver (port of ``plot_rdfs`` and ``plot_loss``
-from ``mdgrad_tpu/train/plots.py``): headless matplotlib, and nothing at
+"""Plots of the fitting drivers (port of ``plot_rdfs``, ``plot_pair`` and
+``plot_loss`` from ``mdgrad_tpu/train/plots.py``): headless matplotlib, and nothing at
 all where matplotlib is not installed."""
 
 import numpy as np
@@ -29,6 +29,25 @@ def plot_rdfs(bins, g_target, g_sim, fname, path, pname=None):
     plt.ylabel("g(r)")
     plt.legend()
     plt.savefig(f"{path}/{fname}.jpg", bbox_inches="tight")
+    plt.close()
+
+
+def plot_pair(r_grid, u_fit, u_target, fname, path, ylim=(-2, 4)):
+    """``path/potential_fname.jpg``: the recovered u(r) over the truth."""
+    plt = _plt()
+    if plt is None:
+        return
+    plt.figure()
+    plt.plot(r_grid, np.asarray(u_fit), label="fit", linewidth=4,
+             alpha=0.6)
+    if u_target is not None:
+        plt.plot(r_grid, np.asarray(u_target), label="truth", linewidth=2,
+                 linestyle="--", c="black")
+    plt.ylim(*ylim)
+    plt.xlabel("r")
+    plt.ylabel("u(r)")
+    plt.legend()
+    plt.savefig(f"{path}/potential_{fname}.jpg", bbox_inches="tight")
     plt.close()
 
 

@@ -7,14 +7,17 @@ diamond lattice of 512 O sites at 298 K, dt 0.5 fs, 52-step epochs),
 plus ``-device`` (default ``cuda``; ``cpu`` for a run without a card).
 ``-compute_dtype`` takes ``float32``, ``bf16`` and ``mixed``,
 ``-nbr_mode`` ``table``, ``topk`` and ``sparse``, and ``-gnn_skin`` the
-Verlet skin (with ``-update_freq`` for its refresh cadence).  Flags of
-branches the port does not have yet (``--pair``, ``--tpair``,
-``--angle``, ``-mts``, ``--share_prior_aux``, ``-nbr_mode cells``) raise
-NotImplementedError.
+Verlet skin (with ``-update_freq`` for its refresh cadence).  ``--pair``
+and ``--tpair`` fit a PairMLP / TPairMLP (width 115, 3 layers, ELU,
+400 bins, 192-step epochs) after Boltzmann-inversion pretraining, with
+``-rdf_backend pallas`` through the RDF kernels.  Flags of branches the
+port does not have yet (``--angle``, ``-mts``, ``--share_prior_aux``,
+``-nbr_mode cells``) raise NotImplementedError.
 
     python scripts/run_water_torch.py                        # on the card
     python scripts/run_water_torch.py -compute_dtype bf16 -gnn_skin 0.5 \
         -update_freq 3
+    python scripts/run_water_torch.py --pair -rdf_backend pallas
     python scripts/run_water_torch.py --dry_run -device cpu  # a quick check
 """
 
@@ -45,7 +48,8 @@ def main():
                    help="SchNet dtype: float32, bf16 or mixed")
     p.add_argument("-rdf_backend", type=str, default="xla",
                    help="'pallas' counts the soft histogram with the "
-                        "K3/K4 kernels and their K3b/K4b backward")
+                        "K3/K4 kernels and their K3b/K4b backward (the "
+                        "fast path for the pair fits' 400 bins)")
     p.add_argument("-frame_skip", type=int, default=20)
     p.add_argument("-capacity_slack", type=float, default=1.6,
                    help="neighbor-table k_max headroom")
@@ -59,8 +63,8 @@ def main():
     p.add_argument("-lr_override", type=float, default=None,
                    help="learning-rate override (0 freezes training)")
     p.add_argument("-prior_mode", type=str, default="auto",
-                   help="prior PairPotentials mode (only dense is ported; "
-                        "auto is dense for N^2 <= 2^20)")
+                   help="prior PairPotentials mode (dense|sparse|table|"
+                        "auto); auto is dense for N^2 <= 2^20, else sparse")
     p.add_argument("-dt_override", type=float, default=None,
                    help="time step in fs (default 0.5)")
     p.add_argument("-overflow_policy", type=str, default="warn",
@@ -88,8 +92,7 @@ def main():
     from mdgrad_tpu_torch.train.fit_rdf import fit_rdf
 
     if args.pair or args.tpair:
-        # pair-MLP assignments, as scripts/run_water.py sets them; fit_rdf
-        # raises for the pair families
+        # the pair-MLP assignments of scripts/run_water.py
         assignments = {
             "cutoff": 6.0, "epsilon": 1.8245160642515632,
             "gaussian_width": 0.15,

@@ -347,8 +347,7 @@ def test_validation_state_point_adds_nothing_to_the_gradient(
 
 
 @pytest.mark.parametrize("key,value", [
-    ("pair_flag", True), ("tpair_flag", True), ("u_reg_weight", 0.1),
-    ("share_prior_aux", True), ("mts_inner", 2),
+    ("u_reg_weight", 0.1), ("share_prior_aux", True), ("mts_inner", 2),
     ("angle_flag", True), ("nbr_mode", "cells")])
 def test_unported_branches_raise(lj_registry, key, value):
     with pytest.raises(NotImplementedError, match=key):
@@ -357,9 +356,6 @@ def test_unported_branches_raise(lj_registry, key, value):
 
 
 def test_unported_registry_and_dtype_raise(lj_registry):
-    stripe = {"stripe": {"rho": 0.1, "T": 0.5, "dim": 2}}
-    with pytest.raises(NotImplementedError, match="2-D"):
-        fit_rdf.get_system("stripe", 2, stripe)
     # bf16 and 'mixed' are ported (test_ported_branches_run); a dtype the
     # JAX package does not name still raises
     with pytest.raises(ValueError, match="compute_dtype"):
@@ -425,9 +421,10 @@ def test_run_water_torch_dry_run(tmp_path):
     assert len(objective) == 1
     assert np.isfinite(float(objective[0].split()[1]))
     assert "epoch 1 | loss" in proc.stdout
+    # --pair is ported since (tests/test_torch_fit_pair.py); --angle is not
     proc = subprocess.run(
-        [sys.executable, script, "--dry_run", "--pair", "-device", "cpu",
-         "-logdir", str(tmp_path / "pair")], capture_output=True, text=True,
-        timeout=300, env=env)
+        [sys.executable, script, "--dry_run", "--angle", "-device", "cpu",
+         "-logdir", str(tmp_path / "angle")], capture_output=True,
+        text=True, timeout=300, env=env)
     assert proc.returncode != 0
-    assert "NotImplementedError: pair_flag" in proc.stderr
+    assert "NotImplementedError: angle_flag" in proc.stderr
