@@ -108,6 +108,31 @@ its phases, printing one line as each check ends:
    K3b/K4b in every epoch and nothing else; the 1728-site epoch K1, K2a,
    K2b and the CSR build.  Losses, gradient norms, epochs/s and peak
    memory.
+4g. isom  -- ``fit_isomerization`` as ``scripts/run_isom_torch.py`` runs
+   it: the retinal operators (D = 716), the Gaussian pulse (6095 field
+   samples), SGD at lr 1e-2, look_back 20000, 2 of 40 epochs, each cut
+   from 30479 RK4 steps to 18000, through the replay adjoint; each
+   epoch's seconds, the
+   replay's forward and backward seconds, peak memory, the yields; then a
+   2000-step gradient of the yield objective with respect to the field
+   held to the same run of the port on the CPU in float64 (a process of
+   its own, started with the phase).  No kernel of ``csrc/`` launches.
+4h. multistate -- ``fit_rdf_multistate`` as
+   ``scripts/run_water_multi_torch.py`` runs it: H20_298K_redd,
+   H20_308K_redd and H20_338K_redd at 512 sites each, SchNet "low"
+   (cutoff 6.0, K at slack 2.0 on the densest box), opt_freq 52, 109
+   bins, frame_skip 20, the states one after another with one summed
+   gradient; 2 of 500 epochs, one 100-step rollout and the 800-bin RDF per
+   state; then ``--tpair`` (192-step epochs) for 1 epoch after 50
+   pretraining iterations.  The GNN fit launches K1, K2a, K2b and the CSR
+   build in every epoch (its soft RDF is plain torch, as in the JAX
+   package) and nothing else; the tpair fit no kernel.
+4i. mts and share -- ``fit_rdf`` at phase 4c's settings with
+   ``mts_inner`` 2 (26 frames of 1.0 fs an epoch, every 10th frame; the
+   SchNet at the outer step, the prior at 0.5 fs) for 2 epochs, counting
+   the forces of each outer step (1 slow, 3 fast); then with
+   ``share_prior_aux`` (the prior in mode 'table' on the SchNet's table)
+   for 1 epoch.  Each launches every water kernel.
 5. times   -- each kernel, its plain version and its library yardstick with
    CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms; K3/K4 at 50
    and 3 frames of 512 sites, at 10 of 1372, at 1 of 512 with 800
@@ -142,10 +167,12 @@ its phases, printing one line as each check ends:
    outputs in the two libraries; one JSON line ``{"pair_ab": ...}``.
 
 Launch counts are zeroed just before phases 3, 3b, 4 and 4b, each call
-of 4c, 4e and 4f and each run of 4d, and read just after each: phases 3,
-4, 4c and 4e must launch every water kernel, the CSR build included, 4d
-the bf16 gather kernels in their place, 4f's water pair fits K3/K4 and
-K3b/K4b in every epoch, and none may call a plain version.  The line before the last is a JSON object with one record per
+of 4c, 4e, 4f, 4g, 4h and 4i and each run of 4d, and read just after each:
+phases 3, 4, 4c, 4e and 4i must launch every water kernel, the CSR build
+included, 4d the bf16 gather kernels in their place, 4f's water pair fits
+K3/K4 and K3b/K4b in every epoch, 4h's GNN fit K1, K2a, K2b and the CSR
+build in every epoch, 4g no kernel at all, and none may call a plain
+version.  The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits non-zero.  Without a CUDA device it exits
 1 and prints no result.
@@ -887,6 +914,341 @@ def pair_phase(mt, torch, dev, records):
                      "k": gnn.k_max, "paths": sorted(widths.paths()),
                      "e_rel": e_rel, "f_err": f_err}
     return out
+
+
+# ---- the isomerization slice (phase 4g) ---------------------------------
+# fit_isomerization as scripts/run_isom_torch.py runs it (the retinal
+# operators, D = 716; the Gaussian pulse of 6095 field samples; SGD at lr
+# 1e-2; look_back 20000, here every frame), cut from 40 epochs to 2 and
+# from 30479 RK4 steps an epoch to 18000 (the field is off from step 15239
+# on): on an H100 a step took 2.6-3.5 ms from one call to another, and two
+# epochs of 30479, 24000 and 22000 steps 169.7, 143.7 and 147.4 s, too
+# close to the phase's 150 s; then a 2000-step gradient held to the CPU
+# port in float64
+ISOM_EPOCHS, ISOM_LR, ISOM_STEPS = 2, 1e-2, 18000
+ISOM_GRAD_STEPS, ISOM_GRAD_LOOK_BACK = 2000, 1000
+# |g_card - g_cpu64| / |g_cpu64| of d(objective)/d(e_field) over 2000 steps
+# in float32 on the card: 7.1e-6 in float32 on the CPU
+ISOM_GRAD_TOL = 1e-4
+
+
+class ReplayTimer:
+    """Wall seconds spent in the replay adjoint's forward and backward
+    (``md/adjoint.py::_Replay``) while entered, each call synchronised."""
+
+    def __init__(self, torch, adjoint):
+        self.torch, self.cls = torch, adjoint._Replay
+        self.seconds = {"forward": 0.0, "backward": 0.0}
+
+    def _timed(self, key, fn):
+        def run(*args):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self.torch.cuda.synchronize()
+            self.seconds[key] += time.perf_counter() - t0
+            return out
+        return staticmethod(run)
+
+    def __enter__(self):
+        self.real = (self.cls.forward, self.cls.backward)
+        self.cls.forward = self._timed("forward", self.real[0])
+        self.cls.backward = self._timed("backward", self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = staticmethod(self.real[0])
+        self.cls.backward = staticmethod(self.real[1])
+
+
+def isom_gradient(device, dtype, n_steps=ISOM_GRAD_STEPS,
+                  look_back=ISOM_GRAD_LOOK_BACK):
+    """(objective, d objective / d e_field as float64 numpy) of the retinal
+    run cut to ``n_steps``: yield 4 over the last ``look_back`` frames,
+    through the replay adjoint, in ``dtype`` on ``device``."""
+    import torch
+    from mdgrad_tpu_torch.md.isomerization import Isomerization
+    from mdgrad_tpu_torch.train import isom
+    q = isom.make_quants()
+    t_field, e_t, _ = isom.initialize_Et()
+    ode = Isomerization(q["ham"], q["dipole"], t_field, e_t,
+                        max_e_t=float(t_field.max()), device=device,
+                        dtype=dtype)
+    traj, _ = isom.make_epoch(ode, n_steps)([ode.e_field],
+                                            ode.initial_state(), (), {})
+    ys = isom.calc_yields(traj.psi, *(
+        torch.as_tensor(q[k], dtype=dtype, device=device)
+        for k in ("prod_op", "reac_op")))
+    loss = isom.objective(ys[3], look_back)
+    loss.backward()
+    return loss.item(), ode.e_field.grad.double().cpu().numpy()
+
+
+def isom_reference(path):
+    """Phase 4g's CPU float64 reference gradient, saved to ``path`` as
+    [objective, gradient...]; run in a process of its own beside the
+    card's epochs."""
+    import numpy as np
+    import torch
+    torch.set_num_threads(4)     # the card's launching process keeps a core
+    loss, g = isom_gradient("cpu", torch.float64)
+    np.save(path, np.concatenate([[loss], g]))
+
+
+def isom_phase(torch, dev):
+    """Phase 4g (see the module docstring): returns its numbers."""
+    import tempfile
+    import numpy as np
+    from mdgrad_tpu_torch import ops
+    from mdgrad_tpu_torch.md import adjoint
+    from mdgrad_tpu_torch.train import isom
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "isom_ref.npy")
+        ref = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.isom_reference(sys.argv[1])", ref_path],
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            marks = []
+
+            def log(msg):
+                line(f"isom: {msg}")
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_counts()
+            with ReplayTimer(torch, adjoint) as timer:
+                t0 = time.perf_counter()
+                out = isom.fit_isomerization(n_epochs=ISOM_EPOCHS, lr=ISOM_LR,
+                                             n_steps=ISOM_STEPS, log=log,
+                                             device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            check_no_kernel(ops.counts(), "isomerization fit")
+            n_steps = ISOM_STEPS
+            epochs = [b - a for a, b in zip([t0] + marks, marks)]
+            ys = [y[-1] for y in out["yields_t"]]
+            e0 = isom.initialize_Et()[1].astype(np.float32)
+            moved = float(np.abs(out["e_field"] - e0).max())
+            line(f"isom: {ISOM_EPOCHS} epochs of {n_steps} RK4 steps (D = "
+                 f"716): epoch seconds {[round(e, 3) for e in epochs]}; "
+                 f"replay forward {timer.seconds['forward']:.3f} s, "
+                 f"backward {timer.seconds['backward']:.3f} s in all; peak "
+                 f"memory {peak} B; mean yields {out['q_yields']}; the four "
+                 f"yields at the last frame {ys}; the field moved by up to "
+                 f"{moved:.3e}; launches of csrc/ kernels: 0")
+            y4 = out["yields_t"][3]
+            require(len(out["q_yields"]) == ISOM_EPOCHS
+                    and bool(np.isfinite(out["q_yields"]).all()),
+                    "finite mean yields")
+            require(np.nanmax(y4) <= 1 + 1e-5 and np.nanmin(y4) >= -1e-5,
+                    "yield 4 in [0, 1]")
+            require(moved > 0, "the field moved")
+
+            ops.reset_counts()
+            t1 = time.perf_counter()
+            loss, g = isom_gradient(dev, torch.float32)
+            torch.cuda.synchronize()
+            grad_s = time.perf_counter() - t1
+            check_no_kernel(ops.counts(), "isomerization gradient")
+            ref.wait(timeout=900)
+            require(ref.returncode == 0, "the CPU float64 reference ran")
+            blob = np.load(ref_path)
+        except BaseException:
+            ref.kill()
+            ref.wait()
+            raise
+    loss_ref, g_ref = blob[0], blob[1:]
+    rel = float(np.linalg.norm(g - g_ref) / np.linalg.norm(g_ref))
+    line(f"isom gradient: {ISOM_GRAD_STEPS} steps, yield 4 over the last "
+         f"{ISOM_GRAD_LOOK_BACK} frames: objective {loss!r} on the card "
+         f"(float32) against {loss_ref!r} on the CPU (float64); "
+         f"d/d(e_field) |g - g_cpu| / |g_cpu| = {rel:.3e} (tol "
+         f"{ISOM_GRAD_TOL:g}); {grad_s:.3f} s on the card")
+    require(np.isfinite(g).all() and np.abs(g_ref).max() > 0
+            and rel <= ISOM_GRAD_TOL,
+            "the card's e_field gradient equals the CPU's float64 one")
+    return {"epochs": epochs, "wall": wall, "peak": peak,
+            "replay": timer.seconds, "n_steps": n_steps, "grad_rel": rel,
+            "grad_s": grad_s, "q_yields": out["q_yields"]}
+
+
+# ---- the multistate slice (phases 4h and 4i) ------------------------------
+def load_script(name):
+    """A module of ``scripts/`` by file name."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", name)
+    spec = importlib.util.spec_from_file_location(name[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# scripts/run_water_multi_torch.py's GNN run cut from 500 epochs and 10
+# rollouts to 2 and 1; its --tpair run to 1 epoch after 50 pretraining
+# iterations (from 1000)
+MULTI_GNN_ARGV = ["-nepochs", "2", "-nsim", "1"]
+MULTI_TPAIR_ARGV = ["--tpair", "-nepochs", "1", "-nsim", "1",
+                    "-pretrain", "50"]
+
+
+def multistate_phase(torch, dev, records):
+    """Phase 4h (see the module docstring): returns its numbers."""
+    import numpy as np
+    from mdgrad_tpu_torch import ops
+    from mdgrad_tpu_torch.train import fit_rdf_multi
+    script = load_script("run_water_multi_torch.py")
+    out = {}
+    for tag, argv in (("gnn", MULTI_GNN_ARGV), ("tpair", MULTI_TPAIR_ARGV)):
+        assignments, sys_params, _ = script.build(argv)
+        res, msgs, marks, norms, peak, wall = pair_fit_call(
+            torch, fit_rdf_multi.fit_rdf_multistate, assignments, sys_params,
+            rng=np.random.default_rng(SEED), device=dev)
+        for msg in msgs:
+            line(f"multistate {tag}: {msg}")
+        n_ep = sys_params["n_epochs"]
+        losses = res["loss_log"]
+        prev = {name: 0 for name in marks[0][1]["launches"]}
+        per_epoch = []
+        for _, c in marks:
+            per_epoch.append({name: c["launches"][name] - prev[name]
+                              for name in prev})
+            prev = c["launches"]
+        total = ops.counts()
+        epochs = [b - a for a, b in zip([0.0] + [t for t, _ in marks],
+                                        [t for t, _ in marks])]
+        line(f"multistate {tag}: {len(sys_params['data'])} states of "
+             f"{8 * sys_params['size'] ** 3} sites; losses {losses}  "
+             f"gradient norms {norms}  objective {res['objective']!r}; epoch "
+             f"seconds {[round(e, 3) for e in epochs]} (the first from the "
+             f"call, set-up included); inference {wall - marks[-1][0]:.3f} s;"
+             f" peak memory {peak} B; launches per epoch {per_epoch}; in the "
+             f"call {total['launches']}")
+        require(not res.get("nan_bailout") and len(losses) == n_ep
+                and bool(np.isfinite(losses).all())
+                and np.isfinite(res["objective"]),
+                f"the multistate {tag} fit gives finite losses")
+        require(len(norms) == n_ep and all(np.isfinite(norms))
+                and min(norms) > 0,
+                f"the multistate {tag} fit's gradients are finite and nonzero")
+        require(set(res["final"]) == set(sys_params["data"]) and all(
+            f["g_sim"].shape == (800,) for f in res["final"].values()),
+            f"the multistate {tag} inference gives 800-bin RDFs")
+        if tag == "gnn":
+            for c in per_epoch:
+                for name in WATER_KERNELS[:4]:
+                    require(c[name] > 0, f"kernel {name} launched in each "
+                            "multistate epoch")
+            check_no_kernel(total, "multistate fit",
+                            allowed=WATER_KERNELS[:4])
+            for name in WATER_KERNELS[:4]:
+                records.setdefault(name, {})[
+                    "launches_multistate_per_epoch"] = per_epoch[-1][name]
+        else:
+            # a pair MLP and the plain soft RDF: no kernel of csrc/
+            check_no_kernel(total, "multistate tpair fit")
+        out[tag] = {"epochs": epochs, "wall": wall, "peak": peak,
+                    "per_epoch": per_epoch[-1], "losses": losses}
+    return out
+
+
+# fit_rdf at phase 4c's settings with the multiple-time-step chain (k = 2:
+# 26 outer steps of 1.0 fs an epoch, every 10th frame), 2 epochs; then with
+# the prior on the SchNet's table, 1 epoch; no rollout (the 800-bin RDF of
+# the last training frame)
+FIT_MTS = {"n_epochs": 2, "n_sim": 0, "mts_inner": 2}
+FIT_SHARE = {"n_epochs": 1, "n_sim": 0, "share_prior_aux": True}
+
+
+def mts_share_phase(torch, records):
+    """Phase 4i (see the module docstring): returns its numbers."""
+    import numpy as np
+    from mdgrad_tpu_torch import ops
+    from mdgrad_tpu_torch.md import integrators
+    from mdgrad_tpu_torch.ops import gather
+    from mdgrad_tpu_torch.train import fit_rdf
+    mts = integrators.MTSNoseHooverChain
+    real_step, real_force = mts.step, mts._keys_force
+    calls = {"steps": 0, "slow": 0, "fast": 0, "inside": False}
+
+    def step(self, *a, **kw):
+        calls["steps"] += 1
+        calls["inside"] = True
+        try:
+            return real_step(self, *a, **kw)
+        finally:
+            calls["inside"] = False
+
+    def keys_force(self, keys, *a, **kw):
+        if calls["inside"]:
+            calls["slow" if keys == self.slow_keys else "fast"] += 1
+        return real_force(self, keys, *a, **kw)
+
+    built = {}
+    real_build = fit_rdf.build_fit
+
+    def build(*a, **kw):
+        built.update(real_build(*a, **kw))
+        return built
+
+    mts.step, mts._keys_force, fit_rdf.build_fit = step, keys_force, build
+    try:
+        res, msgs, marks, widths, wall = fit_call(torch, fit_rdf, ops, gather,
+                                                  None, **FIT_MTS)
+        mts_counts = ops.counts()
+        integ = built["sims"][0].integrator
+        res2, msgs2, marks2, _, wall2 = fit_call(torch, fit_rdf, ops, gather,
+                                                 None, **FIT_SHARE)
+        share_counts = ops.counts()
+        stack = built["sims"][0].integrator.model
+    finally:
+        mts.step, mts._keys_force = real_step, real_force
+        fit_rdf.build_fit = real_build
+    for msg in msgs:
+        line(f"fit mts: {msg}")
+    for msg in msgs2:
+        line(f"fit share: {msg}")
+    slow, fast = calls["slow"] / calls["steps"], calls["fast"] / calls["steps"]
+    mts_epochs = [b - a for a, b in zip([0.0] + [t for t, _ in marks],
+                                        [t for t, _ in marks])]
+    per_epoch = {name: marks[-1][1]["launches"][name]
+                 - marks[-2][1]["launches"][name] for name in WATER_KERNELS}
+    line(f"fit mts: k = {integ.n_inner}, {FIT_ASSIGNMENTS['opt_freq'] // 2} "
+         f"frames an epoch (outer dt 1.0 fs); forces per outer step: "
+         f"{slow:g} slow (SchNet) + {fast:g} fast (prior) over "
+         f"{calls['steps']} step calls (forward and replay); losses "
+         f"{res['loss_log']}; epoch seconds "
+         f"{[round(e, 3) for e in mts_epochs]} (the first from the call); "
+         f"launches in epoch 1 {per_epoch}; call {wall:.3f} s")
+    require(isinstance(integ, mts) and integ.n_inner == 2,
+            "the mts fit integrates with the MTS chain")
+    require(slow == 1 and fast == 3,
+            "an outer step takes 1 slow and 3 fast forces")
+    require(len(res["loss_log"]) == 2
+            and bool(np.isfinite(res["loss_log"]).all())
+            and np.isfinite(res["objective"]), "the mts fit's losses are finite")
+    check_fit_counts(mts_counts, "mts fit")
+    share_s = marks2[0][0]
+    line(f"fit share: prior mode {stack.models['pair'].mode}, share_aux "
+         f"{stack.share_aux}; loss {res2['loss_log']}; the epoch ended "
+         f"{share_s:.3f} s into the call; launches {share_counts['launches']}"
+         f"; call {wall2:.3f} s")
+    require(stack.share_aux == {"pair": "nn"}
+            and stack.models["pair"].mode == "table",
+            "the shared fit's prior reads the SchNet's table")
+    require(len(res2["loss_log"]) == 1 and np.isfinite(res2["loss_log"][0])
+            and np.isfinite(res2["objective"]),
+            "the shared fit's loss is finite")
+    check_fit_counts(share_counts, "shared-prior fit")
+    for name in WATER_KERNELS:
+        records.setdefault(name, {})["launches_mts_fit_per_epoch"] = \
+            per_epoch[name]
+    return {"mts_epochs": mts_epochs, "mts_wall": wall, "slow": slow,
+            "fast": fast, "share_s": share_s, "share_wall": wall2}
 
 
 def bench_loss_steps(torch, fit_rdf, sim, obs, stack, n_epochs):
@@ -2420,6 +2782,18 @@ def main():
                            "water pair fit": op_pair})
     phase_done("pair")
 
+    # ---- 4g. the isomerization slice --------------------------------------
+    isomed = isom_phase(torch, dev)
+    phase_done("isom")
+
+    # ---- 4h. the multistate fits ------------------------------------------
+    multi = multistate_phase(torch, dev, records)
+    phase_done("multistate")
+
+    # ---- 4i. fit_rdf with multiple time steps and the shared prior table ---
+    mts_share = mts_share_phase(torch, records)
+    phase_done("mts and share")
+
     # ---- 5. times ---------------------------------------------------------
     e_real = n_real
     pad_values = torch.cat([values, values.new_zeros(1, f)])
@@ -2711,6 +3085,21 @@ def main():
              + (f", {r['steady_s']:.3f} s an epoch over epoch 1"
                 if tag == "pair" else "")
              + f"; peak memory {r['peak']} B; call {r['wall']:.3f} s")
+    line(f"time isom: {isomed['n_steps']} RK4 steps an epoch (D = 716), "
+         f"epochs {[round(e, 3) for e in isomed['epochs']]} s, replay "
+         f"forward {isomed['replay']['forward']:.3f} s and backward "
+         f"{isomed['replay']['backward']:.3f} s over the {ISOM_EPOCHS} "
+         f"epochs; peak memory {isomed['peak']} B; the {ISOM_GRAD_STEPS}-"
+         f"step gradient {isomed['grad_s']:.3f} s")
+    for tag in ("gnn", "tpair"):
+        r = multi[tag]
+        line(f"time multistate {tag}: 3 x 512 sites, epochs "
+             f"{[round(e, 3) for e in r['epochs']]} s (the first from the "
+             f"call); call {r['wall']:.3f} s; peak memory {r['peak']} B")
+    line(f"time mts fit: epochs "
+         f"{[round(e, 3) for e in mts_share['mts_epochs']]} s (the first "
+         f"from the call, 25 outer steps each); the shared-prior epoch "
+         f"ended {mts_share['share_s']:.3f} s into its call")
     sp = paired["sparse"]
     line(f"time sparse prior: N = 1728, capacity {sp['capacity']}, SchNet "
          f"K = {sp['k']} (CSR {'/'.join(sp['paths'])} path); one 20-step "
@@ -2743,6 +3132,11 @@ def main():
                rdf_inputs, gen, smi)
     if against["pair"]:
         pair_ab(mt, torch, dev, _build, against["pair"], gen, smi)
+    # every path's launch counts beside each kernel's row
+    for row in kernels_json:
+        for key, value in records.get(row["name"], {}).items():
+            if key.startswith("launches_"):
+                row.setdefault(key, value)
     line(f"total: {time.perf_counter() - t_start:.3f} s")
     line(f"nvidia-smi: {smi}")
     line(json.dumps({"kernels": kernels_json}))

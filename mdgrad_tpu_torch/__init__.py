@@ -9,12 +9,14 @@ and are built at their first launch (``ops/_build.py``).
 """
 
 from . import observables, ops, potentials, thermo, topology, units
-from .interface import GNNPotentials, PairPotentials, Stack, TPairPotentials
-from .md import NVE, NoseHooverChain, Simulation
+from .interface import (GNNPotentials, PairPotentials, Stack,
+                        TPairPotentials, WithDynamicCell)
+from .md import MTSNoseHooverChain, NVE, NoseHooverChain, Simulation
 from .nn import MLP, MLP2d, PairMLP, SchNet, TPairMLP
 from .system import System
 
-__all__ = ["GNNPotentials", "MLP", "MLP2d", "NVE", "NoseHooverChain",
-           "PairMLP", "PairPotentials", "SchNet", "Simulation", "Stack",
-           "System", "TPairMLP", "TPairPotentials", "observables", "ops",
-           "potentials", "thermo", "topology", "units"]
+__all__ = ["GNNPotentials", "MLP", "MLP2d", "MTSNoseHooverChain", "NVE",
+           "NoseHooverChain", "PairMLP", "PairPotentials", "SchNet",
+           "Simulation", "Stack", "System", "TPairMLP", "TPairPotentials",
+           "WithDynamicCell", "observables", "ops", "potentials", "thermo",
+           "topology", "units"]

@@ -3,7 +3,8 @@
 Port of ``mdgrad_tpu/interface.py``: the :class:`Interaction` contract,
 :class:`PairPotentials` in modes 'dense', 'table' and 'sparse',
 :class:`TPairPotentials`, :class:`GNNPotentials` over an (N, K) neighbor
-table or an edge list, and :class:`Stack`.
+table or an edge list, :class:`Stack` (with ``share_aux``) and
+:class:`WithDynamicCell`.
 
 The JAX contract passes a params pytree into pure functions; here every
 interaction is an ``nn.Module`` that owns its parameters:
@@ -359,29 +360,88 @@ class GNNPotentials(Interaction):
 
 
 class Stack(Interaction):
-    """Sum of named interactions; params and aux are keyed like
-    ``model_dict`` (``share_aux`` is not ported yet)."""
+    """Sum of named interactions; aux is keyed like ``model_dict``.
 
-    def __init__(self, model_dict):
+    ``share_aux={"prior": "nn"}`` makes child "prior" use child "nn"'s
+    neighbor structure instead of building its own: the sharer's aux slot
+    stays ``()`` and its energy receives the donor's aux; capacity grows
+    on the donor only.  Donor and sharer must read the same (N, K) table
+    format (a ``GNNPotentials`` table and a ``PairPotentials`` in mode
+    'table').  A sharer with a smaller cutoff than the donor's build
+    cutoff (cutoff + skin) stays exact: table-mode ``PairPotentials``
+    re-masks each slot by its own cutoff at the current distance.
+    """
+
+    def __init__(self, model_dict, share_aux=None):
         super().__init__()
         self.models = nn.ModuleDict(model_dict)
+        self.share_aux = dict(share_aux or {})
+        for k, donor in self.share_aux.items():
+            if k not in self.models or donor not in self.models:
+                raise ValueError(f"share_aux {k}->{donor}: unknown child")
+            if donor in self.share_aux:
+                raise ValueError("share_aux chains are not supported")
 
     def aux_init(self, xyz, cell=None):
         kw = {} if cell is None else {"cell": cell}
-        return {k: m.aux_init(xyz, **kw) for k, m in self.models.items()}
+        return {k: (() if k in self.share_aux else m.aux_init(xyz, **kw))
+                for k, m in self.models.items()}
 
     def aux_update(self, xyz, aux, cell=None):
         kw = {} if cell is None else {"cell": cell}
-        return {k: m.aux_update(xyz, aux[k], **kw)
+        return {k: (() if k in self.share_aux
+                    else m.aux_update(xyz, aux[k], **kw))
                 for k, m in self.models.items()}
 
     def grow_capacity(self, factor=1.5):
-        """Grow every child's capacity; True if any grew."""
-        return any([m.grow_capacity(factor) for m in self.models.values()])
+        """Grow every child's capacity but a sharer's; True if any grew."""
+        return any([m.grow_capacity(factor) for k, m in self.models.items()
+                    if k not in self.share_aux])
 
-    def energy(self, xyz, aux, cell=None):
+    def energy(self, xyz, aux, cell=None, keys=None):
+        """The sum over the children, or over the children ``keys`` only
+        (the multiple-time-step split); a sharer reads its donor's aux."""
         kw = {} if cell is None else {"cell": cell}
         total = 0.0
         for k, m in self.models.items():
-            total = total + m.energy(xyz, aux[k], **kw)
+            if keys is None or k in keys:
+                total = total + m.energy(
+                    xyz, aux[self.share_aux.get(k, k)], **kw)
         return total
+
+
+class WithDynamicCell(Interaction):
+    """``base`` with the cell carried in the aux: ``aux = (cell_len,
+    base_aux)``, ``cell_len`` the (3,) diagonal lengths, passed as
+    ``cell=`` to every call of ``base``.  One integrator then serves state
+    points of different boxes (the multistate fit).  ``cell_len0`` is the
+    cell of ``aux_init`` without an override; ``base``'s capacity is the
+    one it was built with.  No gradient reaches the cell."""
+
+    def __init__(self, base, cell_len0):
+        super().__init__()
+        self.base = base
+        # float64, cast at each call: float32 runs get the JAX package's
+        # rounding, float64 runs the exact lengths
+        self.register_buffer("cell_len0", torch.tensor(
+            np.asarray(cell_len0, dtype=np.float64),
+            device=next(base.buffers()).device), persistent=False)
+
+    def _c(self, xyz, cell):
+        c = self.cell_len0 if cell is None else torch.as_tensor(cell)
+        return c.to(dtype=xyz.dtype, device=xyz.device)
+
+    def grow_capacity(self, factor=1.5):
+        return self.base.grow_capacity(factor)
+
+    def aux_init(self, xyz, cell=None):
+        c = self._c(xyz, cell)
+        return (c, self.base.aux_init(xyz, cell=c))
+
+    def aux_update(self, xyz, aux, cell=None):
+        c = aux[0] if cell is None else self._c(xyz, cell)
+        return (c, self.base.aux_update(xyz, aux[1], cell=c))
+
+    def energy(self, xyz, aux, cell=None):
+        c = aux[0] if cell is None else cell
+        return self.base.energy(xyz, aux[1], cell=c)

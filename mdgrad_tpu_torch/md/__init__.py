@@ -1,8 +1,13 @@
-"""Molecular dynamics of the port: integrators and the simulation loop."""
+"""Molecular dynamics of the port: integrators, the simulation loop, the
+fixed-grid ODE solvers and quantum isomerization."""
 
-from .integrators import (NoseHooverChain, NVE, NVEStateF, NVTStateF,
-                          rethermalize)
+from .integrators import (MTSNoseHooverChain, NoseHooverChain, NVE,
+                          NVEState, NVEStateF, NVTState, NVTStateF,
+                          rethermalize, rk4_step)
+from .isomerization import Isomerization, PsiState
 from .simulation import Simulation
+from .tinydiffeq import odeint
 
-__all__ = ["NVE", "NVEStateF", "NoseHooverChain", "NVTStateF", "Simulation",
-           "rethermalize"]
+__all__ = ["Isomerization", "MTSNoseHooverChain", "NVE", "NVEState",
+           "NVEStateF", "NoseHooverChain", "NVTState", "NVTStateF",
+           "PsiState", "Simulation", "odeint", "rethermalize", "rk4_step"]

@@ -68,7 +68,7 @@ class _Epoch:
                 # the wrap goes with the refresh, so the table is built
                 # from the representative the step consumes
                 if self.wrap_fn is not None:
-                    state = self.wrap_fn(state)
+                    state = self.wrap_fn(state, aux)
                 aux = self.aux_update_fn(state, aux)
             if stored is not None:
                 stored.append((state, aux))
@@ -167,8 +167,10 @@ def make_odeint(step_fn, aux_update_fn, n_steps, update_freq=1,
     adjoint:       True -> the replay adjoint; False -> direct autograd.
     skip_first_refresh: the caller refreshed ``aux0`` at ``state0``; with
                    update_freq > 1 the step-0 rebuild is skipped.
-    wrap_fn:       optional gradient-safe ``state -> state`` periodic wrap,
-                   applied right before each refresh.
+    wrap_fn:       optional gradient-safe ``(state, aux) -> state``
+                   periodic wrap, applied right before each refresh with
+                   the aux it replaces (a dynamic-cell model reads its
+                   cell there).
     """
     epoch = _Epoch(step_fn, aux_update_fn, n_steps, update_freq,
                    skip_first_refresh, wrap_fn)

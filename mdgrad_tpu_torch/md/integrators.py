@@ -1,8 +1,10 @@
 """NVE and Nose-Hoover chain NVT integration with a cached force.
 
 Port of ``mdgrad_tpu/md/integrators.py``: the ``_MDIntegrator`` force
-dispatch, ``prime_state`` and the cached symplectic step, ``NVE``,
-``NoseHooverChain`` with ``update_T``, and ``rethermalize``.  An
+dispatch, ``prime_state``, the cached symplectic step and the RK4 "3/8
+rule" step (``method="rk4"``, :func:`rk4_step`), ``NVE``,
+``NoseHooverChain`` with ``update_T``, the multiple-time-step
+``MTSNoseHooverChain`` and ``rethermalize``.  An
 interaction with a ``force`` method (the fused
 pair kernels' :class:`~mdgrad_tpu_torch.ops.pair.PallasLJPair`) supplies
 the force itself; for any other, forces are ``-dU/dq`` from
@@ -17,7 +19,8 @@ as its JAX ``custom_vjp`` is.
 The end-of-step force equals the next step's start force, so each step
 evaluates the potential once; ``prime_state`` fills the cache at epoch
 entry.  ``fv`` (force valid) is a Python bool here, so checking it never
-waits for the device.
+waits for the device.  An integrator whose ``default_method`` is "rk4"
+starts from the state without the cache (``NVEState`` / ``NVTState``).
 """
 
 import typing
@@ -28,6 +31,18 @@ import torch
 from .. import units
 from .._device import resolve_device
 from ..system import check_system, maxwell_boltzmann_velocities
+from .tinydiffeq import rk4_step
+
+
+class NVEState(typing.NamedTuple):
+    v: torch.Tensor
+    q: torch.Tensor
+
+
+class NVTState(typing.NamedTuple):
+    v: torch.Tensor
+    q: torch.Tensor
+    pv: torch.Tensor   # Nose-Hoover chain bath momenta
 
 
 class NVEStateF(typing.NamedTuple):
@@ -90,19 +105,49 @@ class _MDIntegrator:
                                        create_graph=create_graph)
         return -g
 
-    def prime_state(self, state, aux, create_graph=False):
-        """Refresh ``aux`` at ``state.q`` and fill the force cache; returns
-        ``(state, aux)``."""
-        aux = self.model.aux_update(state.q.detach(), aux)
+    def prime_state(self, state, aux, create_graph=False, fresh_aux=False):
+        """Refresh ``aux`` at ``state.q`` (unless ``fresh_aux``: the caller
+        just built it there) and fill the force cache (a state without one
+        is returned as it is); returns ``(state, aux)``."""
+        if not fresh_aux:
+            aux = self.model.aux_update(state.q.detach(), aux)
+        if not hasattr(state, "fv"):
+            return state, aux
         f = self.force(state.q, aux, create_graph)
         return state._replace(f=f, fv=True), aux
 
-    def step(self, state, aux, ctrl, dt, create_graph=False):
-        """One step with ONE potential evaluation: the start-of-step force
-        is the cached end-of-step force of the previous step.  The bath
-        half-kicks run only for an integrator with a bath
-        (``derivs_from_force`` returns its derivative, not None)."""
-        f0 = state.f if state.fv else self.force(state.q, aux, create_graph)
+    def derivs(self, state, aux, ctrl, t, create_graph=False):
+        """d(state)/dt at ``state``: the force's acceleration (with the
+        chain coupling for an integrator with a bath), the velocity, and
+        a zero derivative for the cached force."""
+        f = self.force(state.q, aux, create_graph)
+        dv, dbath = self.derivs_from_force(state, ctrl, f)
+        d = state._replace(v=dv, q=state.v)
+        if dbath is not None:
+            d = d._replace(pv=dbath)
+        if hasattr(state, "f"):
+            d = d._replace(f=torch.zeros_like(state.f))
+        return d
+
+    def step(self, state, aux, ctrl, dt, create_graph=False, method=None,
+             t=0.0):
+        """One step of ``method`` (default ``default_method``) at time
+        ``t``.  "rk4": the 3/8 rule on :meth:`derivs`, four forces.
+        "verlet" / "NH_verlet": ONE potential evaluation, the start-of-step
+        force being the cached end-of-step force of the previous step (a
+        state without the cache evaluates it); the bath half-kicks run only
+        for an integrator with a bath (``derivs_from_force`` returns its
+        derivative, not None)."""
+        method = method or self.default_method
+        if method == "rk4":
+            return rk4_step(
+                lambda s, tt: self.derivs(s, aux, ctrl, tt, create_graph),
+                state, t, dt)
+        if method not in ("verlet", "NH_verlet"):
+            raise ValueError(f"unknown method {method!r}")
+        cached = hasattr(state, "fv")
+        f0 = state.f if cached and state.fv else self.force(
+            state.q, aux, create_graph)
         dv0, dbath0 = self.derivs_from_force(state, ctrl, f0)
         v_half = state.v + 0.5 * dt * dv0
         q_new = state.q + v_half * dt
@@ -111,7 +156,9 @@ class _MDIntegrator:
             mid = mid._replace(pv=state.pv + 0.5 * dt * dbath0)
         f1 = self.force(q_new, aux, create_graph)
         dv1, dbath1 = self.derivs_from_force(mid, ctrl, f1)
-        new = mid._replace(v=v_half + 0.5 * dt * dv1, f=f1, fv=True)
+        new = mid._replace(v=v_half + 0.5 * dt * dv1)
+        if cached:
+            new = new._replace(f=f1, fv=True)
         if dbath1 is not None:
             new = new._replace(pv=mid.pv + 0.5 * dt * dbath1)
         return new
@@ -121,13 +168,15 @@ class NVE(_MDIntegrator):
     """Constant-energy velocity Verlet with the cached force."""
 
     state_keys = ["velocities", "positions"]
+    default_method = "verlet"
 
     def initial_state(self, wrap=True):
         kw = {"dtype": self.dtype, "device": self.device}
         q = torch.as_tensor(self.system.get_positions(wrap=wrap), **kw)
-        return NVEStateF(
-            v=torch.as_tensor(self.system.get_velocities(), **kw), q=q,
-            f=torch.zeros_like(q), fv=False)
+        v = torch.as_tensor(self.system.get_velocities(), **kw)
+        if self.default_method == "rk4":
+            return NVEState(v=v, q=q)
+        return NVEStateF(v=v, q=q, f=torch.zeros_like(q), fv=False)
 
     def derivs_from_force(self, state, ctrl, f):
         """(dv/dt, None): no bath."""
@@ -140,6 +189,7 @@ class NoseHooverChain(_MDIntegrator):
     """
 
     state_keys = ["velocities", "positions", "baths"]
+    default_method = "NH_verlet"
 
     def __init__(self, potentials, system, T, num_chains=2, Q=1.0,
                  adjoint=True, topology_update_freq=1, tau=None,
@@ -173,10 +223,11 @@ class NoseHooverChain(_MDIntegrator):
     def initial_state(self, wrap=True):
         kw = {"dtype": self.dtype, "device": self.device}
         q = torch.as_tensor(self.system.get_positions(wrap=wrap), **kw)
-        return NVTStateF(
-            v=torch.as_tensor(self.system.get_velocities(), **kw), q=q,
-            pv=torch.zeros(self.num_chains, **kw), f=torch.zeros_like(q),
-            fv=False)
+        v = torch.as_tensor(self.system.get_velocities(), **kw)
+        pv = torch.zeros(self.num_chains, **kw)
+        if self.default_method == "rk4":
+            return NVTState(v=v, q=q, pv=pv)
+        return NVTStateF(v=v, q=q, pv=pv, f=torch.zeros_like(q), fv=False)
 
     def derivs_from_force(self, state, ctrl, f):
         """Chain equations of motion given the force: (dv/dt, dpv/dt)."""
@@ -190,6 +241,80 @@ class NoseHooverChain(_MDIntegrator):
                    - pv[2:] * pv[1:-1] / Q[2:])
         dpv_last = pv[-2] ** 2 / Q[-2] - kT
         return dvdt, torch.cat([dpv0[None], dpv_mid, dpv_last[None]])
+
+
+class MTSNoseHooverChain(NoseHooverChain):
+    """Multiple-time-step (XI-RESPA) Nose-Hoover chain over a ``Stack``.
+
+    The stack's ``fast_keys`` interactions (a cheap prior) are the fast
+    force, the others the slow one (the SchNet).  One outer step of ``dt``
+    is: the bath and the slow force's half impulse at the outer scale,
+    ``n_inner`` velocity-Verlet steps of ``dt / n_inner`` on the fast force
+    alone, then the slow force at the new positions and the closing half
+    impulse.  The slow force is evaluated once a step: the cache
+    ``state.f`` holds it (never the fast one), and :meth:`prime_state`
+    fills it; the fast force ``n_inner + 1`` times.  One outer step is one
+    step of the epoch, so the replay adjoint re-runs the whole outer step,
+    inner loop included, and the topology refresh keeps the outer cadence.
+    """
+
+    def __init__(self, stack, system, T, fast_keys=("pair",), n_inner=2,
+                 **kw):
+        if not hasattr(stack, "models"):
+            raise TypeError("MTSNoseHooverChain needs a Stack (the "
+                            "slow/fast split is by stack key)")
+        super().__init__(stack, system, T, **kw)
+        self.fast_keys = tuple(fast_keys)
+        self.slow_keys = tuple(k for k in stack.models
+                               if k not in self.fast_keys)
+        missing = [k for k in self.fast_keys if k not in stack.models]
+        if missing or not self.slow_keys:
+            raise ValueError(f"bad fast_keys {fast_keys} for stack keys "
+                             f"{list(stack.models)}")
+        self.n_inner = int(n_inner)
+
+    def _keys_force(self, keys, q, aux, create_graph):
+        """-d/dq of the energies of the stack's ``keys`` only."""
+        with torch.enable_grad():
+            if not (create_graph and q.requires_grad):
+                q = q.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(self.model.energy(q, aux, keys=keys),
+                                       q, create_graph=create_graph)
+        return -g
+
+    def prime_state(self, state, aux, create_graph=False, fresh_aux=False):
+        """Refresh ``aux`` (unless ``fresh_aux``) and cache the SLOW force
+        only."""
+        if not fresh_aux:
+            aux = self.model.aux_update(state.q.detach(), aux)
+        f = self._keys_force(self.slow_keys, state.q, aux, create_graph)
+        return state._replace(f=f, fv=True), aux
+
+    def step(self, state, aux, ctrl, dt, create_graph=False, method=None,
+             t=0.0):
+        if not hasattr(state, "fv"):
+            raise ValueError("the MTS step needs the cached (*F) state "
+                             "from initial_state()")
+        fs0 = state.f if state.fv else self._keys_force(
+            self.slow_keys, state.q, aux, create_graph)
+        # outer half: slow impulse and chain coupling on v, bath half-kick
+        dv0, dbath0 = self.derivs_from_force(state, ctrl, fs0)
+        v = state.v + 0.5 * dt * dv0
+        pv = state.pv + 0.5 * dt * dbath0
+        # inner loop: velocity Verlet on the fast force at dt / n_inner
+        dti, m, q = dt / self.n_inner, self.masses, state.q
+        ff = self._keys_force(self.fast_keys, q, aux, create_graph)
+        for _ in range(self.n_inner):
+            v1 = v + 0.5 * dti * ff / m
+            q = q + dti * v1
+            ff = self._keys_force(self.fast_keys, q, aux, create_graph)
+            v = v1 + 0.5 * dti * ff / m
+        # closing half: a fresh slow force at the new positions
+        fs1 = self._keys_force(self.slow_keys, q, aux, create_graph)
+        dv1, dbath1 = self.derivs_from_force(
+            state._replace(v=v, q=q, pv=pv), ctrl, fs1)
+        return NVTStateF(v=v + 0.5 * dt * dv1, q=q,
+                         pv=pv + 0.5 * dt * dbath1, f=fs1, fv=True)
 
 
 def rethermalize(state, kT, masses, rng=None, dim=3):

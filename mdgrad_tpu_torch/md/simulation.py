@@ -97,11 +97,11 @@ class Simulation:
         integ = self.integrator
         wrap = None
         if self.wrap:
-            def wrap(state):
+            def wrap(state, aux=None):
                 return wrap_state(state, self.cell)
 
         def step_fn(state, aux, ctrl, i, create_graph):
-            return integ.step(state, aux, ctrl, dt, create_graph)
+            return integ.step(state, aux, ctrl, dt, create_graph, t=i * dt)
 
         def aux_update(state, aux):
             return self._note_flags(integ.aux_update(state.q.detach(), aux))

@@ -35,11 +35,18 @@ The SchNet's ``compute_dtype`` (float32, bf16, 'mixed'), the Verlet skin
 (``gnn_skin``, exact with ``topology_update_freq > 1``) and the neighbor
 modes 'table', 'topk' and 'sparse' (``nbr_mode``) are the JAX driver's.
 Each ``TPairPotentials`` holds its own state point's kT, where the JAX
-driver grafts it into the shared params (``kT_override``).  The angle
-target, multi-timestep integration, a shared prior table and the 'cells'
-mode are not ported: :func:`build_fit` raises ``NotImplementedError``
-naming the ROADMAP item that ports each; ``u_reg_weight`` with a SchNet
-raises too (the JAX driver ignores it there).
+driver grafts it into the shared params (``kT_override``).
+``share_prior_aux`` (SchNet only) hands the GNN's neighbor table to the
+prior, which then runs in mode 'table' (``Stack(share_aux=...)``);
+``mts_inner`` k > 1 (SchNet only) integrates with the
+``MTSNoseHooverChain`` -- the SchNet the slow force, the prior the fast
+one at dt / k -- at an outer step of k dt, over ``opt_freq // k`` frames
+an epoch and every ``frame_skip // k``-th of them, so the inner step and
+the simulated window stay the single-rate fit's.  The angle target and
+the 'cells' mode are not ported: :func:`build_fit` raises
+``NotImplementedError`` naming the ROADMAP item that ports each;
+``u_reg_weight`` with a SchNet raises too (the JAX driver ignores it
+there).
 """
 
 import json
@@ -55,7 +62,7 @@ from ..data.registry import (exp_rdf_data_dict, get_exp_rdf, get_unit_len,
                              load_target, number_density_unit_len)
 from ..interface import GNNPotentials, PairPotentials, Stack, TPairPotentials
 from ..lattice import square_lattice_2d
-from ..md import NoseHooverChain, Simulation, rethermalize
+from ..md import MTSNoseHooverChain, NoseHooverChain, Simulation, rethermalize
 from ..nn import PairMLP, SchNet, TPairMLP
 from ..nn.convert import pair_mlp_params_from_numpy, schnet_params_from_numpy
 from ..observables import rdf
@@ -144,10 +151,6 @@ def _check_ported(sys_params):
          and not _pair_family(sys_params),
          "the well-depth guard with a SchNet (it guards the pair families "
          "only; the JAX driver ignores it here)"),
-        ("share_prior_aux", bool(get("share_prior_aux")),
-         "Stack(share_aux=...) (ROADMAP Queue 1, Slice D)"),
-        ("mts_inner", int(get("mts_inner", 0) or 0) > 1,
-         "the multi-timestep MTSNoseHooverChain (ROADMAP Queue 1, Slice D)"),
         ("angle_flag", bool(get("angle_flag")),
          "the angle-distribution target (ROADMAP Queue 1, Slice F2)"),
     ]
@@ -162,6 +165,8 @@ def _check_ported(sys_params):
 
 def _pair_family(sys_params):
     return bool(sys_params.get("pair_flag") or sys_params.get("tpair_flag"))
+
+
 
 
 def _build_net_and_prior(assignments, sys_params=None, device="cuda"):
@@ -220,6 +225,10 @@ def build_fit(assignments, sys_params, registry=None, rng=None,
     Q = float(sys_params.get("Q") or 50.0)
     nhc_tau = sys_params.get("nhc_tau")
     slack = float(sys_params.get("capacity_slack", 1.6))
+    # the prior reads the GNN's table; the pair families never share
+    share = bool(sys_params.get("share_prior_aux")) and not \
+        _pair_family(sys_params)
+    mts_k = int(sys_params.get("mts_inner", 0) or 0)
 
     systems, sims, observers, targets, r_axes = [], [], [], [], []
     for tag in all_sys:
@@ -243,17 +252,25 @@ def build_fit(assignments, sys_params, registry=None, rng=None,
                 skin=float(sys_params.get("gnn_skin", 0.0)), device=device)
         stack = Stack({
             "nn": nn_int,
-            "pair": PairPotentials(system, prior, cutoff=cutoff,
-                                   mode=sys_params.get("prior_mode", "auto"),
-                                   device=device)})
+            "pair": PairPotentials(
+                system, prior, cutoff=cutoff, device=device,
+                mode="table" if share else sys_params.get("prior_mode",
+                                                          "auto"))},
+            share_aux={"pair": "nn"} if share else None)
         if dtype != torch.float32:
             stack.to(dtype)
         params = fit_parameters(stack)
-        integ = NoseHooverChain(
-            stack, system, T=registry_T_kelvin(entry), Q=Q, tau=nhc_tau,
-            num_chains=5, adjoint=bool(sys_params.get("adjoint", True)),
-            topology_update_freq=sys_params.get("topology_update_freq", 1),
-            device=device, dtype=dtype)
+        kw = dict(T=registry_T_kelvin(entry), Q=Q, tau=nhc_tau, num_chains=5,
+                  adjoint=bool(sys_params.get("adjoint", True)),
+                  topology_update_freq=sys_params.get("topology_update_freq",
+                                                      1),
+                  device=device, dtype=dtype)
+        if mts_k > 1 and not _pair_family(sys_params):
+            # the SchNet at the outer step, the prior at dt / k
+            integ = MTSNoseHooverChain(stack, system, fast_keys=("pair",),
+                                       n_inner=mts_k, **kw)
+        else:
+            integ = NoseHooverChain(stack, system, **kw)
         x, g_obs, obs = get_observer(
             system, tag, nbins, registry,
             backend=assignments.get("rdf_backend", "xla"), device=device,
@@ -412,6 +429,13 @@ def fit_rdf(assignments, sys_params, model_path=None, log=print,
     n_sim = sys_params.get("n_sim", 2)
     tau = assignments["opt_freq"]
     frame_skip = sys_params.get("frame_skip", 20)
+    # multiple time steps: the outer step is k dt, so an epoch takes
+    # tau // k frames and every (frame_skip // k)-th of them (as in the JAX
+    # driver, also for a pair family, which integrates at one rate)
+    dt_mult = max(int(sys_params.get("mts_inner", 0) or 0), 1)
+    if dt_mult > 1:
+        tau = max(2, tau // dt_mult)
+        frame_skip = max(1, frame_skip // dt_mult)
 
     comps = build_fit(assignments, sys_params, registry, rng=rng,
                       device=device)
@@ -469,7 +493,7 @@ def fit_rdf(assignments, sys_params, model_path=None, log=print,
             f"{np.round(depth_guard.floor, 3)}")
 
     def dt_for(tag):
-        return sys_params["dt"] * _dt_scale(registry[tag])
+        return sys_params["dt"] * _dt_scale(registry[tag]) * dt_mult
 
     loss_fns, md_states = [], []
     for tag, sim, obs, g_t, system in zip(all_sys, sims, observers, targets,

@@ -10,9 +10,11 @@ plus ``-device`` (default ``cuda``; ``cpu`` for a run without a card).
 Verlet skin (with ``-update_freq`` for its refresh cadence).  ``--pair``
 and ``--tpair`` fit a PairMLP / TPairMLP (width 115, 3 layers, ELU,
 400 bins, 192-step epochs) after Boltzmann-inversion pretraining, with
-``-rdf_backend pallas`` through the RDF kernels.  Flags of branches the
-port does not have yet (``--angle``, ``-mts``, ``--share_prior_aux``,
-``-nbr_mode cells``) raise NotImplementedError.
+``-rdf_backend pallas`` through the RDF kernels.  ``-mts k`` integrates
+with the multiple-time-step chain (the prior at dt / k) and
+``--share_prior_aux`` hands the SchNet's table to the prior.  Flags of
+branches the port does not have yet (``--angle``, ``-nbr_mode cells``)
+raise NotImplementedError.
 
     python scripts/run_water_torch.py                        # on the card
     python scripts/run_water_torch.py -compute_dtype bf16 -gnn_skin 0.5 \

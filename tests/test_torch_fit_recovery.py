@@ -347,8 +347,7 @@ def test_validation_state_point_adds_nothing_to_the_gradient(
 
 
 @pytest.mark.parametrize("key,value", [
-    ("u_reg_weight", 0.1), ("share_prior_aux", True), ("mts_inner", 2),
-    ("angle_flag", True), ("nbr_mode", "cells")])
+    ("u_reg_weight", 0.1), ("angle_flag", True), ("nbr_mode", "cells")])
 def test_unported_branches_raise(lj_registry, key, value):
     with pytest.raises(NotImplementedError, match=key):
         fit_rdf.build_fit(ASSIGNMENTS, {**SYS_PARAMS, key: value},
@@ -368,12 +367,17 @@ def test_unported_registry_and_dtype_raise(lj_registry):
     ({"compute_dtype": "bf16"}, {}),
     ({"compute_dtype": "mixed"}, {}),
     ({}, {"nbr_mode": "topk"}),
-    ({}, {"nbr_mode": "sparse"})],
-    ids=["gnn_skin", "bf16", "mixed", "topk", "sparse"])
+    ({}, {"nbr_mode": "sparse"}),
+    ({}, {"share_prior_aux": True}),
+    ({}, {"mts_inner": 2})],
+    ids=["gnn_skin", "bf16", "mixed", "topk", "sparse", "share_prior_aux",
+         "mts_inner"])
 def test_ported_branches_run(lj_registry, captured, assignments, sys_params):
-    """The branches that raised before the SchNet and GNN rest was ported
-    now build and fit: one epoch gives a finite loss and moves the
-    parameters, with the skin, the dtype and the neighbor mode in place."""
+    """The branches that raised before the SchNet and GNN rest and the
+    multistate slice were ported now build and fit: one epoch gives a
+    finite loss and moves the parameters, with the skin, the dtype, the
+    neighbor mode, the shared prior table and the multiple-time-step
+    integrator in place."""
     out = fit_rdf.fit_rdf({**ASSIGNMENTS, **assignments},
                           {**SYS_PARAMS, "n_epochs": 1, "n_sim": 0,
                            **sys_params}, registry=lj_registry,
@@ -388,8 +392,14 @@ def test_ported_branches_run(lj_registry, captured, assignments, sys_params):
     assert gnn.nbr_mode == sys_params.get("nbr_mode", "table")
     assert gnn.gnn.compute_dtype == assignments.get("compute_dtype",
                                                     "float32")
-    assert captured["sims"][0].integrator.topology_update_freq == \
+    integ = captured["sims"][0].integrator
+    assert integ.topology_update_freq == \
         sys_params.get("topology_update_freq", 1)
+    share = bool(sys_params.get("share_prior_aux"))
+    assert integ.model.share_aux == ({"pair": "nn"} if share else {})
+    assert (integ.model.models["pair"].mode == "table") == share
+    assert isinstance(integ, mt.MTSNoseHooverChain) == \
+        (sys_params.get("mts_inner", 0) > 1)
 
 
 def test_init_pkl_reads_numpy_only(tmp_path):

@@ -121,7 +121,7 @@ def test_port_and_jax_package_do_not_import_each_other():
     banned = ("jax", "jaxlib", "flax", "optax", "mdgrad_tpu")
     port_files = [*sorted((REPO / "mdgrad_tpu_torch").rglob("*.py")),
                   REPO / "chip_smoke.py",
-                  REPO / "scripts" / "run_water_torch.py"]
+                  *sorted((REPO / "scripts").glob("*_torch.py"))]
     for path in port_files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in banned, (path, mod)
