@@ -111,7 +111,7 @@ its phases, printing one line as each check ends:
 4g. isom  -- ``fit_isomerization`` as ``scripts/run_isom_torch.py`` runs
    it: the retinal operators (D = 716), the Gaussian pulse (6095 field
    samples), SGD at lr 1e-2, look_back 20000, 2 of 40 epochs, each cut
-   from 30479 RK4 steps to 18000, through the replay adjoint; each
+   from 30479 RK4 steps to 10000, through the replay adjoint; each
    epoch's seconds, the
    replay's forward and backward seconds, peak memory, the yields; then a
    2000-step gradient of the yield objective with respect to the field
@@ -133,6 +133,42 @@ its phases, printing one line as each check ends:
    the forces of each outer step (1 slow, 3 fast); then with
    ``share_prior_aux`` (the prior in mode 'table' on the SchNet's table)
    for 1 epoch.  Each launches every water kernel.
+4j. large n -- the cell list (``ops/cells.py``): the 4096-site water box
+   (``run_water.py -size 8``, diamond at 0.99749 g/cm^3, positions moved
+   by 0.1 A) through ``GNNPotentials(nbr_mode='cells')``, its table held as
+   row sets to the dense ``generate_neighbor_table`` (K from the dense
+   count, slack 1.6), both builds timed; K2b's CSR build at that table (the
+   grid path, past 2047 rows) against the plain build and timed; K1, K2a
+   and K2b on that table and K3/K4, K3b/K4b at 52 x 4096 (and K3/K4 at 1 x
+   4096 x 800) against their plain versions; ``CellLJPair`` at 48,668
+   atoms (FCC 23^3, a = 1.679, ``benchmarks/bench_large_n.py``) against
+   K5 on the same positions, then 200 NVE steps through it (dt 0.002):
+   steps/s and the energy drift; then ``fit_rdf`` as ``run_water.py -size
+   8 -nbr_mode cells -rdf_backend pallas -frame_skip 1`` runs it (SchNet
+   "low", seeded weights), 2 epochs and one 100-step rollout before the
+   800-bin RDF: seconds an epoch, peak memory, the launches of every water
+   kernel an epoch (each must launch, every CSR build on the grid path).
+4k. npt, reverse and langevin -- ``scripts/run_npt_fit_torch.py``'s
+   reduced LJ mode (lj_0.845_1.2, 108 atoms, the truth NVT for P_target,
+   ``NPTMTKNHC`` through the replay adjoint, the RDF term) for 2 epochs
+   at its defaults (4 evaluation epochs of 16): the losses and the
+   densities; its water mode at 512
+   sites (SchNet 128/128, 30 Gaussians, bf16), 1 epoch and 1 evaluation
+   epoch: the bf16 K1, K2a and K2b and the CSR build launch, no f32
+   gather; the reverse-time adjoint's d/d(sigma, eps) on phase 4b's
+   1372-atom ``PallasLJPair`` NVE epoch (a loss on the last frame's
+   g(r)) against the replay's, K6, K6b, K3/K4 and K3b/K4b launching in
+   both; ``Langevin`` (friction 5) on 4000-atom ``PallasLJPair``: the
+   mean temperature over 500 steps after 200 within 5% of its target, one
+   K6 a step.
+4l. angle and difftre -- phase 4c's fit with the water angle target
+   (``--angle``, 3.7 A, 64 bins) for 1 epoch: a finite ``angle_mse``,
+   every water kernel launched; ``scripts/run_difftre_torch.py`` at its
+   full size (lj_0.7_1, 500 atoms, the PairMLP after 500 of its 2000 BI
+   iterations, 16 frames every 30 steps after 300, from 48 every 60 after
+   1200), 2 outers of up to 5 inner steps: the losses and the ESS.  The NPT LJ fit, the cell-list LJ run
+   and DiffTRE launch no kernel (plain PyTorch, as the JAX package's
+   ``jnp``).
 5. times   -- each kernel, its plain version and its library yardstick with
    CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms; K3/K4 at 50
    and 3 frames of 512 sites, at 10 of 1372, at 1 of 512 with 800
@@ -167,12 +203,14 @@ its phases, printing one line as each check ends:
    outputs in the two libraries; one JSON line ``{"pair_ab": ...}``.
 
 Launch counts are zeroed just before phases 3, 3b, 4 and 4b, each call
-of 4c, 4e, 4f, 4g, 4h and 4i and each run of 4d, and read just after each:
-phases 3, 4, 4c, 4e and 4i must launch every water kernel, the CSR build
-included, 4d the bf16 gather kernels in their place, 4f's water pair fits
-K3/K4 and K3b/K4b in every epoch, 4h's GNN fit K1, K2a, K2b and the CSR
-build in every epoch, 4g no kernel at all, and none may call a plain
-version.  The line before the last is a JSON object with one record per
+of 4c, 4e, 4f, 4g, 4h, 4i, 4j, 4k and 4l and each run of 4d, and read just
+after each: phases 3, 4, 4c, 4e, 4i, 4j's fit and 4l's angle fit must
+launch every water kernel, the CSR build included, 4d and 4k's NPT water
+fit the bf16 gather kernels in their place, 4f's water pair fits K3/K4
+and K3b/K4b in every epoch, 4h's GNN fit K1, K2a, K2b and the CSR build in
+every epoch, 4k's reverse-time and replay epochs K6, K6b, K3/K4 and
+K3b/K4b, its Langevin run K6, 4g no kernel at all, and none may call a
+plain version.  The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits non-zero.  Without a CUDA device it exits
 1 and prints no result.
@@ -920,12 +958,13 @@ def pair_phase(mt, torch, dev, records):
 # fit_isomerization as scripts/run_isom_torch.py runs it (the retinal
 # operators, D = 716; the Gaussian pulse of 6095 field samples; SGD at lr
 # 1e-2; look_back 20000, here every frame), cut from 40 epochs to 2 and
-# from 30479 RK4 steps an epoch to 18000 (the field is off from step 15239
-# on): on an H100 a step took 2.6-3.5 ms from one call to another, and two
-# epochs of 30479, 24000 and 22000 steps 169.7, 143.7 and 147.4 s, too
-# close to the phase's 150 s; then a 2000-step gradient held to the CPU
-# port in float64
-ISOM_EPOCHS, ISOM_LR, ISOM_STEPS = 2, 1e-2, 18000
+# from 30479 RK4 steps an epoch to 10000 (the field is on throughout; it
+# is off from step 15239 on): on an H100 a step took 2.6-3.9 ms from one
+# call to another, and two epochs of 30479, 24000, 22000, 18000 and 12000
+# steps 169.7, 143.7, 147.4, ~100 and 93.2 s, too much beside the later
+# phases (4j-4l) in the smoke's time; then a 2000-step gradient held to
+# the CPU port in float64
+ISOM_EPOCHS, ISOM_LR, ISOM_STEPS = 2, 1e-2, 10000
 ISOM_GRAD_STEPS, ISOM_GRAD_LOOK_BACK = 2000, 1000
 # |g_card - g_cpu64| / |g_cpu64| of d(objective)/d(e_field) over 2000 steps
 # in float32 on the card: 7.1e-6 in float32 on the CPU
@@ -2512,6 +2551,482 @@ def lj_times(mt, torch, dev, gen):
     return out
 
 
+# ---- phases 4j-4l: large N, NPT / Langevin / reverse, angles / DiffTRe ---
+
+# the 4096-site water fit of BENCH.md's best water run: run_water.py -size 8
+# -nbr_mode cells -rdf_backend pallas -frame_skip 1, SchNet "low", cut to 2
+# epochs and one 100-step rollout before the 800-bin RDF
+FIT_CELLS = {"n_epochs": 2, "n_sim": 1, "size": 8, "nbr_mode": "cells",
+             "frame_skip": 1}
+# benchmarks/bench_large_n.py's largest box: FCC 23^3 at a = 1.679
+CELL_LJ_CELLS = 23
+CELL_LJ_STEPS = 200
+
+
+def sorted_rows(torch, table):
+    """Each row's neighbor set: the masked table sorted along its rows."""
+    return torch.sort(torch.where(table.mask, table.table.long(),
+                                  table.table.shape[0]), dim=1).values
+
+
+def large_n_phase(mt, torch, dev, records, timing, compare):
+    """Phase 4j (see the module docstring): returns its numbers."""
+    import tempfile
+    import numpy as np
+    from mdgrad_tpu_torch import ops, topology
+    from mdgrad_tpu_torch.ops import cells, gather, rdf as rdf_ops
+    from mdgrad_tpu_torch.train import fit_rdf
+    out = {}
+    # (a) the 4096-site water box's table, cells against dense
+    system = fit_rdf.get_system("H20_298K_redd", 8,
+                                rng=np.random.default_rng(SEED))
+    n = system.get_number_of_atoms()
+    t0 = time.perf_counter()
+    gnn = mt.GNNPotentials(system, fit_rdf._build_net_and_prior(
+        FIT_ASSIGNMENTS, device=dev)[0], cutoff=6.0, nbr_mode="cells",
+        capacity_slack=1.6, device=dev)
+    construct_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    xyz = torch.tensor(system.get_positions(), dtype=torch.float32,
+                       device=dev)
+    xyz = xyz + 0.1 * torch.randn(xyz.shape, device=dev, generator=gen)
+    ops.reset_counts()
+    tab = gnn.aux_init(xyz)
+    ref = topology.generate_neighbor_table(xyz, 6.0, gnn.cell, gnn.k_max)
+    require(not bool(tab.overflow) and not bool(ref.overflow),
+            "no overflow in the 4096-site tables")
+    require(torch.equal(sorted_rows(torch, tab), sorted_rows(torch, ref)),
+            "the cell-list table holds the dense table's neighbors, row by "
+            "row")
+    check_no_kernel(ops.counts(), "cell-list table build")
+    cells_ms = timing.time_loop(lambda: gnn.aux_init(xyz), reps=20)
+    dense_ms = timing.time_loop(lambda: topology.generate_neighbor_table(
+        xyz, 6.0, gnn.cell, gnn.k_max), reps=20)
+    g = gnn.cell_grid
+    line(f"large n: water N={n}, K={gnn.k_max} (dense count at "
+         f"construction, {construct_s:.3f} s), cells {g.dims} of width "
+         f"{g.widths[0]:.4f} A, M={g.M}: the cell-list table equals the "
+         f"dense one as row sets; build {cells_ms:.3f} ms against the "
+         f"dense {dense_ms:.3f} ms (eager loop)")
+    out["table"] = {"k": gnn.k_max, "M": g.M, "dims": g.dims,
+                    "cells_ms": cells_ms, "dense_ms": dense_ms,
+                    "construct_s": construct_s}
+    # (e) the CSR build at that table: the grid path (past 2047 rows)
+    idx = torch.where(tab.mask, tab.table, n).reshape(-1).contiguous()
+    e = idx.shape[0]
+    path = gather.table_index_csr_path(e, n)
+    require(path == "grid", f"the 4096-site table's CSR build takes the "
+            f"grid path (got {path})")
+    csr = {"e": e, "n": n, "path": path,
+           "ms": timing.time_graph(
+               lambda: gather._launch_table_index_csr(idx, n), reps=20),
+           "plain_ms": timing.time_graph(
+               lambda: gather.table_index_csr_plain(idx, n), reps=5),
+           "bound_ms": bound_ms(4 * (2 * e + n + 1), 0)[0]}
+    c_k = gather._launch_table_index_csr(idx, n)
+    c_p = gather.table_index_csr_plain(idx, n)
+    require(all(torch.equal(a, b) for a, b in zip(c_k, c_p)),
+            "the grid-path CSR build equals the plain build at 4096 rows")
+    line(f"large n: CSR build at E={e}, n={n} ({path} path): "
+         f"{csr['ms'] * 1e3:.2f} us, plain {csr['plain_ms'] * 1e3:.2f} us, "
+         f"bound {csr['bound_ms'] * 1e3:.3f} us")
+    out["csr"] = csr
+    # the water kernels at the 4096-site fit's shapes against their plain
+    # versions: K1, K2a, K2b on this table (128 features); K3/K4 and
+    # K3b/K4b on an epoch's 52 frames (frame_skip 1), K3/K4 at the
+    # inference's 800 bins
+    index = gather.TableIndex(idx, n)
+    k, f = gnn.k_max, 128
+    values = torch.randn(n, f, device=dev, generator=gen)
+    w = torch.randn(e, f, device=dev, generator=gen)
+    g_edges = torch.randn(e, f, device=dev, generator=gen)
+    line(f"  gather kernels at N={n}, K={k}, F={f}:")
+    compare("gather_mul_reduce", gather._launch_gather_mul_reduce(
+        values, w, index.idx, k), gather.gather_mul_reduce_plain(
+        values, w, index.idx, k), 1e-5)
+    compare("table_gather", gather._launch_table_gather(values, index.idx),
+            gather.table_gather_plain(values, index.idx), 0.0)
+    compare("table_scatter", gather._launch_table_scatter(g_edges, index),
+            gather.table_scatter_plain(g_edges, index.idx, n), 1e-5)
+    del values, w, g_edges, index
+    frames = xyz + 0.1 * torch.randn((FIT_ASSIGNMENTS["opt_freq"], n, 3),
+                                     device=dev, generator=gen)
+    for nbins in (FIT_ASSIGNMENTS["nbins"], 800):
+        op = mt.observables.rdf(system, nbins, (1.8, 7.5), backend="pallas",
+                                device=dev)._counts
+        x = frames if nbins != 800 else frames[:1].contiguous()
+        line(f"  rdf_counts at F={x.shape[0]} N={n} bins={nbins}:")
+        compare("rdf_counts",
+                rdf_ops._launch(x, op.cell_len, op.mu, op.coeff, op.cutoff),
+                rdf_ops.rdf_counts_plain(x, op.cell_len, op.mu, op.coeff,
+                                         op.cutoff), 1e-4)
+        if nbins != 800:
+            ct = torch.randn(nbins, device=dev, generator=gen)
+            line(f"  rdf_counts_bwd at F={x.shape[0]} N={n}:")
+            compare("rdf_counts_bwd",
+                    rdf_ops._launch_bwd(x, op.cell_len, op.mu, op.coeff,
+                                        op.cutoff, ct),
+                    rdf_ops.rdf_counts_bwd_plain(x, op.cell_len, op.mu,
+                                                 op.coeff, op.cutoff, ct),
+                    1e-4, floor=0.0)
+    del frames, x
+    del gnn, tab, ref
+
+    # (b) CellLJPair at 48,668 atoms against K5 on the same positions
+    lj = lj_system(mt, CELL_LJ_CELLS, 1.2, SEED)
+    n_lj = lj.get_number_of_atoms()
+    cell_pot = cells.CellLJPair(lj, LJ_CUTOFF, sigma=0.9, epsilon=1.0,
+                                device=dev)
+    pallas = mt.ops.PallasLJPair(lj, LJ_CUTOFF, sigma=0.9, epsilon=1.0,
+                                 device=dev)
+    x = torch.tensor(lj.get_positions(), dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        ops.reset_counts()
+        aux = cell_pot.aux_init(x)
+        u_c, f_c = cell_pot.energy_forces(x, aux)
+        check_no_kernel(ops.counts(), "CellLJPair")
+        cell_peak = torch.cuda.max_memory_allocated() - resident
+        u_k, f_k = mt.ops.lj_energy_forces(
+            x, pallas.static[0], LJ_CUTOFF, 0.9, 1.0)
+    err, rel, scale = max_errs(f_c, f_k)
+    rel_u = abs(u_c.item() - u_k.item()) / abs(u_k.item())
+    line(f"large n: CellLJPair N={n_lj} ({cell_pot.dims} cells, M="
+         f"{cell_pot.M}): U {u_c.item():.6f} against K5's {u_k.item():.6f} "
+         f"(rel {rel_u:.3e}, tol 1e-5); forces max_abs_err {err:.3e} (tol "
+         f"{1e-4 * scale:.3e}); overflow {bool(aux.overflow)}; peak "
+         f"{cell_peak} B above the resident")
+    require(not bool(aux.overflow), "no cell overflow at 48,668 atoms")
+    require(rel_u <= 1e-5 and err <= 1e-4 * scale,
+            "CellLJPair agrees with K5 at 48,668 atoms")
+    cell_ms = timing.time_loop(lambda: cell_pot.energy_forces(
+        x, cell_pot.aux_init(x)), reps=10)
+    k5_ms = timing.time_loop(lambda: mt.ops.lj_energy_forces(
+        x, pallas.static[0], LJ_CUTOFF, 0.9, 1.0), reps=10)
+    # (c) 200 NVE steps through the cell list
+    integ = mt.NVE(cell_pot, lj, adjoint=False, device=dev)
+    sim = mt.Simulation(lj, integ)
+    state, _ = sim.initial_state()
+
+    def total_energy(q, v):
+        with torch.no_grad():
+            return (cell_pot.energy(q, cell_pot.aux_init(q))
+                    + 0.5 * (integ.masses * v * v).sum()).item()
+
+    e0 = total_energy(state.q, state.v)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    traj = sim.simulate(steps=CELL_LJ_STEPS, dt=0.002,
+                        frequency=CELL_LJ_STEPS + 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_no_kernel(ops.counts(), "CellLJPair NVE")
+    e1 = total_energy(traj.q[-1], traj.v[-1])
+    drift = abs(e1 - e0) / abs(e0)
+    line(f"large n: CellLJPair NVE N={n_lj}, {CELL_LJ_STEPS} steps at dt "
+         f"0.002 in {wall:.3f} s: {CELL_LJ_STEPS / wall:.2f} steps/s; E_0 "
+         f"{e0:.6f} E_end {e1:.6f} |dE|/|E_0| {drift:.3e} (tol 1e-2); one "
+         f"cell-list force {cell_ms:.3f} ms against K5's {k5_ms:.3f} ms "
+         f"(eager)")
+    require(bool(torch.isfinite(traj.q).all()) and drift < 1e-2,
+            "the 48,668-atom cell-list NVE run is finite and conserves "
+            "energy to 1e-2")
+    out["cell_lj"] = {"n": n_lj, "steps_per_s": CELL_LJ_STEPS / wall,
+                      "drift": drift, "peak": cell_peak, "ms": cell_ms,
+                      "k5_ms": k5_ms}
+    del cell_pot, pallas, integ, sim, traj, x, f_c, f_k, aux
+
+    # (d) the 4096-site water fit
+    with tempfile.TemporaryDirectory() as model_path:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, msgs, marks, widths, wall = fit_call(
+            torch, fit_rdf, ops, gather, model_path, **FIT_CELLS)
+        peak = torch.cuda.max_memory_allocated()
+    for msg in msgs:
+        line(f"large n fit: {msg}")
+    counts = ops.counts()
+    losses = res["loss_log"]
+    require(not res.get("nan_bailout") and len(losses) == 2
+            and bool(np.isfinite(losses).all())
+            and np.isfinite(res["objective"]),
+            "the 4096-site fit gives finite losses and objective")
+    require(res["final"]["H20_298K_redd"]["g_sim"].shape == (800,),
+            "the 4096-site inference RDF has 800 bins")
+    require(not any("overflow" in m for m in msgs),
+            "no neighbor overflow in the 4096-site fit")
+    require(widths.paths() == {"grid"},
+            "every CSR build of the 4096-site fit takes the grid path")
+    check_fit_counts(counts, "4096-site fit")
+    prev = {name: 0 for name in counts["launches"]}
+    per_epoch = []
+    for _, c in marks:
+        per_epoch.append({name: c["launches"][name] - prev[name]
+                          for name in prev})
+        prev = c["launches"]
+    inference = {name: counts["launches"][name] - prev[name]
+                 for name in prev}
+    for c in per_epoch:
+        for name in WATER_KERNELS:
+            require(c[name] > 0, f"kernel {name} launched in each "
+                    "4096-site epoch")
+    epochs = [b - a for a, b in zip([0.0] + [t for t, _ in marks],
+                                    [t for t, _ in marks])]
+    line(f"large n fit: N=4096, losses {losses}, objective "
+         f"{res['objective']!r}; epoch seconds "
+         f"{[round(s, 3) for s in epochs]} (the first from the call, set-up "
+         f"included); inference {wall - marks[-1][0]:.3f} s; call "
+         f"{wall:.3f} s; peak memory {peak} B; CSR builds "
+         f"{widths.describe()}")
+    line(f"large n fit: launches per epoch {per_epoch[-1]}; inference "
+         f"{inference}")
+    for name in WATER_KERNELS:
+        records.setdefault(name, {})["launches_cells_fit_per_epoch"] = \
+            per_epoch[-1][name]
+        records[name]["launches_cells_fit_inference"] = inference[name]
+    out["fit"] = {"epochs": epochs, "wall": wall, "peak": peak,
+                  "per_epoch": per_epoch[-1], "losses": losses,
+                  "infer_s": wall - marks[-1][0]}
+    return out
+
+
+def run_script(name, argv):
+    """``scripts/<name>``'s ``main(argv)``, its printed lines returned."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        load_script(name).main(argv)
+    return buf.getvalue().splitlines()
+
+
+# run_npt_fit_torch.py's reduced LJ mode at its defaults, cut from 150
+# epochs to 2 and from 16 evaluation epochs to 4
+NPT_LJ_ARGV = ["-nepochs", "2", "-eval_epochs", "4"]
+
+
+def npt_langevin_reverse_phase(mt, torch, dev, records):
+    """Phase 4k (see the module docstring): returns its numbers."""
+    import json
+    import tempfile
+    import numpy as np
+    from mdgrad_tpu_torch import ops, thermo
+    out = {}
+    # (a) run_npt_fit_torch.py's reduced LJ mode, 2 epochs at its defaults
+    with tempfile.TemporaryDirectory() as logdir:
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        msgs = run_script("run_npt_fit_torch.py", NPT_LJ_ARGV + [
+            "-logdir", logdir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = json.loads(open(os.path.join(logdir, "result.json")).read())
+    for msg in msgs:
+        line(f"npt lj: {msg}")
+    check_no_kernel(ops.counts(), "NPT LJ fit")
+    rho, tgt = res["rho_log"], res["rho_target"]
+    toward = abs(rho[-1] - tgt) < abs(rho[0] - tgt)
+    line(f"npt lj: losses {res['loss_log']}, densities {rho} against "
+         f"{tgt:.4f} ({'toward' if toward else 'away from'} the target), "
+         f"evaluated {res['rho_best_eval']:.4f}; P0 {res['P0']:.4f}; call "
+         f"{wall:.3f} s")
+    require(len(res["loss_log"]) == 2 and np.isfinite(res["loss_log"]).all()
+            and np.isfinite(res["rho_best_eval"]),
+            "the NPT LJ fit gives finite losses and densities")
+    out["lj"] = {"wall": wall, "rho": rho, "target": tgt,
+                 "losses": res["loss_log"], "toward": toward}
+    # (b) its water mode at 512 sites, SchNet 128/128 in bf16, 1 epoch
+    with tempfile.TemporaryDirectory() as logdir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        msgs = run_script("run_npt_fit_torch.py",
+                          ["-data", "H20_298K_redd", "-size", "4",
+                           "-nepochs", "1", "-eval_epochs", "1", "-logdir",
+                           logdir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        res = json.loads(open(os.path.join(logdir, "result.json")).read())
+    for msg in msgs:
+        line(f"npt water: {msg}")
+    counts = ops.counts()
+    line(f"npt water: launches {counts['launches']}  bf16 "
+         f"{counts['launches_bf16']}; call {wall:.3f} s; peak {peak} B")
+    for name in GATHER_KERNELS:
+        require(counts["launches_bf16"][name] > 0,
+                f"bf16 {name} launched in the NPT water fit")
+    require(counts["launches"]["table_index_csr"] > 0,
+            "the CSR build launched in the NPT water fit")
+    for name, c in counts["launches"].items():
+        require(c == 0 or name == "table_index_csr",
+                f"the NPT water fit launches no f32 {name}")
+    require(sum(counts["plain_calls"].values()) == 0
+            and sum(counts["plain_calls_bf16"].values()) == 0,
+            "no plain version in the NPT water fit")
+    require(np.isfinite(res["loss_log"]).all(),
+            "the NPT water fit gives a finite loss")
+    for name in GATHER_KERNELS:
+        records.setdefault(f"{name}.bf16", {})["launches_npt_water"] = \
+            counts["launches_bf16"][name]
+    records.setdefault("table_index_csr", {})["launches_npt_water"] = \
+        counts["launches"]["table_index_csr"]
+    out["water"] = {"wall": wall, "peak": peak, "loss": res["loss_log"],
+                    "rho": res["rho_log"]}
+
+    # (c) the reverse-time adjoint on phase 4b's 1372-atom epoch
+    system = lj_system(mt, 7, 1.0, SEED)
+    obs = mt.observables.rdf(system, 100, (0.75, 2.5), backend="pallas",
+                             device=dev)
+    grads, counts_by = {}, {}
+    for adjoint in ("reverse", True):
+        inter = mt.ops.PallasLJPair(system, LJ_CUTOFF, sigma=0.95,
+                                    epsilon=1.0, device=dev)
+        sim = mt.Simulation(system, mt.NVE(inter, system, adjoint=adjoint,
+                                           device=dev))
+        state, aux = sim.initial_state()
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        traj, _ = sim.epoch_fn(0.002, 50)(state, aux, {})
+        loss = ((obs(traj.q[-1]) [2] - 1.0) ** 2).mean()
+        grads[adjoint] = torch.stack(torch.autograd.grad(
+            loss, [inter.sigma, inter.epsilon]))
+        torch.cuda.synchronize()
+        counts_by[adjoint] = (ops.counts(), time.perf_counter() - t0,
+                              traj.q.shape[0])
+    rel = ((grads["reverse"] - grads[True]).abs()
+           / grads[True].abs()).max().item()
+    for adjoint in ("reverse", True):
+        c, wall, frames = counts_by[adjoint]
+        line(f"reverse adjoint: {'reverse' if adjoint == 'reverse' else 'replay'}"
+             f" d/d(sigma, eps) {grads[adjoint].tolist()} in {wall:.3f} s, "
+             f"{frames} frames kept; launches {c['launches']}")
+        for name in ("lj_force", "lj_force_vjp", "rdf_counts",
+                     "rdf_counts_bwd"):
+            require(c["launches"][name] > 0, f"{name} launched in the "
+                    f"{adjoint} epoch")
+        require(sum(c["plain_calls"].values()) == 0,
+                "no plain version in the reverse-adjoint check")
+    line(f"reverse adjoint: N=1372, 49 steps, loss on the last frame's "
+         f"g(r): reverse vs replay max rel err {rel:.3e} (tol 2e-3)")
+    require(rel <= 2e-3, "the reverse-time adjoint matches the replay")
+    for name in ("lj_force", "lj_force_vjp"):
+        records.setdefault(name, {})["launches_reverse"] = \
+            counts_by["reverse"][0]["launches"][name]
+    out["reverse"] = {"rel": rel, "grads": grads["reverse"].tolist()}
+
+    # (d) Langevin on 4000-atom PallasLJPair
+    target = 1.2
+    system = lj_system(mt, 10, target, SEED)
+    inter = mt.ops.PallasLJPair(system, LJ_CUTOFF, sigma=0.9, epsilon=1.0,
+                                device=dev)
+    integ = mt.Langevin(inter, system, T=target / mt.units.kB,
+                        friction=5.0, adjoint=False, seed=SEED, device=dev)
+    sim = mt.Simulation(system, integ)
+    sim.simulate(steps=200, dt=0.002, frequency=201)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    traj = sim.simulate(steps=500, dt=0.002, frequency=501)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.counts()
+    with torch.no_grad():
+        temps = torch.stack([thermo.temperature(v, system.get_masses())
+                             for v in traj.v[1:]])
+    t_mean = temps.mean().item()
+    line(f"langevin: N=4000, friction 5, 500 steps after 200 in {wall:.3f} "
+         f"s ({500 / wall:.2f} steps/s): mean kT {t_mean:.5f} against "
+         f"{target} ({abs(t_mean - target) / target:.2%}, tol 5%); "
+         f"launches {counts['launches']}")
+    require(abs(t_mean - target) / target < 0.05,
+            "Langevin holds the temperature within 5%")
+    # the epoch's entry force and one force a step
+    require(counts["launches"]["lj_force"] == 501
+            and counts["launches"]["lj_energy_forces"] == 0,
+            "Langevin runs one K6 force a step")
+    check_no_kernel(counts, "Langevin run", allowed=("lj_force",))
+    records.setdefault("lj_force", {})["launches_langevin"] = \
+        counts["launches"]["lj_force"]
+    out["langevin"] = {"t_mean": t_mean, "steps_per_s": 500 / wall}
+    return out
+
+
+# fit_rdf at phase 4c's settings with the water angle target (3.7 A,
+# run_water.py --angle), 1 epoch, no rollout
+FIT_ANGLE = {"n_epochs": 1, "n_sim": 0, "angle_flag": True,
+             "angle_k_max": 24}
+FIT_ANGLE_ASSIGNMENTS = {"angle_weight": 1.0, "angle_cutoff": 3.7,
+                         "angle_nbins": 64, "angle_start": 0.5}
+# run_difftre_torch.py at its full size (500 atoms), 2 outers of 5 inner
+# steps, cut in depth: 16 frames every 30 steps (from 48 every 60) after
+# 300 steps (from 1200), 500 BI iterations (from 2000)
+DIFFTRE_ARGV = ["-n_outer", "2", "-inner_steps", "5", "-n_frames", "16",
+                "-steps_between", "30", "-equil_steps", "300",
+                "-pretrain", "500"]
+
+
+def angle_difftre_phase(torch, records):
+    """Phase 4l (see the module docstring): returns its numbers."""
+    import json
+    import tempfile
+    import numpy as np
+    from mdgrad_tpu_torch import ops
+    from mdgrad_tpu_torch.ops import gather
+    from mdgrad_tpu_torch.train import fit_rdf
+    out = {}
+    res, msgs, marks, _, wall = fit_call(torch, fit_rdf, ops, gather, None,
+                                         FIT_ANGLE_ASSIGNMENTS, **FIT_ANGLE)
+    for msg in msgs:
+        line(f"angle fit: {msg}")
+    counts = ops.counts()
+    fin = res["final"]["H20_298K_redd"]
+    line(f"angle fit: loss {res['loss_log']}, angle_mse {fin['angle_mse']!r}"
+         f", objective {res['objective']!r}; epoch {marks[0][0]:.3f} s "
+         f"from the call; launches {counts['launches']}")
+    require(len(res["loss_log"]) == 1 and np.isfinite(res["loss_log"][0])
+            and np.isfinite(fin["angle_mse"])
+            and fin["angle_sim"].shape == (64,),
+            "the angle fit gives a finite loss and angle_mse")
+    check_fit_counts(counts, "angle fit")
+    for name in WATER_KERNELS:
+        records.setdefault(name, {})["launches_angle_fit"] = \
+            counts["launches"][name]
+    out["angle"] = {"epoch_s": marks[0][0], "wall": wall,
+                    "angle_mse": fin["angle_mse"]}
+    with tempfile.TemporaryDirectory() as logdir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        msgs = run_script("run_difftre_torch.py",
+                          DIFFTRE_ARGV + ["-logdir", logdir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        hist = json.loads(open(os.path.join(logdir,
+                                            "history.json")).read())
+    for msg in msgs:
+        line(f"difftre: {msg}")
+    check_no_kernel(ops.counts(), "DiffTRE fit")
+    line(f"difftre: N=500, {len(hist)} outers: losses "
+         f"{[h['loss'] for h in hist]}, reweighted "
+         f"{[h['loss_rw'] for h in hist]}, min ESS/F "
+         f"{[h['ess'] for h in hist]}, inner steps "
+         f"{[h['inner'] for h in hist]}; call {wall:.3f} s; peak {peak} B")
+    require(len(hist) == 2 and all(np.isfinite(h["loss"]) and 0 < h["ess"]
+                                   <= 1 for h in hist),
+            "DiffTRE gives 2 outers of finite loss and ESS")
+    out["difftre"] = {"wall": wall, "peak": peak, "hist": hist}
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--against", action="append", default=[],
@@ -2793,6 +3308,18 @@ def main():
     # ---- 4i. fit_rdf with multiple time steps and the shared prior table ---
     mts_share = mts_share_phase(torch, records)
     phase_done("mts and share")
+
+    # ---- 4j. large N: the cell list, 48,668 LJ atoms, the 4096-site fit -
+    large = large_n_phase(mt, torch, dev, records, timing, compare)
+    phase_done("large n")
+
+    # ---- 4k. NPT fits, the reverse-time adjoint, Langevin ----------------
+    npt = npt_langevin_reverse_phase(mt, torch, dev, records)
+    phase_done("npt, reverse and langevin")
+
+    # ---- 4l. the angle target and DiffTRE ---------------------------------
+    angled = angle_difftre_phase(torch, records)
+    phase_done("angle and difftre")
 
     # ---- 5. times ---------------------------------------------------------
     e_real = n_real
@@ -3100,6 +3627,28 @@ def main():
          f"{[round(e, 3) for e in mts_share['mts_epochs']]} s (the first "
          f"from the call, 25 outer steps each); the shared-prior epoch "
          f"ended {mts_share['share_s']:.3f} s into its call")
+    lf, lc = large["fit"], large["cell_lj"]
+    line(f"time large n fit: N = 4096 (K = {large['table']['k']}, cells "
+         f"{large['table']['dims']}, M = {large['table']['M']}), epochs "
+         f"{[round(e, 3) for e in lf['epochs']]} s (the first from the "
+         f"call), inference {lf['infer_s']:.3f} s, peak memory {lf['peak']}"
+         f" B; the table build {large['table']['cells_ms']:.3f} ms against "
+         f"the dense {large['table']['dense_ms']:.3f} ms; the CSR build "
+         f"({large['csr']['path']} path, E = {large['csr']['e']}) "
+         f"{large['csr']['ms'] * 1e3:.2f} us")
+    line(f"time cell lj: N = {lc['n']}, {lc['steps_per_s']:.2f} NVE steps/s"
+         f", energy drift {lc['drift']:.3e}, one force {lc['ms']:.3f} ms "
+         f"against K5's {lc['k5_ms']:.3f} ms, peak {lc['peak']} B above the "
+         f"resident")
+    line(f"time npt: the LJ fit call {npt['lj']['wall']:.3f} s (2 epochs + "
+         f"4 evaluation epochs), the water fit call (512 sites, bf16) "
+         f"{npt['water']['wall']:.3f} s, peak {npt['water']['peak']} B; "
+         f"reverse vs replay {npt['reverse']['rel']:.3e}; Langevin "
+         f"{npt['langevin']['steps_per_s']:.2f} steps/s at N = 4000, mean "
+         f"kT {npt['langevin']['t_mean']:.5f}")
+    line(f"time angle fit: epoch {angled['angle']['epoch_s']:.3f} s from "
+         f"the call; difftre call {angled['difftre']['wall']:.3f} s (2 "
+         f"outers at N = 500), peak {angled['difftre']['peak']} B")
     sp = paired["sparse"]
     line(f"time sparse prior: N = 1728, capacity {sp['capacity']}, SchNet "
          f"K = {sp['k']} (CSR {'/'.join(sp['paths'])} path); one 20-step "

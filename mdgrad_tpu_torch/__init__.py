@@ -11,12 +11,13 @@ and are built at their first launch (``ops/_build.py``).
 from . import observables, ops, potentials, thermo, topology, units
 from .interface import (GNNPotentials, PairPotentials, Stack,
                         TPairPotentials, WithDynamicCell)
-from .md import MTSNoseHooverChain, NVE, NoseHooverChain, Simulation
+from .md import (Langevin, MTSNoseHooverChain, NPTBerendsenNHC, NPTMTKNHC,
+                 NVE, NoseHooverChain, Simulation)
 from .nn import MLP, MLP2d, PairMLP, SchNet, TPairMLP
 from .system import System
 
-__all__ = ["GNNPotentials", "MLP", "MLP2d", "MTSNoseHooverChain", "NVE",
-           "NoseHooverChain", "PairMLP", "PairPotentials", "SchNet",
+__all__ = ["GNNPotentials", "Langevin", "MLP", "MLP2d", "MTSNoseHooverChain",
+           "NPTBerendsenNHC", "NPTMTKNHC", "NVE", "NoseHooverChain", "PairMLP", "PairPotentials", "SchNet",
            "Simulation", "Stack", "System", "TPairMLP", "TPairPotentials",
            "WithDynamicCell", "observables", "ops", "potentials", "thermo",
            "topology", "units"]

@@ -1,12 +1,12 @@
-"""Lattice constants and the RDF targets of the fitting workloads (port of
+"""Lattice constants and the targets of the fitting workloads (port of
 ``mdgrad_tpu/data/registry.py``: ``exp_rdf_data_dict`` -- a-Si, water O-O
-and argon -- and the lazily scanned ``pair_data_dict`` of simulated pair
-targets).
+and argon -- the lazily scanned ``pair_data_dict`` of simulated pair
+targets, and the water angle-distribution targets ``angle_data_dict`` with
+their loader ``exp_angle_data``).
 
 The target files are read in place from the JAX package's vendored copy,
 ``mdgrad_tpu/data/targets/``, by file path: they are never copied, and
-nothing of that package is imported.  The angle targets come with the
-angle observables.
+nothing of that package is imported.
 """
 
 import functools
@@ -82,6 +82,19 @@ _RDF_RE = re.compile(r"rdf_(?P<extra>.*?)rho(?P<rho>[\d.]+)_T(?P<T>[\d.]+)"
 _STRIPE_RE = re.compile(r"overalp_(?P<rho>[\d.]+)_k(?P<k>[\d.]+)"
                         r"_V0(?P<v0>[\d.]+)_(?P<T>[\d.]+)"
                         r"(?:_cutoff(?P<cut>[\d.]+))?\.csv$")
+
+
+def exp_angle_data(nbins, angle_range, fn=None):
+    """An experimental angle distribution (``fn``, default the water
+    O-O-O target ``water_angle_pccp.csv``: rows of degrees and density)
+    interpolated onto ``nbins`` points over ``angle_range`` (radians) and
+    normalised to sum 1; float64 numpy."""
+    fn = fn or str(DATA_DIR / "water_angle_pccp.csv")
+    angle_data = np.loadtxt(fn, delimiter=",")
+    theta = angle_data[:, 0] * np.pi / 180
+    xnew = np.linspace(angle_range[0], angle_range[1], nbins)
+    d = np.interp(xnew, theta, angle_data[:, 1])
+    return d / d.sum()
 
 
 def _scan_family(dirname, prefix, r_range, target_pot):
@@ -242,4 +255,12 @@ exp_rdf_data_dict = {
         "fn": str(DATA_DIR / "argon_exp" / "argon_exp.csv"),
         "rho": 1.417, "T": 298.0, "start": 2.0, "end": 9.0,
         "element": "Ar", "mass": 39.948, "N_unitcell": 4, "cell": "fcc"},
+}
+
+# the water O-O-O angle targets by angle cutoff (Angstrom)
+angle_data_dict = {
+    "water": {
+        2.7: str(DATA_DIR / "water_angle_deepcg_2.7.csv"),
+        3.7: str(DATA_DIR / "water_angle_deepcg_3.7.csv"),
+    }
 }

@@ -3,8 +3,8 @@
 Port of ``mdgrad_tpu/interface.py``: the :class:`Interaction` contract,
 :class:`PairPotentials` in modes 'dense', 'table' and 'sparse',
 :class:`TPairPotentials`, :class:`GNNPotentials` over an (N, K) neighbor
-table or an edge list, :class:`Stack` (with ``share_aux``) and
-:class:`WithDynamicCell`.
+table (built dense or through the cell list) or an edge list,
+:class:`Stack` (with ``share_aux``) and :class:`WithDynamicCell`.
 
 The JAX contract passes a params pytree into pure functions; here every
 interaction is an ``nn.Module`` that owns its parameters:
@@ -234,18 +234,22 @@ class GNNPotentials(Interaction):
     """GNN force field over a neighbor structure refreshed by
     ``aux_update``.
 
-    ``nbr_mode``: ``'table'`` (the (N, K) table), ``'topk'`` (the directed
-    edge list of each atom's K nearest, ``topology.generate_nbr_list_topk``)
-    or ``'sparse'`` (the (i < j) edge list of fixed ``capacity``,
+    ``nbr_mode``: ``'table'`` (the (N, K) table), ``'cells'`` (the same
+    table built through the fixed-capacity cell list of ``ops/cells.py``:
+    each atom's K nearest among its 27 M cell-neighborhood candidates
+    instead of all N -- the large-N path; diagonal cells, no
+    ``ex_pairs``, no ``cell=`` override), ``'topk'`` (the directed edge
+    list of each atom's K nearest, ``topology.generate_nbr_list_topk``) or
+    ``'sparse'`` (the (i < j) edge list of fixed ``capacity``,
     ``topology.generate_nbr_list``; the JAX package takes any other value
-    for it).  ``'cells'`` is not ported (ROADMAP Queue 1, Slice E).
+    for it).
 
     ``k_max`` defaults to the largest neighbor count inside ``cutoff +
     skin`` at the system's current positions times ``capacity_slack``,
     rounded up to a multiple of 8; ``capacity`` to the pair count times
     ``capacity_slack``, rounded up to 128; as in the JAX package.
 
-    ``skin`` (the Verlet skin, table mode only): the table is built at
+    ``skin`` (the Verlet skin, modes 'table' and 'cells'): the table is built at
     ``cutoff + skin`` and SchNet masks each edge by its current length, so
     a table refreshed every ``topology_update_freq`` steps stays exact
     while no atom moves more than skin / 2 between refreshes.
@@ -260,18 +264,20 @@ class GNNPotentials(Interaction):
         super().__init__()
         check_system(system)
         device = resolve_device(device)
-        if nbr_mode == "cells":
-            raise NotImplementedError(
-                "nbr_mode 'cells' is not ported yet (ROADMAP Queue 1, "
-                "Slice E: large N)")
-        if nbr_mode not in ("table", "topk", "sparse"):
+        if nbr_mode not in ("table", "cells", "topk", "sparse"):
             raise ValueError(f"nbr_mode {nbr_mode!r} not in ('table', "
-                             "'topk', 'sparse')")
-        if skin > 0 and nbr_mode != "table":
-            raise ValueError("skin > 0 requires nbr_mode='table' (the mode "
-                             "with runtime cutoff re-masking)")
+                             "'cells', 'topk', 'sparse')")
+        if skin > 0 and nbr_mode not in ("table", "cells"):
+            raise ValueError("skin > 0 requires nbr_mode='table'/'cells' "
+                             "(the modes with runtime cutoff re-masking)")
         self._register_cell("cell", system)
         self.store_offsets = self.cell.dim() != 1
+        if nbr_mode == "cells":
+            if self.store_offsets:
+                raise ValueError("nbr_mode='cells' needs a diagonal cell")
+            if ex_pairs is not None:
+                raise ValueError("nbr_mode='cells' does not support "
+                                 "ex_pairs/index selections")
         self.gnn = gnn
         self.cutoff = cutoff
         self.skin = skin
@@ -295,12 +301,37 @@ class GNNPotentials(Interaction):
                                             self.cell, self.select_mask)
                 k_max = int(np.ceil(max(k0, 1) * capacity_slack / 8) * 8)
             self.k_max = min(k_max, n)
+        if nbr_mode == "cells":
+            self._cells_density = n / float(self.cell.prod())
+            self._cells_slack = float(capacity_slack)
+            self.register_buffer("_cell_nbrs", torch.zeros(0),
+                                 persistent=False)
         self.to(device)
+        if nbr_mode == "cells":
+            self._make_cell_grid()
+
+    def _make_cell_grid(self):
+        """The cell grid at ``build_cutoff`` and the current slack, its
+        neighbor table on the module's device."""
+        from .ops import cells
+        self._cell_dims, self._cell_widths, self._cell_M, nbrs = \
+            cells.grid_geometry(self.cell.cpu().double().numpy(),
+                                self.build_cutoff, self._cells_density,
+                                slack=self._cells_slack)
+        self._cell_nbrs = torch.as_tensor(nbrs, device=self.cell.device)
+
+    @property
+    def cell_grid(self):
+        from .ops import cells
+        return cells.CellGrid(self._cell_dims, self._cell_widths,
+                              self._cell_M, self._cell_nbrs)
 
     def grow_capacity(self, factor=1.5):
         """``k_max`` times ``factor``, rounded up to a multiple of 8 and
         capped at N (the edge list: ``capacity`` times ``factor``, capped
-        at N (N - 1) / 2); True if it grew."""
+        at N (N - 1) / 2); True if it grew.  'cells' also grows the cell
+        capacity M (its slack times ``factor``), which overflows
+        independently of K, and so always grows."""
         n = int(self.z.shape[0])
         if self.nbr_mode == "sparse":
             new_c = min(int(np.ceil(self.capacity * factor)),
@@ -310,16 +341,25 @@ class GNNPotentials(Interaction):
                 return True
             return False
         new_k = min(int(np.ceil(self.k_max * factor / 8) * 8), n)
-        if new_k > self.k_max:
-            self.k_max = new_k
-            return True
-        return False
+        grew = new_k > self.k_max
+        self.k_max = max(new_k, self.k_max)
+        if self.nbr_mode == "cells":
+            self._cells_slack *= factor
+            self._make_cell_grid()
+            grew = True
+        return grew
 
     def aux_init(self, xyz, cell=None):
         if cell is not None and self.nbr_mode != "table":
             raise ValueError("dynamic cell override requires "
                              "nbr_mode='table'")
         cell = self._cell("cell", xyz, cell)
+        if self.nbr_mode == "cells":
+            from .ops import cells
+            grid = self.cell_grid
+            clist = cells.build_cell_list(xyz, cell, grid)
+            return cells.neighbor_table_from_cells(
+                xyz, clist, grid, cell, self.build_cutoff, self.k_max)
         if self.nbr_mode == "table":
             return topology.generate_neighbor_table(
                 xyz, self.build_cutoff, cell, self.k_max, self.select_mask,
@@ -346,7 +386,7 @@ class GNNPotentials(Interaction):
             raise ValueError("dynamic cell override requires "
                              "nbr_mode='table' with a diagonal cell")
         cell = self._cell("cell", xyz, cell)
-        if self.nbr_mode == "table":
+        if self.nbr_mode in ("table", "cells"):
             return self.gnn.energy(
                 self.z, xyz, aux.table, aux.mask,
                 cell_len=None if self.store_offsets else cell,
@@ -416,7 +456,9 @@ class WithDynamicCell(Interaction):
     ``cell=`` to every call of ``base``.  One integrator then serves state
     points of different boxes (the multistate fit).  ``cell_len0`` is the
     cell of ``aux_init`` without an override; ``base``'s capacity is the
-    one it was built with.  No gradient reaches the cell."""
+    one it was built with.  The cell in the aux is data to the
+    multistate fit; the barostats (``NPTBerendsenNHC``, ``NPTMTKNHC``)
+    hand their state's cell in its place, and gradients reach it there."""
 
     def __init__(self, base, cell_len0):
         super().__init__()

@@ -1,13 +1,16 @@
 """Molecular dynamics of the port: integrators, the simulation loop, the
 fixed-grid ODE solvers and quantum isomerization."""
 
-from .integrators import (MTSNoseHooverChain, NoseHooverChain, NVE,
-                          NVEState, NVEStateF, NVTState, NVTStateF,
-                          rethermalize, rk4_step)
+from .integrators import (Langevin, MTSNoseHooverChain, NoseHooverChain,
+                          NPTBerendsenNHC, NPTMTKNHC, NPTMTKStateF,
+                          NPTStateF, NVE, NVEState, NVEStateF, NVTState,
+                          NVTStateF, rethermalize, rk4_step)
 from .isomerization import Isomerization, PsiState
 from .simulation import Simulation
 from .tinydiffeq import odeint
 
-__all__ = ["Isomerization", "MTSNoseHooverChain", "NVE", "NVEState",
-           "NVEStateF", "NoseHooverChain", "NVTState", "NVTStateF",
-           "PsiState", "Simulation", "odeint", "rethermalize", "rk4_step"]
+__all__ = ["Isomerization", "Langevin", "MTSNoseHooverChain",
+           "NPTBerendsenNHC", "NPTMTKNHC", "NPTMTKStateF", "NPTStateF", "NVE",
+           "NVEState", "NVEStateF", "NoseHooverChain", "NVTState",
+           "NVTStateF", "PsiState", "Simulation", "odeint", "rethermalize",
+           "rk4_step"]

@@ -1,13 +1,15 @@
-"""Fixed-grid epoch integration with the replay adjoint.
+"""Fixed-grid epoch integration with the replay and reverse-time adjoints.
 
-Port of ``mdgrad_tpu/md/adjoint.py`` (``make_odeint``, its stored-state
-replay; the reverse-time variant is not ported yet).
+Port of ``mdgrad_tpu/md/adjoint.py`` (``make_odeint``: its stored-state
+replay and, with ``reverse_step_fn``, its reverse-time reconstruction).
 
 ``odeint(params, state0, aux0, ctrl) -> (traj, final_aux)`` runs
 ``n_steps`` steps; ``traj`` stacks the ``n_steps + 1`` states field by
 field (frame 0 is ``state0``).  ``params`` are the trainable tensors that
 ``step_fn`` reads (the potential's ``nn.Parameter``s); gradients reach
-them, ``state0`` (its cached force included) and ``ctrl``, never ``aux``.
+them, ``state0`` (its cached force included) and the tensors of ``ctrl``,
+never ``aux``.  A ``ctrl`` entry that is not a tensor (Langevin's host
+integer ``noise_step0``) is passed to every step as it is.
 
 * ``adjoint=True``: a ``torch.autograd.Function``.  Its forward runs under
   no grad and stores each step's pre-step state -- after the wrap, exactly
@@ -20,6 +22,15 @@ them, ``state0`` (its cached force included) and ``ctrl``, never ``aux``.
   consumed, the gradients equal direct backprop to roundoff.
 * ``adjoint=False``: plain autograd through the step loop, forces at
   ``create_graph=True``; it keeps every step's graph.
+
+* ``reverse_step_fn`` with ``adjoint`` set: the O(1)-memory adjoint.  The
+  forward keeps the endpoints only (``traj`` has 2 frames, ``state0`` and
+  the last state); the backward re-integrates from the last state with
+  ``reverse_step_fn`` (the stepper at -dt, time reversibility), wraps and
+  refreshes the topology at each reconstructed state, and takes each
+  step's vector-Jacobian product there.  Reconstruction drifts at the
+  rate of float roundoff, so its gradients equal the replay's only to
+  that; ``update_freq`` must be 1.
 
 With grad disabled, or nothing requiring grad, both run the bare loop and
 store nothing: that is the sampling path.
@@ -43,13 +54,14 @@ class _Epoch:
     """One epoch's loop, shared by the sampling, direct and replay paths."""
 
     def __init__(self, step_fn, aux_update_fn, n_steps, update_freq,
-                 skip_first_refresh, wrap_fn):
+                 skip_first_refresh, wrap_fn, reverse_step_fn=None):
         self.step_fn = step_fn
         self.aux_update_fn = aux_update_fn
         self.n_steps = n_steps
         self.update_freq = update_freq
         self.skip_first_refresh = skip_first_refresh
         self.wrap_fn = wrap_fn
+        self.reverse_step_fn = reverse_step_fn
 
     def _refreshes(self, i):
         # with update_freq == 1 the step-0 rebuild is kept: it is the
@@ -59,20 +71,30 @@ class _Epoch:
         return i % self.update_freq == 0 and not (
             self.skip_first_refresh and i == 0)
 
-    def run(self, state, aux, ctrl, create_graph, stored=None):
+    def advance(self, i, state, aux):
+        """The wrap and refresh before step ``i``: the wrap goes with the
+        refresh, so the table is built from the representative the step
+        consumes."""
+        if self._refreshes(i):
+            if self.wrap_fn is not None:
+                state = self.wrap_fn(state, aux)
+            aux = self.aux_update_fn(state, aux)
+        return state, aux
+
+    def run(self, state, aux, ctrl, create_graph, stored=None,
+            endpoints=False):
         """(traj, final aux); appends each step's (state, aux) to
-        ``stored`` when given."""
+        ``stored`` when given.  ``endpoints``: traj holds only the first
+        and the last state."""
         frames = [state]
         for i in range(self.n_steps):
-            if self._refreshes(i):
-                # the wrap goes with the refresh, so the table is built
-                # from the representative the step consumes
-                if self.wrap_fn is not None:
-                    state = self.wrap_fn(state, aux)
-                aux = self.aux_update_fn(state, aux)
+            state, aux = self.advance(i, state, aux)
             if stored is not None:
                 stored.append((state, aux))
             state = self.step_fn(state, aux, ctrl, i, create_graph)
+            if not endpoints:
+                frames.append(state)
+        if endpoints:
             frames.append(state)
         return _stack(frames), aux
 
@@ -125,6 +147,63 @@ class _Replay(torch.autograd.Function):
             [*adj, *d_ctrl], need)))
 
 
+class _Reverse(torch.autograd.Function):
+    """The reverse-time adjoint: inputs and outputs as :class:`_Replay`'s,
+    the outputs two frames deep; nothing stored but the last state."""
+
+    @staticmethod
+    def forward(ctx, job, *inputs):
+        params, s0, c0 = job.split(inputs)
+        traj, job.final_aux = job.epoch.run(
+            job.state(job.state0, s0), job.aux0, job.ctrl(c0),
+            create_graph=False, endpoints=True)
+        ctx.job, ctx.params, ctx.ctrl = job, params, c0
+        ctx.final = traj._replace(**{k: getattr(traj, k)[-1]
+                                     for k in job.fields})
+        return tuple(getattr(traj, k) for k in job.fields)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *cts):
+        job, params, epoch = ctx.job, ctx.params, ctx.job.epoch
+        ctrl = job.ctrl(ctx.ctrl)
+        adj = [ct[-1] for ct in cts]
+        d_params = [None] * len(params)
+        d_ctrl = [None] * len(ctx.ctrl)
+        cur, aux = ctx.final, job.aux0
+        for i in range(epoch.n_steps - 1, -1, -1):
+            # undo step i from the current state, its topology refreshed
+            # there (every step: update_freq is 1); the wrap's lattice
+            # shift leaves the potential alone
+            with torch.no_grad():
+                cur, aux = epoch.advance(i, cur, aux)
+                s_i = epoch.reverse_step_fn(cur, aux, ctrl, i)
+                state_i, aux_i = epoch.advance(i, s_i, aux)
+            with torch.enable_grad():
+                s = [getattr(state_i, k).detach().requires_grad_()
+                     for k in job.fields]
+                c = [t.detach().requires_grad_(t.is_floating_point())
+                     for t in ctx.ctrl]
+                out = epoch.step_fn(job.state(state_i, s), aux_i,
+                                    job.ctrl(c), i, True)
+                wrt = [*params, *s, *(t for t in c if t.requires_grad)]
+                grads = torch.autograd.grad(
+                    [getattr(out, k) for k in job.fields], wrt,
+                    grad_outputs=adj, allow_unused=True)
+            n_p, n_s = len(params), len(s)
+            d_params = [_add(a, g) for a, g in zip(d_params, grads[:n_p])]
+            d_c = iter(grads[n_p + n_s:])
+            d_ctrl = [_add(a, next(d_c)) if t.requires_grad else a
+                      for a, t in zip(d_ctrl, c)]
+            adj = [torch.zeros_like(t) if g is None else g
+                   for g, t in zip(grads[n_p:n_p + n_s], s)]
+            cur, aux = state_i, aux_i
+        adj = [a + ct[0] for a, ct in zip(adj, cts)]
+        need = ctx.needs_input_grad[1 + len(params):]
+        return (None, *d_params, *(g if n else None for g, n in zip(
+            [*adj, *d_ctrl], need)))
+
+
 def _add(acc, g):
     if g is None:
         return acc
@@ -139,7 +218,9 @@ class _Job:
         self.state0 = state0
         self.aux0 = aux0
         self.fields = _tensor_fields(state0)
-        self.ctrl_keys = list(ctrl)
+        self.ctrl_keys = [k for k, v in ctrl.items() if torch.is_tensor(v)]
+        self.ctrl_static = {k: v for k, v in ctrl.items()
+                            if not torch.is_tensor(v)}
         self.n_params = n_params
         self.final_aux = None
 
@@ -151,11 +232,12 @@ class _Job:
         return template._replace(**dict(zip(self.fields, tensors)))
 
     def ctrl(self, tensors):
-        return dict(zip(self.ctrl_keys, tensors))
+        return {**self.ctrl_static, **dict(zip(self.ctrl_keys, tensors))}
 
 
 def make_odeint(step_fn, aux_update_fn, n_steps, update_freq=1,
-                adjoint=True, skip_first_refresh=False, wrap_fn=None):
+                adjoint=True, skip_first_refresh=False, wrap_fn=None,
+                reverse_step_fn=None):
     """Build ``odeint(params, state0, aux0, ctrl) -> (traj, final_aux)``.
 
     step_fn:       (state, aux, ctrl, i, create_graph) -> state, one step;
@@ -171,23 +253,32 @@ def make_odeint(step_fn, aux_update_fn, n_steps, update_freq=1,
                    periodic wrap, applied right before each refresh with
                    the aux it replaces (a dynamic-cell model reads its
                    cell there).
+    reverse_step_fn: optional ``(state, aux, ctrl, i) -> state`` undoing
+                   step i (the stepper at -dt); with ``adjoint`` it selects
+                   the reverse-time adjoint, whose traj holds the first
+                   and the last state only.  Needs ``update_freq == 1``.
     """
+    reverse = reverse_step_fn is not None and adjoint
+    if reverse and update_freq != 1:
+        raise ValueError("reverse-time adjoint requires "
+                         "topology_update_freq == 1")
     epoch = _Epoch(step_fn, aux_update_fn, n_steps, update_freq,
-                   skip_first_refresh, wrap_fn)
+                   skip_first_refresh, wrap_fn, reverse_step_fn)
 
     def odeint(params, state0, aux0, ctrl):
         params = list(params)
         leaves = [*params, *(getattr(state0, k)
                              for k in _tensor_fields(state0)),
-                  *ctrl.values()]
+                  *(v for v in ctrl.values() if torch.is_tensor(v))]
         differentiable = torch.is_grad_enabled() and any(
             t.requires_grad for t in leaves)
         if not differentiable:
-            return epoch.run(state0, aux0, ctrl, create_graph=False)
+            return epoch.run(state0, aux0, ctrl, create_graph=False,
+                             endpoints=reverse)
         if not adjoint:
             return epoch.run(state0, aux0, ctrl, create_graph=True)
         job = _Job(epoch, state0, aux0, ctrl, len(params))
-        fields = _Replay.apply(job, *leaves)
+        fields = (_Reverse if reverse else _Replay).apply(job, *leaves)
         return job.state(state0, fields), job.final_aux
 
     return odeint

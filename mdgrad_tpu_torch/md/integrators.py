@@ -1,10 +1,13 @@
-"""NVE and Nose-Hoover chain NVT integration with a cached force.
+"""NVE, Langevin, Nose-Hoover chain NVT and NPT integration with a cached
+force.
 
 Port of ``mdgrad_tpu/md/integrators.py``: the ``_MDIntegrator`` force
 dispatch, ``prime_state``, the cached symplectic step and the RK4 "3/8
-rule" step (``method="rk4"``, :func:`rk4_step`), ``NVE``,
-``NoseHooverChain`` with ``update_T``, the multiple-time-step
-``MTSNoseHooverChain`` and ``rethermalize``.  An
+rule" step (``method="rk4"``, :func:`rk4_step`), ``NVE``, the BAOAB
+``Langevin``, ``NoseHooverChain`` with ``update_T``, the multiple-time-step
+``MTSNoseHooverChain``, the barostats ``NPTBerendsenNHC`` and
+``NPTMTKNHC`` (the diagonal cell a state variable, on the autograd graph)
+and ``rethermalize``.  An
 interaction with a ``force`` method (the fused
 pair kernels' :class:`~mdgrad_tpu_torch.ops.pair.PallasLJPair`) supplies
 the force itself; for any other, forces are ``-dU/dq`` from
@@ -23,12 +26,13 @@ waits for the device.  An integrator whose ``default_method`` is "rk4"
 starts from the state without the cache (``NVEState`` / ``NVTState``).
 """
 
+import math
 import typing
 
 import numpy as np
 import torch
 
-from .. import units
+from .. import thermo, units
 from .._device import resolve_device
 from ..system import check_system, maxwell_boltzmann_velocities
 from .tinydiffeq import rk4_step
@@ -60,6 +64,25 @@ class NVTStateF(typing.NamedTuple):
     fv: bool           # the cached force is valid
 
 
+class NPTStateF(typing.NamedTuple):
+    v: torch.Tensor
+    q: torch.Tensor
+    pv: torch.Tensor   # Nose-Hoover chain bath momenta
+    cell: torch.Tensor  # (3,) diagonal cell lengths, a state variable
+    f: torch.Tensor    # cached force at q
+    fv: bool           # the cached force is valid
+
+
+class NPTMTKStateF(typing.NamedTuple):
+    v: torch.Tensor
+    q: torch.Tensor
+    pv: torch.Tensor   # Nose-Hoover chain bath momenta
+    cell: torch.Tensor  # (3,) diagonal cell lengths, a state variable
+    peps: torch.Tensor  # () barostat momentum, conjugate to log-volume
+    f: torch.Tensor    # cached force at q
+    fv: bool           # the cached force is valid
+
+
 class _MDIntegrator:
     """Force evaluation and the cached velocity-Verlet-family step."""
 
@@ -72,6 +95,7 @@ class _MDIntegrator:
         self.system = system
         self.masses = torch.as_tensor(system.get_masses(), dtype=dtype,
                                       device=self.device)[:, None]
+        self.dim = system.dim
         self.n_dof = system.get_number_of_atoms() * system.dim
         # True: epochs differentiate through the replay adjoint (per-step
         # states stored, steps re-run in reverse); False: plain autograd
@@ -181,6 +205,93 @@ class NVE(_MDIntegrator):
     def derivs_from_force(self, state, ctrl, f):
         """(dv/dt, None): no bath."""
         return f / self.masses, None
+
+
+def _mix64(x):
+    """splitmix64 of ``x``, to 63 bits: a generator seed whose low 32 bits
+    (all that the CPU generator keeps) already depend on every bit of
+    ``x``."""
+    m = (1 << 64) - 1
+    x = (x + 0x9E3779B97F4A7C15) & m
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & m
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & m
+    return (x ^ (x >> 31)) >> 1
+
+
+class Langevin(_MDIntegrator):
+    """BAOAB Langevin dynamics at ``T`` (Kelvin) with ``friction``:
+    half kick, half drift, the Ornstein-Uhlenbeck velocity refresh, half
+    drift, half kick, with the cached force.
+
+    The noise of step i is a pure function of the global step index
+    ``noise_step0 + i`` (mod 2^32), so the replay adjoint redraws the
+    same noise when it re-runs a step: ``noise_fn(index, shape)`` returns
+    it, by default standard normals from a ``torch.Generator`` on the
+    integrator's device seeded with a hash of (``seed``, index) at every
+    step --
+    not the JAX package's threefry draws, which a test passes in through
+    ``noise_fn``.  ``ctrl`` carries ``kT`` and ``noise_step0``, a host
+    integer (seeding costs no device sync); :meth:`advance_ctrl` moves it
+    on by an epoch's steps, so a later epoch draws fresh noise.
+    Gradients flow through the deterministic map; the noise is data.
+    """
+
+    state_keys = ["velocities", "positions"]
+    default_method = "langevin"
+
+    def __init__(self, potentials, system, T, friction=0.01, adjoint=True,
+                 topology_update_freq=1, seed=0, noise_fn=None,
+                 device="cuda", dtype=torch.float32):
+        super().__init__(potentials, system, adjoint, topology_update_freq,
+                         device=device, dtype=dtype)
+        self.T = T
+        self.friction = friction
+        self.seed = int(seed)
+        self.noise_fn = noise_fn or self._noise
+        self._gen = torch.Generator(device=self.device)
+
+    def _noise(self, index, shape):
+        self._gen.manual_seed(_mix64((self.seed << 32) | index))
+        return torch.randn(shape, generator=self._gen, device=self.device,
+                           dtype=self.dtype)
+
+    def default_ctrl(self):
+        return {"kT": torch.tensor(self.T * units.kB, dtype=self.dtype,
+                                   device=self.device),
+                "noise_step0": 0}
+
+    def advance_ctrl(self, ctrl, n_steps):
+        return {**ctrl, "noise_step0": ctrl["noise_step0"] + int(n_steps)}
+
+    def update_T(self, T):
+        self.T = T
+        return self.default_ctrl()
+
+    def initial_state(self, wrap=True):
+        kw = {"dtype": self.dtype, "device": self.device}
+        q = torch.as_tensor(self.system.get_positions(wrap=wrap), **kw)
+        v = torch.as_tensor(self.system.get_velocities(), **kw)
+        return NVEStateF(v=v, q=q, f=torch.zeros_like(q), fv=False)
+
+    def step(self, state, aux, ctrl, dt, create_graph=False, method=None,
+             t=0.0):
+        if method not in (None, "langevin"):
+            raise ValueError(f"Langevin has no method {method!r}")
+        m, v, q = self.masses, state.v, state.q
+        # round, don't truncate: t = i dt can land just below the integer
+        i = int(round(t / dt))
+        index = (ctrl["noise_step0"] + i) % (1 << 32)
+        f0 = state.f if state.fv else self.force(q, aux, create_graph)
+        v = v + 0.5 * dt * f0 / m                      # B
+        q = q + 0.5 * dt * v                           # A
+        c1 = math.exp(-self.friction * dt)             # O
+        c2 = torch.sqrt(ctrl["kT"] * (1 - c1 ** 2) / m)
+        noise = self.noise_fn(index, tuple(v.shape)).to(v)
+        v = c1 * v + c2 * noise
+        q = q + 0.5 * dt * v                           # A
+        f1 = self.force(q, aux, create_graph)
+        v = v + 0.5 * dt * f1 / m                      # B
+        return NVEStateF(v=v, q=q, f=f1, fv=True)
 
 
 class NoseHooverChain(_MDIntegrator):
@@ -317,10 +428,202 @@ class MTSNoseHooverChain(NoseHooverChain):
                          pv=pv + 0.5 * dt * dbath1, f=fs1, fv=True)
 
 
+class _Barostat(NoseHooverChain):
+    """What the two barostats share: the dynamic cell carried in the
+    state, the ``P0`` control, the cell-aware topology refresh and force
+    cache.  ``potentials`` is wrapped in ``WithDynamicCell`` at the
+    system's diagonal cell unless it is one."""
+
+    def __init__(self, potentials, system, T, P, tau_p=None, **kw):
+        from ..interface import WithDynamicCell
+        cell = np.asarray(system.get_cell(), dtype=np.float64)
+        cell_len = np.diag(cell) if cell.ndim == 2 else cell
+        if not isinstance(potentials, WithDynamicCell):
+            potentials = WithDynamicCell(potentials, cell_len)
+        super().__init__(potentials, system, T, **kw)
+        self.P = P
+        # None -> 1000 dt at step time
+        self.tau_p = None if tau_p is None else float(tau_p)
+        self.cell_len0 = torch.tensor(cell_len, dtype=self.dtype,
+                                      device=self.device)
+        # 2-D systems barostat the first `dim` axes only
+        self._scale_mask = torch.tensor(
+            [1.0] * self.dim + [0.0] * (3 - self.dim), dtype=self.dtype,
+            device=self.device)
+
+    def default_ctrl(self):
+        kw = {"dtype": self.dtype, "device": self.device}
+        return {"kT": torch.tensor(self.T * units.kB, **kw),
+                "P0": torch.tensor(self.P, **kw)}
+
+    def update_P(self, P):
+        """Set the target pressure and return the new ``default_ctrl()``
+        (the pressure schedule's entry point, as ``update_T``)."""
+        self.P = P
+        return self.default_ctrl()
+
+    def aux_update_state(self, state, aux):
+        """The topology refresh against the state's own cell
+        (``Simulation.epoch_fn`` prefers this hook)."""
+        return self.model.aux_update(state.q.detach(), aux,
+                                     cell=state.cell.detach())
+
+    def prime_state(self, state, aux, create_graph=False, fresh_aux=False):
+        if not fresh_aux:
+            aux = self.aux_update_state(state, aux)
+        f = self.force(state.q, (state.cell, aux[1]), create_graph)
+        return state._replace(f=f, fv=True), aux
+
+    def _tau_p(self, dt):
+        return 1000.0 * dt if self.tau_p is None else self.tau_p
+
+    def _check(self, method):
+        if method not in (None, "verlet", "NH_verlet"):
+            raise ValueError(f"{type(self).__name__} supports the NH_verlet "
+                             "stepper only")
+
+
+class NPTBerendsenNHC(_Barostat):
+    """Constant pressure: the Nose-Hoover chain thermostat and Berendsen
+    weak coupling of the diagonal cell toward ``P`` (isotropic).  Weak
+    coupling holds the mean density but suppresses the volume
+    fluctuations; :class:`NPTMTKNHC` samples the isothermal-isobaric
+    ensemble.
+
+    A step: one NH-verlet step at the state's cell (the cell reaches the
+    interaction through ``WithDynamicCell``'s aux, ``(state.cell,
+    inner)``), the virial pressure there (``thermo.pressure``, one more
+    gradient of the energy, differentiable again in the replay), then
+    ``q`` and ``cell`` scaled by ``mu = (1 - dt beta / tau_p (P0 -
+    P))^(1 / dim)`` clipped to 1 +- ``max_rescale``.  The cached force is
+    kept across the rescale, the usual weak-coupling approximation.  The
+    cell is a state field on the autograd graph, so the barostatted
+    trajectory, its density included, is differentiable in the
+    potential's parameters.
+    """
+
+    state_keys = ["velocities", "positions", "baths", "cell"]
+
+    def __init__(self, potentials, system, T, P, tau_p=None, beta=1.0,
+                 max_rescale=0.002, **kw):
+        super().__init__(potentials, system, T, P, tau_p=tau_p, **kw)
+        self.beta = float(beta)
+        self.max_rescale = float(max_rescale)
+
+    def initial_state(self, wrap=True):
+        kw = {"dtype": self.dtype, "device": self.device}
+        q = torch.as_tensor(self.system.get_positions(wrap=wrap), **kw)
+        v = torch.as_tensor(self.system.get_velocities(), **kw)
+        return NPTStateF(v=v, q=q, pv=torch.zeros(self.num_chains, **kw),
+                         cell=self.cell_len0.clone(), f=torch.zeros_like(q),
+                         fv=False)
+
+    def step(self, state, aux, ctrl, dt, create_graph=False, method=None,
+             t=0.0):
+        self._check(method)
+        aux_eff = (state.cell, aux[1])
+        new = super().step(state, aux_eff, ctrl, dt, create_graph, t=t)
+        p_inst = thermo.pressure(self.model, new.q, aux_eff, new.v,
+                                 self.masses, state.cell, dim=self.dim)
+        mu = (1.0 - dt * self.beta / self._tau_p(dt)
+              * (ctrl["P0"] - p_inst)) ** (1.0 / self.dim)
+        mu = torch.clamp(mu, 1.0 - self.max_rescale, 1.0 + self.max_rescale)
+        scale = 1.0 + self._scale_mask * (mu - 1.0)
+        return new._replace(q=new.q * scale, cell=state.cell * scale)
+
+
+class NPTMTKNHC(_Barostat):
+    """Constant pressure in the isothermal-isobaric ensemble: the
+    Martyna-Tobias-Klein barostat (isotropic) on the Nose-Hoover chain.
+    The barostat momentum ``peps`` is conjugate to the log-volume, its
+    mass W = (N_dof + dim) kT0 tau_p^2 (tau_p default 1000 dt);
+    alpha = 1 + dim / N_dof:
+
+        dq/dt    = v + (peps / W) q
+        dcell/dt = (peps / W) cell
+        dv/dt    = f / m - (alpha peps / W + pv0 / Q0) v
+        dpeps/dt = dim V (P_int - P0) + (dim / N_dof) 2 KE - (pv0 / Q0) peps
+        dpv0/dt  = (2 KE - N_dof kT) + (peps^2 / W - kT) - pv0 pv1 / Q1
+
+    with the other chain links as the plain chain's.  P_int is the virial
+    pressure (``thermo.pressure``, at each half kick); the step is half
+    kick, the volume drift exp((peps / W) dt) on q and cell with the
+    position drift, the force at the new point, half kick.  The cell stays
+    on the autograd graph, so the barostatted trajectory is
+    differentiable in the potential's parameters.
+    """
+
+    state_keys = ["velocities", "positions", "baths", "cell", "peps"]
+
+    def __init__(self, potentials, system, T, P, tau_p=None, **kw):
+        super().__init__(potentials, system, T, P, tau_p=tau_p, **kw)
+        self._kT0 = T * units.kB
+
+    def initial_state(self, wrap=True):
+        kw = {"dtype": self.dtype, "device": self.device}
+        q = torch.as_tensor(self.system.get_positions(wrap=wrap), **kw)
+        v = torch.as_tensor(self.system.get_velocities(), **kw)
+        return NPTMTKStateF(v=v, q=q, pv=torch.zeros(self.num_chains, **kw),
+                            cell=self.cell_len0.clone(),
+                            peps=torch.zeros((), **kw),
+                            f=torch.zeros_like(q), fv=False)
+
+    def _W(self, dt):
+        return (self.n_dof + self.dim) * self._kT0 * self._tau_p(dt) ** 2
+
+    def step(self, state, aux, ctrl, dt, create_graph=False, method=None,
+             t=0.0):
+        self._check(method)
+        kT, P0 = ctrl["kT"], ctrl["P0"]
+        m, d, Q = self.masses, self.dim, self.Q
+        W = self._W(dt)
+        alpha = 1.0 + d / self.n_dof
+        aux_in = aux[1]
+
+        def derivs(s, f):
+            ke2 = (s.v ** 2 * m).sum()
+            vol = torch.abs(torch.prod(torch.where(
+                self._scale_mask > 0, s.cell, torch.ones_like(s.cell))))
+            p_int = thermo.pressure(self.model, s.q, (s.cell, aux_in), s.v,
+                                    m, s.cell, dim=d)
+            dv = f / m - (alpha * s.peps / W + s.pv[0] / Q[0]) * s.v
+            dpeps = (d * vol * (p_int - P0) + (d / self.n_dof) * ke2
+                     - s.pv[0] / Q[0] * s.peps)
+            pv = s.pv
+            dpv0 = ((ke2 - self.n_dof * kT) + (s.peps ** 2 / W - kT)
+                    - pv[0] * pv[1] / Q[1])
+            dpv_mid = ((pv[:-2] ** 2 / Q[:-2] - kT)
+                       - pv[2:] * pv[1:-1] / Q[2:])
+            dpv_last = pv[-2] ** 2 / Q[-2] - kT
+            return dv, torch.cat([dpv0[None], dpv_mid, dpv_last[None]]), \
+                dpeps
+
+        f0 = state.f if state.fv else self.force(
+            state.q, (state.cell, aux_in), create_graph)
+        dv0, dpv0, dpeps0 = derivs(state, f0)
+        v_half = state.v + 0.5 * dt * dv0
+        pv_half = state.pv + 0.5 * dt * dpv0
+        peps_half = state.peps + 0.5 * dt * dpeps0
+        # exponential volume drift with the position drift
+        scale = 1.0 + self._scale_mask * (torch.exp((peps_half / W) * dt)
+                                          - 1.0)
+        q_new = state.q * scale + v_half * dt
+        cell_new = state.cell * scale
+        mid = state._replace(v=v_half, q=q_new, pv=pv_half, peps=peps_half,
+                             cell=cell_new)
+        f1 = self.force(q_new, (cell_new, aux_in), create_graph)
+        dv1, dpv1, dpeps1 = derivs(mid, f1)
+        return NPTMTKStateF(v=v_half + 0.5 * dt * dv1, q=q_new,
+                            pv=pv_half + 0.5 * dt * dpv1, cell=cell_new,
+                            peps=peps_half + 0.5 * dt * dpeps1, f=f1,
+                            fv=True)
+
+
 def rethermalize(state, kT, masses, rng=None, dim=3):
     """``state`` with fresh Maxwell-Boltzmann velocities at ``kT`` (energy
-    units) drawn from the numpy Generator ``rng``, the bath momenta zeroed
-    and the force cache marked stale; positions are kept.
+    units) drawn from the numpy Generator ``rng``, the bath momenta and
+    the barostat momentum ``peps`` zeroed and the force cache marked
+    stale; positions (and the cell) are kept.
 
     The fit's NaN recovery restores a finite snapshot and retries: a Nose-
     Hoover trajectory is deterministic, so a blowup driven by the state
@@ -336,4 +639,6 @@ def rethermalize(state, kT, masses, rng=None, dim=3):
         upd["pv"] = torch.zeros_like(state.pv)
     if hasattr(state, "fv"):
         upd["fv"] = False    # prime_state refills the cache
+    if hasattr(state, "peps"):
+        upd["peps"] = torch.zeros_like(state.peps)
     return state._replace(**upd)

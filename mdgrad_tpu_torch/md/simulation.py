@@ -14,6 +14,14 @@ loop over launches (the JAX package compiles it into one ``lax.scan``).
 Neighbor overflow and drift flags are ORed on the device over every
 refresh and read once per epoch (:meth:`Simulation.check_flags`), so the
 loop never waits for the device mid-epoch.
+
+A barostatted integrator (``NPTBerendsenNHC``, ``NPTMTKNHC``) carries its
+cell in the state: its ``aux_update_state`` refreshes the topology
+against ``state.cell``, and the wrap takes the state's own cell (the
+integrator has ``cell_len0``).  ``integrator.adjoint == "reverse"`` runs
+the reverse-time adjoint (the step at -dt reconstructs the states).  An
+integrator with ``advance_ctrl`` (Langevin) moves its controls on by each
+epoch's steps in :meth:`simulate`.
 """
 
 import warnings
@@ -98,21 +106,30 @@ class Simulation:
         wrap = None
         if self.wrap:
             def wrap(state, aux=None):
-                return wrap_state(state, self.cell)
+                return wrap_state(state, self._wrap_cell(state))
 
         def step_fn(state, aux, ctrl, i, create_graph):
             return integ.step(state, aux, ctrl, dt, create_graph, t=i * dt)
 
         def aux_update(state, aux):
+            # a barostat rebuilds the topology against the state's cell
+            if hasattr(integ, "aux_update_state"):
+                return self._note_flags(integ.aux_update_state(state, aux))
             return self._note_flags(integ.aux_update(state.q.detach(), aux))
+
+        reverse_step = None
+        if integ.adjoint == "reverse":
+            def reverse_step(state, aux, ctrl, i):
+                return integ.step(state, aux, ctrl, -dt, False, t=i * dt)
 
         # the entry prime refreshes aux at the wrapped entry state, so the
         # step-0 table is that same build (skip_first_refresh)
         odeint = make_odeint(step_fn, aux_update,
                              max(int(frequency) - 1, 1),
                              update_freq=integ.topology_update_freq,
-                             adjoint=integ.adjoint, skip_first_refresh=True,
-                             wrap_fn=wrap)
+                             adjoint=bool(integ.adjoint),
+                             skip_first_refresh=True, wrap_fn=wrap,
+                             reverse_step_fn=reverse_step)
 
         def ode(state, aux, ctrl):
             if wrap is not None:
@@ -124,6 +141,13 @@ class Simulation:
             return odeint(params, state, aux, ctrl)
 
         return ode
+
+    def _wrap_cell(self, state):
+        """The cell positions wrap into: the state's own (detached) for a
+        barostat, else the system's."""
+        if hasattr(self.integrator, "cell_len0"):
+            return state.cell.detach()
+        return self.cell
 
     def update_log(self, traj):
         for key, field in zip(self.keys, traj):
@@ -137,7 +161,9 @@ class Simulation:
 
     def get_check_point(self):
         """Restart state: the last frame, wrapped if ``wrap``."""
-        return wrap_state(self.state, self.cell) if self.wrap else self.state
+        if not self.wrap:
+            return self.state
+        return wrap_state(self.state, self._wrap_cell(self.state))
 
     def check_flags(self):
         """Read (one host sync) and reset the flags ORed since the last
@@ -178,6 +204,9 @@ class Simulation:
             for _ in range(max(int(steps // frequency), 1)):
                 traj, self.aux = ode(self.state, self.aux, ctrl)
                 self.check_flags()
+                if hasattr(self.integrator, "advance_ctrl"):
+                    ctrl = self.integrator.advance_ctrl(
+                        ctrl, max(int(frequency) - 1, 1))
                 self.state = traj._replace(**{
                     k: getattr(traj, k)[-1] for k in traj._fields
                     if torch.is_tensor(getattr(traj, k))})

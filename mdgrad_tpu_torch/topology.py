@@ -5,7 +5,9 @@ dense distance matrices, pair selection masks, the per-atom neighbor
 table (with stored offsets for triclinic cells) with its overflow and
 drift flags, the padded edge lists (``generate_nbr_list`` and the
 ``top_k`` builder ``generate_nbr_list_topk``), the capacity estimate, and
-the differentiable distances of an edge list (``compute_dis``).
+the differentiable distances of an edge list (``compute_dis``), and the
+angle observables' per-atom table (``neighbors_per_atom``,
+``angle_triples``, ``wrap_bond_vectors``).
 ``lax.approx_min_k`` and ``lax.top_k`` become ``torch.topk`` on the
 masked distance scores, ``jnp.nonzero(size=...)`` a ``torch.nonzero``
 cut or padded to the capacity; the lists keep the JAX package's padding
@@ -297,3 +299,48 @@ def aux_drift(aux):
     positions (host sync)."""
     flag = aux_flag(aux, "drift")
     return False if flag is None else bool(flag)
+
+
+def get_offsets(vecs, cell_len):
+    """Re-wrap offsets of bond vectors for a diagonal cell: -1 where a
+    component is at least half the box, +1 where it is below minus half,
+    else 0 (multiplied by ``cell_len`` elementwise)."""
+    cell_len = torch.as_tensor(cell_len, dtype=vecs.dtype, device=vecs.device)
+    return (-(vecs >= 0.5 * cell_len).to(vecs.dtype)
+            + (vecs < -0.5 * cell_len).to(vecs.dtype))
+
+
+def wrap_bond_vectors(vecs, cell_len):
+    """Minimum-image bond vectors for a diagonal cell."""
+    cell_len = torch.as_tensor(cell_len, dtype=vecs.dtype, device=vecs.device)
+    return vecs + get_offsets(vecs, cell_len) * cell_len
+
+
+def neighbors_per_atom(xyz, cutoff, cell, k_max):
+    """(table (N, K) padded with N, valid (N, K), the largest in-cutoff
+    neighbor count as a device scalar): each atom's ``k_max`` nearest
+    neighbors inside ``cutoff`` (both directions), the angle observables'
+    static-shape layout.  ``lax.top_k`` of the negated scores becomes
+    ``torch.topk``; equal distances may fall in another order."""
+    xyz = xyz.detach()
+    d, _ = displacement_matrix(xyz, cell)
+    dist_sq = (d ** 2).sum(-1)
+    n = xyz.shape[-2]
+    eye = torch.eye(n, dtype=torch.bool, device=xyz.device)
+    within = (dist_sq < cutoff ** 2) & ~eye
+    score = torch.where(within, dist_sq, torch.full_like(dist_sq, np.inf))
+    vals, idx = torch.topk(score, min(k_max, n), dim=-1, largest=False)
+    valid = torch.isfinite(vals)
+    return torch.where(valid, idx, n), valid, within.sum(-1).max()
+
+
+def angle_triples(nbr_table, nbr_valid):
+    """(idx (N, K, K, 3) of (j, i, k) with the apex i in the middle, mask
+    (N, K, K)) of every angle at each atom, counted once (j < k)."""
+    n, k = nbr_table.shape
+    centers = torch.arange(n, device=nbr_table.device)[:, None, None].expand(
+        n, k, k)
+    j = nbr_table[:, :, None].expand(n, k, k)
+    kk = nbr_table[:, None, :].expand(n, k, k)
+    mask = nbr_valid[:, :, None] & nbr_valid[:, None, :] & (j < kk)
+    return torch.stack([j, centers, kk], dim=-1), mask

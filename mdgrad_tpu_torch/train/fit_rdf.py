@@ -42,10 +42,13 @@ prior, which then runs in mode 'table' (``Stack(share_aux=...)``);
 ``MTSNoseHooverChain`` -- the SchNet the slow force, the prior the fast
 one at dt / k -- at an outer step of k dt, over ``opt_freq // k`` frames
 an epoch and every ``frame_skip // k``-th of them, so the inner step and
-the simulated window stay the single-rate fit's.  The angle target and
-the 'cells' mode are not ported: :func:`build_fit` raises
-``NotImplementedError`` naming the ROADMAP item that ports each;
-``u_reg_weight`` with a SchNet raises too (the JAX driver ignores it
+the simulated window stay the single-rate fit's.  ``angle_flag`` adds the
+water angle-distribution target (``angle_data_dict``, ``angle_cutoff``
+2.7 or 3.7) to every state point's epoch loss, weighted by
+``angle_weight``, and reports ``angle_sim`` / ``angle_obs`` /
+``angle_mse`` after inference; ``nbr_mode='cells'`` builds the SchNet's
+table through the cell list (``ops/cells.py``).  ``u_reg_weight`` with a
+SchNet raises ``NotImplementedError`` (the JAX package's fit ignores it
 there).
 """
 
@@ -58,14 +61,15 @@ import torch
 
 from .. import units
 from .. import potentials as pot_zoo
-from ..data.registry import (exp_rdf_data_dict, get_exp_rdf, get_unit_len,
+from ..data.registry import (angle_data_dict, exp_angle_data,
+                             exp_rdf_data_dict, get_exp_rdf, get_unit_len,
                              load_target, number_density_unit_len)
 from ..interface import GNNPotentials, PairPotentials, Stack, TPairPotentials
 from ..lattice import square_lattice_2d
 from ..md import MTSNoseHooverChain, NoseHooverChain, Simulation, rethermalize
 from ..nn import PairMLP, SchNet, TPairMLP
 from ..nn.convert import pair_mlp_params_from_numpy, schnet_params_from_numpy
-from ..observables import rdf
+from ..observables import angle_distribution, rdf
 from ..system import System
 from .checkpoint import FitCheckpointer, from_plain
 from .loss import JS_rdf, compute_D
@@ -151,16 +155,10 @@ def _check_ported(sys_params):
          and not _pair_family(sys_params),
          "the well-depth guard with a SchNet (it guards the pair families "
          "only; the JAX driver ignores it here)"),
-        ("angle_flag", bool(get("angle_flag")),
-         "the angle-distribution target (ROADMAP Queue 1, Slice F2)"),
     ]
     for key, on, what in unported:
         if on:
             raise NotImplementedError(f"{key}: {what} is not ported yet")
-    if sys_params.get("nbr_mode", "table") == "cells":
-        raise NotImplementedError(
-            "nbr_mode 'cells': the cell-list table is not ported yet "
-            "(ROADMAP Queue 1, Slice E)")
 
 
 def _pair_family(sys_params):
@@ -288,13 +286,16 @@ def build_fit(assignments, sys_params, registry=None, rng=None,
 
 
 def make_epoch_loss(sim, obs, g_target, system, tau, dt, frame_skip=20,
-                    backward=True):
+                    backward=True, angle_extra=None):
     """One state point's epoch objective.
 
     Returns ``loss_fn(state, aux, ctrl) -> (loss, (g, last, final_aux))``:
     it runs one epoch of ``tau - 1`` steps through ``sim.epoch_fn``, takes
     the RDF of every ``frame_skip``-th frame, and returns
-    ``compute_D(g - g_target)``.  With ``backward`` it backpropagates the
+    ``compute_D(g - g_target)``; ``angle_extra = (angle_distribution,
+    target, weight)`` adds weight times the summed squared difference of
+    the same frames' angle distribution from the target.  With
+    ``backward`` it backpropagates the
     loss, so ``.grad`` gains its gradient in every parameter that requires
     grad; without, it runs under ``torch.no_grad()`` and leaves ``.grad``
     alone (a validation state point).  All returned tensors are detached;
@@ -309,8 +310,13 @@ def make_epoch_loss(sim, obs, g_target, system, tau, dt, frame_skip=20,
     def loss_fn(state, aux, ctrl):
         with torch.set_grad_enabled(backward):
             traj, final_aux = ode(state, aux, ctrl)
-            _, _, g = obs(traj.q[::frame_skip])
+            frames = traj.q[::frame_skip]
+            _, _, g = obs(frames)
             loss = compute_D(g - g_target, rho, rrange)
+            if angle_extra is not None:
+                aobs, a_target, a_w = angle_extra
+                _, a_count, _ = aobs(frames)
+                loss = loss + a_w * ((a_count - a_target) ** 2).sum()
             if backward:
                 loss.backward()
         last = traj._replace(**{
@@ -409,6 +415,29 @@ def _depth_guard(net, prior, all_sys, train_list, registry, cutoff, weight,
     return _DepthGuard(energy, kTs, weight, mult)
 
 
+def _angle_extras(assignments, sys_params, systems, like, device):
+    """Per state point ``(angle_distribution, target, weight)`` of the
+    angle target with ``angle_flag``, else None each: ``angle_nbins``
+    (64) bins over (``angle_start`` (0.5), pi), neighbors inside
+    ``angle_cutoff`` (3.7, which with 2.7 picks the target file of
+    ``angle_data_dict[angle_species]`` unless ``angle_fn`` is given), at
+    most ``angle_k_max`` (24) of them; the target in ``like``'s dtype."""
+    if not sys_params.get("angle_flag"):
+        return [None] * len(systems)
+    a_cut = float(assignments.get("angle_cutoff", 3.7))
+    a_nbins = int(assignments.get("angle_nbins", 64))
+    a_range = (float(assignments.get("angle_start", 0.5)), float(np.pi))
+    a_w = float(assignments.get("angle_weight", 1.0))
+    species = sys_params.get("angle_species", "water")
+    fn = sys_params.get("angle_fn") or angle_data_dict[species][a_cut]
+    a_target = torch.tensor(exp_angle_data(a_nbins, a_range, fn),
+                            dtype=like.dtype, device=like.device)
+    return [(angle_distribution(system, a_nbins, a_range, cutoff=a_cut,
+                                k_max=int(sys_params.get("angle_k_max", 24)),
+                                device=device), a_target, a_w)
+            for system in systems]
+
+
 def _net_state(net):
     return {k: v.detach().clone() for k, v in net.state_dict().items()}
 
@@ -495,12 +524,15 @@ def fit_rdf(assignments, sys_params, model_path=None, log=print,
     def dt_for(tag):
         return sys_params["dt"] * _dt_scale(registry[tag]) * dt_mult
 
+    angle_extras = _angle_extras(assignments, sys_params, systems,
+                                 targets[0], device)
     loss_fns, md_states = [], []
-    for tag, sim, obs, g_t, system in zip(all_sys, sims, observers, targets,
-                                          systems):
+    for tag, sim, obs, g_t, system, a_extra in zip(
+            all_sys, sims, observers, targets, systems, angle_extras):
         loss_fns.append(make_epoch_loss(sim, obs, g_t, system, tau,
                                         dt_for(tag), frame_skip,
-                                        backward=tag in train_list))
+                                        backward=tag in train_list,
+                                        angle_extra=a_extra))
         md_states.append(sim.initial_state())
 
     loss_log, js_log = [], []
@@ -685,6 +717,14 @@ def fit_rdf(assignments, sys_params, model_path=None, log=print,
         mse = float(((g_obs - g_sim) ** 2).mean())
         results["final"][tag] = {"r": x, "g_sim": g_sim, "g_obs": g_obs,
                                  "mse": mse}
+        if angle_extras[j] is not None:
+            aobs, a_target, _ = angle_extras[j]
+            with torch.no_grad():
+                _, a_count, _ = aobs(torch.stack(frames))
+            a_sim, a_obs = a_count.cpu().numpy(), a_target.cpu().numpy()
+            results["final"][tag].update(
+                angle_sim=a_sim, angle_obs=a_obs,
+                angle_mse=float(((a_sim - a_obs) ** 2).mean()))
         if model_path:
             np.savetxt(os.path.join(model_path, f"rdf_{tag}.csv"),
                        np.vstack([x, g_sim]), delimiter=",")

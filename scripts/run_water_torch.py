@@ -6,17 +6,24 @@ The flags, defaults and GNN assignments of ``scripts/run_water.py`` (the
 diamond lattice of 512 O sites at 298 K, dt 0.5 fs, 52-step epochs),
 plus ``-device`` (default ``cuda``; ``cpu`` for a run without a card).
 ``-compute_dtype`` takes ``float32``, ``bf16`` and ``mixed``,
-``-nbr_mode`` ``table``, ``topk`` and ``sparse``, and ``-gnn_skin`` the
-Verlet skin (with ``-update_freq`` for its refresh cadence).  ``--pair``
-and ``--tpair`` fit a PairMLP / TPairMLP (width 115, 3 layers, ELU,
-400 bins, 192-step epochs) after Boltzmann-inversion pretraining, with
+``-nbr_mode`` ``table``, ``cells`` (the table built through the cell
+list: the large-N path of the 4096-site fit, ``-size 8``), ``topk``
+and ``sparse``, and ``-gnn_skin`` the Verlet skin (with ``-update_freq``
+for its refresh cadence).  ``--angle`` adds the water angle-distribution
+target (``-angle_cutoff`` 2.7 or 3.7 picks its file).  ``--pair`` and
+``--tpair`` fit a PairMLP / TPairMLP (width 115, 3 layers, ELU, 400 bins,
+192-step epochs) after Boltzmann-inversion pretraining, with
 ``-rdf_backend pallas`` through the RDF kernels.  ``-mts k`` integrates
 with the multiple-time-step chain (the prior at dt / k) and
-``--share_prior_aux`` hands the SchNet's table to the prior.  Flags of
-branches the port does not have yet (``--angle``, ``-nbr_mode cells``)
-raise NotImplementedError.
+``--share_prior_aux`` hands the SchNet's table to the prior.
+``--dry_run`` runs 2 epochs of 24 steps at size 2 (64 sites), or size 3
+(216 sites) with ``-nbr_mode cells``, whose cells need 3 a side of at
+least the 6.0 A cutoff.
 
     python scripts/run_water_torch.py                        # on the card
+    python scripts/run_water_torch.py -size 8 -nbr_mode cells \
+        -rdf_backend pallas -frame_skip 1                    # 4096 sites
+    python scripts/run_water_torch.py --angle
     python scripts/run_water_torch.py -compute_dtype bf16 -gnn_skin 0.5 \
         -update_freq 3
     python scripts/run_water_torch.py --pair -rdf_backend pallas
@@ -146,8 +153,9 @@ def main():
 
     if args.dry_run:
         assignments["opt_freq"] = 25
-        sys_params.update(n_epochs=2, n_sim=1, size=2, frame_skip=5,
-                          test_nbins=100, pretrain_iters=50)
+        sys_params.update(n_epochs=2, n_sim=1,
+                          size=3 if args.nbr_mode == "cells" else 2,
+                          frame_skip=5, test_nbins=100, pretrain_iters=50)
 
     if not (args.pair or args.tpair):
         assignments["compute_dtype"] = args.compute_dtype

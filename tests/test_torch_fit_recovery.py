@@ -5,8 +5,9 @@ gradient, NaN recovery, backtrack, overflow regrow and ``grow_capacity``
 -- plus what the port's mutable state needs: resume gives the same bits
 as an uninterrupted fit, ``.grad`` is clear after an epoch that applies
 no update, a validation state point adds nothing to the gradient,
-snapshots are copies, each unported branch raises, and
-``scripts/run_water_torch.py --dry_run -device cpu`` runs.
+snapshots are copies, the unported branch raises, the branches ported
+since build, and ``scripts/run_water_torch.py --dry_run -device cpu``
+runs (with ``--angle`` and with ``-nbr_mode cells`` too).
 
 The synthetic registry is tests/test_fit.py's (a 32-atom FCC LJ box in
 reduced units), its target g(r) simulated here by the port's dense
@@ -346,12 +347,39 @@ def test_validation_state_point_adds_nothing_to_the_gradient(
     assert set(with_val["final"]) == {"ljtest", "ljval"}
 
 
-@pytest.mark.parametrize("key,value", [
-    ("u_reg_weight", 0.1), ("angle_flag", True), ("nbr_mode", "cells")])
+@pytest.mark.parametrize("key,value", [("u_reg_weight", 0.1)])
 def test_unported_branches_raise(lj_registry, key, value):
     with pytest.raises(NotImplementedError, match=key):
         fit_rdf.build_fit(ASSIGNMENTS, {**SYS_PARAMS, key: value},
                           registry=lj_registry, device="cpu")
+
+
+@pytest.mark.parametrize("key,value,extra", [
+    ("angle_flag", True, {}),
+    # 'cells' needs 3 cells of width >= 2.5 a side: size 5 (500 atoms)
+    ("nbr_mode", "cells", {"size": 5})], ids=["angle_flag", "cells"])
+def test_newly_ported_branches_build(lj_registry, key, value, extra):
+    """The branches that raised until the large-N and angle slices were
+    ported now build: 'cells' gives the SchNet a cell-list table with no
+    overflow, ``angle_flag`` an angle observer and target per state
+    point."""
+    sys_params = {**SYS_PARAMS, key: value, **extra}
+    comps = fit_rdf.build_fit(ASSIGNMENTS, sys_params, registry=lj_registry,
+                              device="cpu")
+    gnn = comps["sims"][0].integrator.model.models["nn"]
+    assert gnn.nbr_mode == sys_params.get("nbr_mode", "table")
+    state, aux = comps["sims"][0].initial_state()
+    assert not topology.aux_overflow(aux)
+    extras = fit_rdf._angle_extras(ASSIGNMENTS, sys_params,
+                                   comps["systems"], comps["targets"][0],
+                                   "cpu")
+    if key == "angle_flag":
+        aobs, target, weight = extras[0]
+        assert target.shape == (64,) and weight == 1.0
+        assert aobs(state.q)[1].shape == (64,)
+    else:
+        assert extras == [None]
+        assert gnn.cell_grid.dims == (3, 3, 3)
 
 
 def test_unported_registry_and_dtype_raise(lj_registry):
@@ -418,7 +446,7 @@ def test_init_pkl_reads_numpy_only(tmp_path):
 def test_run_water_torch_dry_run(tmp_path):
     """The script's --dry_run on the CPU (64 water sites, the 'low'
     SchNet, 2 epochs of 24 steps, one 100-step rollout) prints its
-    objective; a flag of an unported branch fails."""
+    objective, and with ``--angle`` (the 3.7 A water angle target) too."""
     script = str(REPO / "scripts" / "run_water_torch.py")
     env = {**os.environ, "OMP_NUM_THREADS": "1"}   # as one_thread
     proc = subprocess.run(
@@ -431,10 +459,30 @@ def test_run_water_torch_dry_run(tmp_path):
     assert len(objective) == 1
     assert np.isfinite(float(objective[0].split()[1]))
     assert "epoch 1 | loss" in proc.stdout
-    # --pair is ported since (tests/test_torch_fit_pair.py); --angle is not
+    # --pair is ported since (tests/test_torch_fit_pair.py), --angle too
     proc = subprocess.run(
         [sys.executable, script, "--dry_run", "--angle", "-device", "cpu",
          "-logdir", str(tmp_path / "angle")], capture_output=True,
         text=True, timeout=300, env=env)
-    assert proc.returncode != 0
-    assert "NotImplementedError: angle_flag" in proc.stderr
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    objective = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("objective:")]
+    assert len(objective) == 1
+    assert np.isfinite(float(objective[0].split()[1]))
+
+
+def test_run_water_torch_dry_run_cells(tmp_path):
+    """``-nbr_mode cells --dry_run`` on the CPU (216 water sites, size 3,
+    the smallest box with 3 cells of the 6.0 A cutoff a side) prints a
+    finite objective after its 2 epochs."""
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "scripts" / "run_water_torch.py"),
+         "--dry_run", "-nbr_mode", "cells", "-device", "cpu", "-logdir",
+         str(tmp_path)], capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "epoch 1 | loss" in proc.stdout
+    objective = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("objective:")]
+    assert len(objective) == 1
+    assert np.isfinite(float(objective[0].split()[1]))
