@@ -169,6 +169,28 @@ its phases, printing one line as each check ends:
    1200), 2 outers of up to 5 inner steps: the losses and the ESS.  The NPT LJ fit, the cell-list LJ run
    and DiffTRE launch no kernel (plain PyTorch, as the JAX package's
    ``jnp``).
+4m. fold, salt and mix -- ``scripts/run_fold_torch.py``'s defaults
+   through ``train_fold`` (50 atoms, SchNet 64/64, 32 Gaussians, 3
+   convolutions, cutoff 4.0, tau 49, dt 0.02): the warm-up epoch alone,
+   then the warm-up and 2 of 500 trained epochs (each trained epoch's
+   launches, the losses, seconds, peak memory); K1, K2a, K2b and the CSR
+   build at the fold's shapes (N = 50, K = 16, F = 64, on the perturbed
+   straight chain) against their plain versions, and the fold SchNet's
+   force and its vector-Jacobian product through the kernels against the
+   plain gather path; at tau 11 the replay gradient of the fold loss
+   against direct backprop.  The molten salt at ``scripts/run_salt.py``'s
+   box (216 ions, a = 6.2 A, 2500 K, r_cut 9.114 A, alpha 0.3511, 618
+   half-space k-vectors): ``generate_targets`` cut from 6 burn-in and 16
+   sampling epochs of 80 steps to 1 and 2; an MD step (no gradient) and
+   the stack's, the Ewald's and the core's force, each timed back to back
+   with CUDA events; the card's float32 Ewald energy and forces at the
+   melt against the CPU's float64 (``EWALD_U_TOL`` of |U|,
+   ``EWALD_F_TOL`` of max |F|), and the same with TF32 switched on, which
+   must miss both; one tau-60 epoch's d(loss)/d(qscale),
+   finite and nonzero; ``fit_salt`` for 2 of 200 epochs (its own targets
+   at 6 burn-in and 2 sampling epochs).  ``fit_mix`` at its defaults (108
+   atoms, 3 epochs at tau 21, 4 target epochs of 40 steps): finite
+   losses and recovered potentials.
 5. times   -- each kernel, its plain version and its library yardstick with
    CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms; K3/K4 at 50
    and 3 frames of 512 sites, at 10 of 1372, at 1 of 512 with 800
@@ -203,13 +225,15 @@ its phases, printing one line as each check ends:
    outputs in the two libraries; one JSON line ``{"pair_ab": ...}``.
 
 Launch counts are zeroed just before phases 3, 3b, 4 and 4b, each call
-of 4c, 4e, 4f, 4g, 4h, 4i, 4j, 4k and 4l and each run of 4d, and read just
-after each: phases 3, 4, 4c, 4e, 4i, 4j's fit and 4l's angle fit must
+of 4c, 4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l and 4m and each run of 4d, and
+read just after each: phases 3, 4, 4c, 4e, 4i, 4j's fit and 4l's angle fit must
 launch every water kernel, the CSR build included, 4d and 4k's NPT water
 fit the bf16 gather kernels in their place, 4f's water pair fits K3/K4
 and K3b/K4b in every epoch, 4h's GNN fit K1, K2a, K2b and the CSR build in
 every epoch, 4k's reverse-time and replay epochs K6, K6b, K3/K4 and
-K3b/K4b, its Langevin run K6, 4g no kernel at all, and none may call a
+K3b/K4b, its Langevin run K6, 4m's fold K1, K2a, K2b and the CSR build
+in every trained epoch (read at each epoch's log line) and nothing else,
+4g and 4m's salt and mixture fits no kernel at all, and none may call a
 plain version.  The line before the last is a JSON object with one record per
 kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises and the script exits non-zero.  Without a CUDA device it exits
@@ -3027,6 +3051,320 @@ def angle_difftre_phase(torch, records):
     return out
 
 
+# run_fold_torch.py at its defaults (50 atoms, SchNet 64/64, 32 Gaussians,
+# 3 convolutions, cutoff 4.0, tau 49, dt 0.02), cut from 500 epochs to the
+# warm-up and 2 trained ones; the replay check at tau 11
+FOLD_EPOCHS, FOLD_CHECK_TAU = 3, 11
+FOLD_KERNELS = WATER_KERNELS[:4]      # K1, K2a, K2b and the CSR build
+# run_salt.py's box (216 ions, a = 6.2 A, 2500 K, r_cut 9.114 A, 618
+# k-vectors); the targets cut from 6 burn-in and 16 sampling epochs of 80
+# steps to 1 and 2 (fit_salt's own targets: 6 and 2); 2 of 200 epochs
+SALT_BURN, SALT_NSIM, SALT_EPOCHS, SALT_TAU = 1, 2, 2, 60
+# float32 on the card against float64 on the CPU: the card's float32
+# lies 2.1e-8 of |U| and 8.7e-7 of max |F| away at the melt, with TF32 on
+# 1.5e-5 and 4.5e-3 (H100, 700 W); the phase checks that TF32 misses
+EWALD_U_TOL, EWALD_F_TOL = 1e-6, 1e-4
+# fit_mix at its defaults (size 3, 108 atoms; 3 epochs at tau 21; 4 target
+# epochs of 40 steps)
+MIX = {"size": 3, "n_epochs": 3, "tau": 21, "n_target_epochs": 4,
+       "target_steps": 40}
+
+
+def fold_salt_mix_phase(mt, torch, dev, records, compare):
+    """Phase 4m (see the module docstring): returns its numbers."""
+    import copy
+    import numpy as np
+    from mdgrad_tpu_torch import ops, units
+    from mdgrad_tpu_torch.ops import gather, timing
+    from mdgrad_tpu_torch.train import fit_mix, fit_salt, fold
+    out = {}
+
+    # (a) the fold: the warm-up epoch alone first, whose launches split
+    # epoch 1's from the call's
+    params = dict(load_script("run_fold_torch.py").PARAMS)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    fold.train_fold({**params, "n_epochs": 1}, log=line, device=dev)
+    warm = ops.counts()
+    check_no_kernel(warm, "fold warm-up", allowed=FOLD_KERNELS)
+    marks = []
+
+    def log(msg):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), ops.counts()))
+        line(f"fold: {msg}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    with CsrWidths(gather) as widths:
+        res = fold.train_fold({**params, "n_epochs": FOLD_EPOCHS}, log=log,
+                              device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    require(len(res["loss_log"]) == FOLD_EPOCHS - 1 and not res.get(
+        "nan_bailout") and all(np.isfinite(res["loss_log"])),
+        "the fold's trained epochs give finite losses")
+    check_no_kernel(marks[-1][1], "fold", allowed=FOLD_KERNELS)
+    # each trained epoch's launches: the first less the warm-up's
+    epochs = [{k: b["launches"][k] - a["launches"][k] for k in b["launches"]}
+              for a, b in zip([warm] + [c for _, c in marks],
+                              [c for _, c in marks])]
+    for i, launched in enumerate(epochs):
+        for name in FOLD_KERNELS:
+            require(launched[name] > 0,
+                    f"kernel {name} launched in trained fold epoch {i + 1}")
+    for name in FOLD_KERNELS:
+        records.setdefault(name, {})["launches_fold"] = epochs[-1][name]
+    epoch_s = marks[1][0] - marks[0][0]
+    line(f"fold: N = 50, losses {res['loss_log']}; the call {wall:.3f} s "
+         f"(warm-up and 2 trained epochs), trained epoch 2 {epoch_s:.3f} "
+         f"s; launches per trained epoch "
+         f"{[{k: e[k] for k in FOLD_KERNELS} for e in epochs]}; CSR builds "
+         f"{widths.describe()}; peak {peak} B")
+    out["fold"] = {"wall": wall, "epoch_s": epoch_s,
+                   "launches": {k: epochs[-1][k] for k in FOLD_KERNELS},
+                   "peak": peak, "losses": res["loss_log"]}
+    # K1, K2a, K2b and the CSR build at the fold's shapes against their
+    # plain versions, on the straight chain perturbed
+    pieces = fold.build_fold({**params, "tau": FOLD_CHECK_TAU},
+                             device=dev)
+    gnn = pieces["stack"].models["gnn"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    xyz = torch.tensor(pieces["system"].get_positions(),
+                       dtype=torch.float32, device=dev)
+    xyz = xyz + 0.1 * torch.randn(xyz.shape, device=dev, generator=gen)
+    tab = gnn.aux_init(xyz)
+    n, k, f = xyz.shape[0], gnn.k_max, params["n_filters"]
+    idx = torch.where(tab.mask, tab.table, n).reshape(-1).contiguous()
+    require(bool((idx == n).any()) and not bool(tab.overflow),
+            "the fold's table has sentinel entries and no overflow")
+    index = gather.TableIndex(idx, n)
+    values = torch.randn(n, f, device=dev, generator=gen)
+    w = torch.randn(idx.shape[0], f, device=dev, generator=gen)
+    g_edges = torch.randn(idx.shape[0], f, device=dev, generator=gen)
+    line(f"  fold gather kernels at N={n}, K={k}, F={f}:")
+    compare("gather_mul_reduce", gather._launch_gather_mul_reduce(
+        values, w, index.idx, k), gather.gather_mul_reduce_plain(
+        values, w, index.idx, k), 1e-5)
+    compare("table_gather", gather._launch_table_gather(values, index.idx),
+            gather.table_gather_plain(values, index.idx), 0.0)
+    compare("table_scatter", gather._launch_table_scatter(g_edges, index),
+            gather.table_scatter_plain(g_edges, index.idx, n), 1e-5)
+    require(all(torch.equal(a, b) for a, b in zip(
+        gather._launch_table_index_csr(idx, n),
+        gather.table_index_csr_plain(idx, n))),
+        f"the CSR build equals the plain build at the fold's table "
+        f"({gather.table_index_csr_path(idx.shape[0], n)} path)")
+    # the fold SchNet's force, and its vector-Jacobian product in q and
+    # the SchNet's parameters (the replay's grad-of-grad), through the
+    # kernels against the plain gather path with the same weights
+    gnn_plain = copy.deepcopy(gnn)
+    gnn_plain.gnn.gather_mode = "gather"
+    cot = torch.randn(xyz.shape, device=dev, generator=gen)
+    got = {}
+    for label, pot in (("kernels", gnn), ("plain", gnn_plain)):
+        x = xyz.clone().requires_grad_(True)
+        ps = list(pot.parameters())
+        ops.reset_counts()
+        (f_x,) = torch.autograd.grad(-pot.energy(x, tab), x,
+                                     create_graph=True)
+        grads = torch.autograd.grad((f_x * cot).sum(), [x, *ps],
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        got[label] = (f_x.detach(),
+                      torch.cat([g.reshape(-1) for g in grads]),
+                      ops.counts())
+    f_err, _, f_scale = max_errs(got["kernels"][0], got["plain"][0])
+    v_err, _, v_scale = max_errs(got["kernels"][1], got["plain"][1])
+    fold_counts = got["kernels"][2]
+    line(f"fold: SchNet force kernels vs plain gather: max_abs_err "
+         f"{f_err:.3e} (tol {1e-4 * f_scale:.3e}, max |F| {f_scale:.3e}); "
+         f"its vjp: max_abs_err {v_err:.3e} (tol {1e-4 * v_scale:.3e}, "
+         f"largest entry {v_scale:.3e}); launches "
+         f"{fold_counts['launches']}")
+    require(f_scale > 0 and f_err <= 1e-4 * f_scale,
+            "the fold SchNet's force through the kernels equals the plain "
+            "gather path's")
+    require(v_scale > 0 and v_err <= 1e-4 * v_scale,
+            "the fold SchNet force's vjp through the kernels equals the "
+            "plain gather path's")
+    check_no_kernel(fold_counts, "fold force and vjp", allowed=FOLD_KERNELS)
+    require(all(fold_counts["launches"][name] > 0 for name in FOLD_KERNELS),
+            "the fold force and its vjp launch K1, K2a, K2b and the CSR "
+            "build")
+    out["fold"]["force_err"] = f_err / f_scale
+    out["fold"]["vjp_err"] = v_err / v_scale
+    del values, w, g_edges, index, gnn_plain, got, x, f_x, grads
+    # the replay adjoint against direct backprop at tau 11
+    sim, integ = pieces["sim"], pieces["integrator"]
+    train = list(pieces["stack"].models["gnn"].parameters())
+    grads = {}
+    for adjoint in (True, False):
+        integ.adjoint = adjoint
+        loss_fn = fold.make_fold_epoch_loss(
+            sim, pieces["targets"], {**params, "tau": FOLD_CHECK_TAU})
+        state, aux = sim.initial_state()
+        loss, _ = loss_fn(state, aux, integ.default_ctrl())
+        # the last readout bias moves no force: no gradient
+        grads[adjoint] = torch.cat([(torch.zeros_like(p) if p.grad is None
+                                     else p.grad).reshape(-1)
+                                    for p in train])
+        for p in pieces["stack"].parameters():
+            p.grad = None
+    err, _, scale = max_errs(grads[True], grads[False])
+    line(f"fold: replay vs direct at tau={FOLD_CHECK_TAU} (K = "
+         f"{pieces['stack'].models['gnn'].k_max}): max_abs_err {err:.3e} "
+         f"(tol {5e-3 * scale:.3e}, largest entry {scale:.3e}; loss "
+         f"{loss.item():.6f})")
+    require(scale > 0 and np.isfinite(scale) and err <= 5e-3 * scale,
+            "the fold's replay gradient equals direct backprop")
+    out["fold"]["replay_err"] = err / scale
+
+    # (b) the molten salt
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    dt = 1.0 * units.fs
+    system = fit_salt.rocksalt_melt(rng=np.random.default_rng(0))
+    t0 = time.perf_counter()
+    g_l, g_u, melt = fit_salt.generate_targets(
+        system, 0.8, n_sim=SALT_NSIM, burn=SALT_BURN, dt=dt,
+        log=lambda m: line(f"salt: {m}"), device=dev)
+    torch.cuda.synchronize()
+    t_targets = time.perf_counter() - t0
+    sim, integ = fit_salt.build_sim(system, 0.4, device=dev)
+    stack = integ.model
+    coul = stack.models["coul"]
+    require(coul.nvecs.shape[0] == 618 and abs(coul.r_cut - 9.114) < 1e-3,
+            "the salt box has r_cut 9.114 A and 618 k-vectors")
+    aux = integ.aux_init(melt.q)
+    # an MD step (no gradient) and each force as a step takes it
+    # (autograd of the energy), all timed back to back, host launches
+    # included
+    with torch.no_grad():
+        primed, aux_p = integ.prime_state(melt, aux)
+        ctrl = integ.default_ctrl()
+        step_ms = timing.time_loop(lambda: integ.step(
+            primed, aux_p, ctrl, dt, method=sim.method), reps=20)
+
+    def force_of(model):
+        def force():
+            x = melt.q.detach().requires_grad_(True)
+            return torch.autograd.grad(model.energy(x, aux), x)[0]
+        return force
+
+    ms = {"stack": timing.time_loop(force_of(stack), reps=20),
+          "ewald": timing.time_loop(force_of(coul), reps=20),
+          "core": timing.time_loop(force_of(stack.models["core"]), reps=20)}
+    # float32 on the card against float64 on the CPU, at the melt
+    x64 = melt.q.detach().double().cpu().requires_grad_(True)
+    ref = fit_salt.ScaledChargeEwald(
+        system, np.where(system.get_atomic_numbers() == 11, 1.0, -1.0), 0.4,
+        r_cut=coul.r_cut, device="cpu").double()
+    u64 = ref.energy(x64, ())
+    (f64,) = torch.autograd.grad(u64, x64)
+    x32 = melt.q.detach().requires_grad_(True)
+    u32 = coul.energy(x32, ())
+    (f32,) = torch.autograd.grad(u32, x32)
+    u_err = abs(u32.item() - u64.item()) / abs(u64.item())
+    f_err = (f32.double().cpu() - f64).abs().max().item() / \
+        f64.abs().max().item()
+    line(f"salt: Ewald f32 on the card vs f64 on the CPU at the melt: U "
+         f"{u64.item():.6f} eV, rel err {u_err:.3e} (tol {EWALD_U_TOL:.0e}),"
+         f" max force err {f_err:.3e} of max |F| {f64.abs().max().item():.4f}"
+         f" (tol {EWALD_F_TOL:.0e})")
+    require(u_err <= EWALD_U_TOL and f_err <= EWALD_F_TOL,
+            "the card's float32 Ewald matches the CPU's float64")
+    # the same with TF32 switched on: the check must catch it
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        x_t = melt.q.detach().requires_grad_(True)
+        u_t = coul.energy(x_t, ())
+        (f_t,) = torch.autograd.grad(u_t, x_t)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    u_err_t = abs(u_t.item() - u64.item()) / abs(u64.item())
+    f_err_t = (f_t.double().cpu() - f64).abs().max().item() / \
+        f64.abs().max().item()
+    line(f"salt: the same with TF32 on: U rel err {u_err_t:.3e}, max force "
+         f"err {f_err_t:.3e} of max |F|")
+    require(u_err_t > EWALD_U_TOL and f_err_t > EWALD_F_TOL,
+            "each Ewald tolerance catches TF32 in the phase product")
+    # one epoch's d(loss)/d(qscale) through the replay adjoint
+    stack.models["core"].requires_grad_(False)
+    loss_fn = fit_salt.make_salt_epoch_loss(
+        sim, fit_salt.partial_rdf_observers(system, device=dev), (g_l, g_u),
+        dt, SALT_TAU)
+    loss, _ = loss_fn(melt, sim.initial_state()[1], integ.default_ctrl())
+    gq = coul.qscale.grad.item()
+    line(f"salt: epoch loss {loss.item():.6f}, d/d(qscale) {gq:.6e}")
+    require(np.isfinite(loss.item()) and np.isfinite(gq) and gq != 0.0,
+            "the salt loss and d/d(qscale) are finite, the gradient "
+            "nonzero")
+    salt_marks = []
+
+    def salt_log(msg):
+        torch.cuda.synchronize()
+        salt_marks.append(time.perf_counter())
+        line(f"salt fit: {msg}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fit_salt.fit_salt(n_epochs=SALT_EPOCHS, tau=SALT_TAU,
+                            target_nsim=SALT_NSIM, log=salt_log, device=dev)
+    torch.cuda.synchronize()
+    salt_wall = time.perf_counter() - t0
+    salt_peak = torch.cuda.max_memory_allocated()
+    hist = res["history"]
+    require(len(hist) == SALT_EPOCHS and all(
+        np.isfinite(h["loss"]) and np.isfinite(h["qscale"]) for h in hist),
+        "fit_salt gives finite losses")
+    check_no_kernel(ops.counts(), "salt phase")
+    # salt_marks: the targets line, then epochs 0 and 1
+    salt_epoch = salt_marks[-1] - salt_marks[-2]
+    line(f"salt: targets {t_targets:.3f} s for {SALT_BURN + SALT_NSIM} "
+         f"epochs of 79 steps and their RDFs; back to back, an MD step "
+         f"{step_ms:.3f} ms and a force: the stack's {ms['stack']:.3f} ms, "
+         f"the Ewald's {ms['ewald']:.3f} ms, the core's {ms['core']:.3f} "
+         f"ms (the Ewald force {ms['ewald'] / step_ms:.1%} of the step's "
+         f"time, the stack's {ms['stack'] / step_ms:.1%}); fit_salt call {salt_wall:.3f} s, epoch 1 {salt_epoch:.3f} "
+         f"s at tau {SALT_TAU}; peak {salt_peak} B; qscale "
+         f"{[h['qscale'] for h in hist]}")
+    out["salt"] = {"targets_s": t_targets, "step_ms": step_ms, "ms": ms,
+                   "wall": salt_wall, "epoch_s": salt_epoch,
+                   "peak": salt_peak, "u_err": u_err, "f_err": f_err,
+                   "u_err_tf32": u_err_t, "f_err_tf32": f_err_t, "gq": gq}
+
+    # (c) the binary mixture
+    mix_marks = []
+
+    def mix_log(msg):
+        torch.cuda.synchronize()
+        mix_marks.append(time.perf_counter())
+        line(f"mix: {msg}")
+
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    res = fit_mix.fit_mix(log=mix_log, device=dev, **MIX)
+    torch.cuda.synchronize()
+    mix_wall = time.perf_counter() - t0
+    require(len(res["loss_log"]) == MIX["n_epochs"] and not res.get(
+        "nan_bailout") and all(np.isfinite(res["loss_log"])),
+        "fit_mix gives finite losses")
+    require(all(np.isfinite(u).all() for u in res["recovered"].values()),
+            "fit_mix's recovered potentials are finite")
+    check_no_kernel(ops.counts(), "mixture fit")
+    mix_epoch = (mix_marks[-1] - mix_marks[0]) / (len(mix_marks) - 1)
+    line(f"mix: N = 108, losses {res['loss_log']}; call {mix_wall:.3f} s, "
+         f"{mix_epoch:.3f} s an epoch over epochs 1-2")
+    out["mix"] = {"wall": mix_wall, "epoch_s": mix_epoch}
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--against", action="append", default=[],
@@ -3320,6 +3658,10 @@ def main():
     # ---- 4l. the angle target and DiffTRE ---------------------------------
     angled = angle_difftre_phase(torch, records)
     phase_done("angle and difftre")
+
+    # ---- 4m. the fold, the molten salt and the mixture ------------------
+    fsm = fold_salt_mix_phase(mt, torch, dev, records, compare)
+    phase_done("fold, salt and mix")
 
     # ---- 5. times ---------------------------------------------------------
     e_real = n_real
@@ -3649,6 +3991,17 @@ def main():
     line(f"time angle fit: epoch {angled['angle']['epoch_s']:.3f} s from "
          f"the call; difftre call {angled['difftre']['wall']:.3f} s (2 "
          f"outers at N = 500), peak {angled['difftre']['peak']} B")
+    fo, sa = fsm["fold"], fsm["salt"]
+    line(f"time fold: trained epoch {fo['epoch_s']:.3f} s (N = 50, tau 49),"
+         f" the call {fo['wall']:.3f} s, peak {fo['peak']} B, launches an "
+         f"epoch {fo['launches']}; salt: {sa['step_ms']:.3f} ms an MD step, "
+         f"the Ewald force {sa['ms']['ewald']:.3f} ms "
+         f"({sa['ms']['ewald'] / sa['step_ms']:.1%} of it, both back to "
+         f"back), Ewald f32 vs f64 U {sa['u_err']:.3e} F {sa['f_err']:.3e}, "
+         f"with TF32 U {sa['u_err_tf32']:.3e} F {sa['f_err_tf32']:.3e}; fit "
+         f"epoch "
+         f"{sa['epoch_s']:.3f} s (tau 60); mix {fsm['mix']['epoch_s']:.3f} s "
+         f"an epoch (N = 108, tau 21)")
     sp = paired["sparse"]
     line(f"time sparse prior: N = 1728, capacity {sp['capacity']}, SchNet "
          f"K = {sp['k']} (CSR {'/'.join(sp['paths'])} path); one 20-step "

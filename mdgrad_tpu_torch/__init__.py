@@ -9,15 +9,18 @@ and are built at their first launch (``ops/_build.py``).
 """
 
 from . import observables, ops, potentials, thermo, topology, units
-from .interface import (GNNPotentials, PairPotentials, Stack,
-                        TPairPotentials, WithDynamicCell)
+from .interface import (AnglePotentials, BondPotentials, Electrostatics,
+                        EwaldElectrostatics, GNNPotentials, PairPotentials,
+                        Stack, TPairPotentials, WithDynamicCell)
 from .md import (Langevin, MTSNoseHooverChain, NPTBerendsenNHC, NPTMTKNHC,
                  NVE, NoseHooverChain, Simulation)
 from .nn import MLP, MLP2d, PairMLP, SchNet, TPairMLP
 from .system import System
 
-__all__ = ["GNNPotentials", "Langevin", "MLP", "MLP2d", "MTSNoseHooverChain",
-           "NPTBerendsenNHC", "NPTMTKNHC", "NVE", "NoseHooverChain", "PairMLP", "PairPotentials", "SchNet",
+__all__ = ["AnglePotentials", "BondPotentials", "Electrostatics",
+           "EwaldElectrostatics", "GNNPotentials", "Langevin", "MLP",
+           "MLP2d", "MTSNoseHooverChain", "NPTBerendsenNHC", "NPTMTKNHC",
+           "NVE", "NoseHooverChain", "PairMLP", "PairPotentials", "SchNet",
            "Simulation", "Stack", "System", "TPairMLP", "TPairPotentials",
            "WithDynamicCell", "observables", "ops", "potentials", "thermo",
            "topology", "units"]

@@ -3,8 +3,10 @@
 Port of ``mdgrad_tpu/interface.py``: the :class:`Interaction` contract,
 :class:`PairPotentials` in modes 'dense', 'table' and 'sparse',
 :class:`TPairPotentials`, :class:`GNNPotentials` over an (N, K) neighbor
-table (built dense or through the cell list) or an edge list,
-:class:`Stack` (with ``share_aux``) and :class:`WithDynamicCell`.
+table (built dense or through the cell list) or an edge list, the cutoff
+:class:`Electrostatics` and :class:`EwaldElectrostatics`, the bonded
+:class:`BondPotentials` and :class:`AnglePotentials`, :class:`Stack`
+(with ``share_aux``) and :class:`WithDynamicCell`.
 
 The JAX contract passes a params pytree into pure functions; here every
 interaction is an ``nn.Module`` that owns its parameters:
@@ -75,6 +77,19 @@ class Interaction(nn.Module):
         for suffix, dtype in (("", torch.float32), ("_f64", torch.float64)):
             self.register_buffer(name + suffix,
                                  torch.tensor(cell, dtype=dtype),
+                                 persistent=False)
+
+    def _register_top(self, system, top):
+        """Buffers ``top`` (the bonded index tuples), ``cell_len`` (float32)
+        and ``cell_len_f64``: the diagonal of the system's cell, as the JAX
+        package's bonded terms take it."""
+        self.register_buffer("top", torch.as_tensor(np.asarray(top),
+                                                    dtype=torch.long),
+                             persistent=False)
+        lengths = np.diag(np.asarray(system.get_cell(), dtype=np.float64))
+        for suffix, dtype in (("", torch.float32), ("_f64", torch.float64)):
+            self.register_buffer("cell_len" + suffix,
+                                 torch.tensor(lengths, dtype=dtype),
                                  persistent=False)
 
     def _cell(self, name, xyz, cell=None):
@@ -397,6 +412,207 @@ class GNNPotentials(Interaction):
             self.z, xyz, aux.idx, aux.mask,
             offsets_real=self._real(aux.offsets, cell), edge_format="pairs",
             directed=self.nbr_mode == "topk")
+
+
+class Electrostatics(Interaction):
+    """Cutoff Coulomb sum over the pairs i < j within ``cutoff``:
+    conversion q_i q_j / r, with ``index_tuple`` / ``ex_pairs`` selection.
+    The reference multiplies q_i by itself; this sum uses q_i q_j, as the
+    JAX package's does."""
+
+    def __init__(self, system, charges, cutoff=2.5, index_tuple=None,
+                 ex_pairs=None, device="cuda"):
+        super().__init__()
+        check_system(system)
+        device = resolve_device(device)
+        charges = np.asarray(charges, dtype=np.float64)
+        for suffix, dtype in (("", torch.float32), ("_f64", torch.float64)):
+            self.register_buffer("charges" + suffix,
+                                 torch.tensor(charges, dtype=dtype),
+                                 persistent=False)
+        self._register_cell("cell", system)
+        self.cutoff = cutoff
+        n = system.get_number_of_atoms()
+        self.register_buffer(
+            "select_mask", topology.pair_index_mask(n, index_tuple, ex_pairs),
+            persistent=False)
+        # k_e in eV Angstrom / e^2, from SI as the reference builds it
+        k_e = 8.987551787e9
+        EV_TO_J = 1.60210e-19
+        self.conversion = k_e * units.C ** -2 * (1 / EV_TO_J) * units.m
+        self.to(device)
+
+    def energy(self, xyz, aux, cell=None):
+        dist, valid = topology.distance_matrix(xyz,
+                                               self._cell("cell", xyz, cell))
+        mask = valid & torch.triu(torch.ones_like(valid), diagonal=1)
+        mask = mask & (dist < self.cutoff)
+        if self.select_mask is not None:
+            mask = mask & self.select_mask
+        q = (self.charges_f64 if xyz.dtype == torch.float64
+             else self.charges)
+        qq = q[:, None] * q[None, :]
+        u = self.conversion * qq / torch.where(mask, dist,
+                                               torch.ones_like(dist))
+        return torch.where(mask, u, torch.zeros_like(u)).sum()
+
+
+class EwaldElectrostatics(Interaction):
+    """Ewald electrostatics (``ops/ewald.py``), differentiable in the
+    positions, the charges and the cell.
+
+    ``charges`` are rounded to float32, as the JAX package keeps them;
+    ``learn_charges=True`` makes them the parameter ``charges``, else they
+    are the buffer ``charges0``.  The cell, too, is float32 (``cell0``):
+    its (3,) lengths when diagonal, else the (3, 3) matrix; ``cell=``
+    overrides it.  ``r_cut`` defaults to 0.99 of half the smallest
+    perpendicular width of the cell.  The k-vectors (``nvecs``) are fixed
+    at construction from the system's cell and ``accuracy``.
+
+    ``ex_pairs`` (diagonal cells only): the pairs leave the real sum and
+    their reciprocal share is subtracted.  ``mode='table'`` (diagonal
+    cells only): the real sum over an (N, K) table from
+    ``topology.generate_neighbor_table`` with the exclusions at build
+    time; ``k_max`` is the largest neighbor count at the system's
+    positions times ``capacity_slack``, rounded up to 8 and capped at N.
+    """
+
+    def __init__(self, system, charges, r_cut=None, accuracy=3.2,
+                 ex_pairs=None, learn_charges=False, mode="dense",
+                 capacity_slack=1.6, device="cuda"):
+        from .ops import ewald
+        super().__init__()
+        check_system(system)
+        device = resolve_device(device)
+        if mode not in ("dense", "table"):
+            raise ValueError(f"mode {mode!r} not in ('dense', 'table')")
+        q0 = torch.tensor(np.asarray(charges), dtype=torch.float32)
+        self.learn_charges = learn_charges
+        if learn_charges:
+            self.charges = nn.Parameter(q0)
+        else:
+            self.register_buffer("charges0", q0, persistent=False)
+        cell = np.asarray(system.get_cell(), dtype=np.float64)
+        cm = np.diag(cell) if cell.ndim == 1 else cell
+        diagonal = topology._is_diagonal(cm)
+        self.register_buffer("cell0", torch.tensor(
+            np.diag(cm) if diagonal else cm, dtype=torch.float32),
+            persistent=False)
+        if r_cut is None:
+            # half the smallest perpendicular box width (min-image bound)
+            V = abs(np.linalg.det(cm))
+            widths = [V / np.linalg.norm(np.cross(cm[(i + 1) % 3],
+                                                  cm[(i + 2) % 3]))
+                      for i in range(3)]
+            r_cut = float(min(widths)) / 2 * 0.99
+        self.r_cut = r_cut
+        self.alpha, k_cut = ewald.ewald_params(r_cut, accuracy)
+        self.register_buffer("nvecs", ewald.build_kvectors(cm, k_cut),
+                             persistent=False)
+        n = system.get_number_of_atoms()
+        self.n_atoms = n
+        if ex_pairs is not None and not diagonal:
+            raise ValueError("ex_pairs requires a diagonal cell "
+                             "(elementwise bond re-wrap)")
+        self.register_buffer("ex_pairs", None if ex_pairs is None else
+                             torch.as_tensor(np.asarray(ex_pairs),
+                                             dtype=torch.long),
+                             persistent=False)
+        self.register_buffer("extra_mask",
+                             topology.pair_index_mask(n, None, ex_pairs),
+                             persistent=False)
+        if mode == "table" and not diagonal:
+            raise ValueError("mode='table' requires a diagonal cell")
+        self.mode = mode
+        if mode == "table":
+            xyz0 = torch.as_tensor(system.get_positions(),
+                                   dtype=torch.float32)
+            k0 = topology.max_neighbors(xyz0, self.r_cut, self.cell0,
+                                        self.extra_mask)
+            self.k_max = min(
+                int(np.ceil(max(k0, 1) * capacity_slack / 8) * 8), n)
+        self._ewald = ewald
+        self.to(device)
+
+    def grow_capacity(self, factor=1.5):
+        """'table': ``k_max`` times ``factor``, rounded up to 8 and capped
+        at N; True if it grew."""
+        if self.mode != "table":
+            return False
+        new_k = min(int(np.ceil(self.k_max * factor / 8) * 8), self.n_atoms)
+        if new_k > self.k_max:
+            self.k_max = new_k
+            return True
+        return False
+
+    def _cell0(self, xyz, cell):
+        return (self.cell0.to(xyz.dtype) if cell is None
+                else torch.as_tensor(cell))
+
+    def aux_init(self, xyz, cell=None):
+        if self.mode != "table":
+            return ()
+        return topology.generate_neighbor_table(
+            xyz, self.r_cut, self._cell0(xyz, cell), self.k_max,
+            self.extra_mask, store_offsets=False)
+
+    def aux_update(self, xyz, aux, cell=None):
+        return self.aux_init(xyz, cell=cell)
+
+    def energy(self, xyz, aux, cell=None):
+        q = self.charges if self.learn_charges else self.charges0
+        return self._ewald.ewald_energy(
+            q.to(xyz.dtype), xyz, self._cell0(xyz, cell), self.nvecs,
+            self.alpha, self.r_cut, extra_mask=self.extra_mask,
+            ex_pairs=self.ex_pairs,
+            nbrs=aux if self.mode == "table" else None)
+
+
+class BondPotentials(Interaction):
+    """Harmonic bonds over ``top`` (B, 2) with the diagonal-cell re-wrap:
+    0.5 k (r^2 - ro)^2 -- the reference's form, squared length against
+    ``ro``, kept for its fitted constants."""
+
+    def __init__(self, system, top, k, ro, device="cuda"):
+        super().__init__()
+        check_system(system)
+        device = resolve_device(device)
+        self._register_top(system, top)
+        self.k, self.ro = k, ro
+        self.to(device)
+
+    def energy(self, xyz, aux, cell=None):
+        vec = xyz[self.top[:, 0]] - xyz[self.top[:, 1]]
+        vec = topology.wrap_bond_vectors(vec, self._cell("cell_len", xyz,
+                                                         cell))
+        bond_sq = (vec ** 2).sum(-1)
+        return (0.5 * self.k * (bond_sq - self.ro) ** 2).sum()
+
+
+class AnglePotentials(Interaction):
+    """Harmonic angles over ``top`` (A, 3), the apex in the middle:
+    0.5 k (theta - thetao)^2, cos(theta) clipped to +-0.999999 before the
+    arccos (the reference's acos guard)."""
+
+    def __init__(self, system, top, k, thetao, device="cuda"):
+        super().__init__()
+        check_system(system)
+        device = resolve_device(device)
+        self._register_top(system, top)
+        self.k, self.thetao = k, thetao
+        self.to(device)
+
+    def energy(self, xyz, aux, cell=None):
+        cl = self._cell("cell_len", xyz, cell)
+        v1 = topology.wrap_bond_vectors(
+            xyz[self.top[:, 0]] - xyz[self.top[:, 1]], cl)
+        v2 = topology.wrap_bond_vectors(
+            xyz[self.top[:, 2]] - xyz[self.top[:, 1]], cl)
+        dot = (v1 * v2).sum(-1)
+        norm = torch.sqrt((v1 ** 2).sum(-1) * (v2 ** 2).sum(-1))
+        cos = torch.clamp(dot / norm, -0.999999, 0.999999)
+        angle = torch.arccos(cos)
+        return (0.5 * self.k * (angle - self.thetao) ** 2).sum()
 
 
 class Stack(Interaction):

@@ -1,9 +1,11 @@
-"""Crystal lattices (port of ``cubic_lattice`` and ``square_lattice_2d``
-from ``mdgrad_tpu/lattice.py``).
+"""Crystal lattices and chain geometries (port of ``cubic_lattice``,
+``square_lattice_2d``, ``helix`` and ``straight_chain`` from
+``mdgrad_tpu/lattice.py``).
 
-Each returns ``(positions (N, 3) float64, cell (3, 3)
-float64)`` with the same atom order as the JAX package, so that systems
-built from the same arguments agree bit for bit.
+Each but ``helix`` returns ``(positions (N, 3) float64, cell (3, 3)
+float64)``; ``helix`` returns the positions alone.  The atom order is the
+JAX package's, so that systems built from the same arguments agree bit
+for bit.
 """
 
 import numpy as np
@@ -47,4 +49,23 @@ def square_lattice_2d(rho, size):
     positions = np.stack(
         [j.ravel() * L, i.ravel() * L, np.zeros(size * size)], axis=-1)
     cell = np.diag([L * size] * 3)
+    return positions, cell
+
+
+def helix(n_spirals, n_atoms, a, dz):
+    """(n_atoms, 3) helix of radius ``a`` turning through ``n_spirals``
+    half turns, rising ``dz`` per atom: the polymer fold's target."""
+    t = np.linspace(0, np.pi * n_spirals, n_atoms)
+    z = np.arange(n_atoms) * dz
+    return np.stack([np.cos(t) * a, np.sin(t) * a, z], axis=-1)
+
+
+def straight_chain(n_atoms, bond_len, origin=(50.0, 50.0, 50.0),
+                   box=100.0):
+    """Straight chain along x from ``origin``, ``bond_len`` apart, in a
+    cubic box of side ``box``: the polymer fold's start."""
+    origin = np.asarray(origin, dtype=np.float64)
+    positions = origin[None, :] + np.outer(
+        np.arange(n_atoms), np.array([bond_len, 0.0, 0.0]))
+    cell = np.diag([box] * 3)
     return positions, cell

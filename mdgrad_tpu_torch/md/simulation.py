@@ -22,6 +22,12 @@ integrator has ``cell_len0``).  ``integrator.adjoint == "reverse"`` runs
 the reverse-time adjoint (the step at -dt reconstructs the states).  An
 integrator with ``advance_ctrl`` (Langevin) moves its controls on by each
 epoch's steps in :meth:`simulate`.
+
+``method`` (default the integrator's ``default_method``) is passed to
+every step: ``'verlet'``, ``'NH_verlet'`` and ``'langevin'`` prime the
+force cache at entry; any other (``'rk4'``) only refreshes the neighbor
+state there and leaves the cache alone, as the JAX package's
+``can_prime``.
 """
 
 import warnings
@@ -63,10 +69,11 @@ class Simulation:
     positions; each also warns once.
     """
 
-    def __init__(self, system, integrator, wrap=True):
+    def __init__(self, system, integrator, wrap=True, method=None):
         self.system = system
         self.integrator = integrator
         self.wrap = wrap
+        self.method = method or integrator.default_method
         self.keys = integrator.state_keys
         self.log = {k: [] for k in self.keys}
         self.state = None
@@ -103,13 +110,16 @@ class Simulation:
         through plain autograd; the entry force is primed on the graph.
         """
         integ = self.integrator
+        method = self.method
+        can_prime = method in ("verlet", "NH_verlet", "langevin")
         wrap = None
         if self.wrap:
             def wrap(state, aux=None):
                 return wrap_state(state, self._wrap_cell(state))
 
         def step_fn(state, aux, ctrl, i, create_graph):
-            return integ.step(state, aux, ctrl, dt, create_graph, t=i * dt)
+            return integ.step(state, aux, ctrl, dt, create_graph,
+                              method=method, t=i * dt)
 
         def aux_update(state, aux):
             # a barostat rebuilds the topology against the state's cell
@@ -120,10 +130,11 @@ class Simulation:
         reverse_step = None
         if integ.adjoint == "reverse":
             def reverse_step(state, aux, ctrl, i):
-                return integ.step(state, aux, ctrl, -dt, False, t=i * dt)
+                return integ.step(state, aux, ctrl, -dt, False,
+                                  method=method, t=i * dt)
 
-        # the entry prime refreshes aux at the wrapped entry state, so the
-        # step-0 table is that same build (skip_first_refresh)
+        # the entry prime (or refresh) builds aux at the wrapped entry
+        # state, so the step-0 table is that same build (skip_first_refresh)
         odeint = make_odeint(step_fn, aux_update,
                              max(int(frequency) - 1, 1),
                              update_freq=integ.topology_update_freq,
@@ -134,9 +145,12 @@ class Simulation:
         def ode(state, aux, ctrl):
             if wrap is not None:
                 state = wrap(state)
-            state, aux = integ.prime_state(
-                state, aux, create_graph=torch.is_grad_enabled())
-            self._note_flags(aux)
+            if can_prime:
+                state, aux = integ.prime_state(
+                    state, aux, create_graph=torch.is_grad_enabled())
+                self._note_flags(aux)
+            else:
+                aux = aux_update(state, aux)
             params = [p for p in integ.model.parameters() if p.requires_grad]
             return odeint(params, state, aux, ctrl)
 

@@ -17,7 +17,9 @@ imports JAX.
 import numpy as np
 import torch
 
-from ..interface import GNNPotentials, PairPotentials, TPairPotentials
+from ..interface import (AnglePotentials, BondPotentials, Electrostatics,
+                         EwaldElectrostatics, GNNPotentials, PairPotentials,
+                         TPairPotentials)
 from .pair_mlp import MLP, PairMLP, TPairMLP
 
 # flax auto-names inside SchNetConv, in creation order -> port submodules
@@ -101,13 +103,19 @@ def pair_params_from_numpy(tree, pair):
 def stack_params_from_numpy(tree, stack):
     """``Stack`` state_dict from the JAX ``Stack.init_params()`` tree:
     GNN children take :func:`schnet_params_from_numpy`, pair children
-    :func:`pair_params_from_numpy`."""
+    :func:`pair_params_from_numpy`; an Ewald child its leaves as they are
+    (``charges`` with ``learn_charges``, the molten-salt fit's ``qscale``),
+    and the bonded terms and the cutoff Coulomb sum, which have no
+    parameters, an empty tree."""
     state = {}
     for name, child in stack.models.items():
         if isinstance(child, GNNPotentials):
             sub, prefix = schnet_params_from_numpy(tree[name]), "gnn."
         elif isinstance(child, PairPotentials):
             sub, prefix = pair_params_from_numpy(tree[name], child), ""
+        elif isinstance(child, (EwaldElectrostatics, Electrostatics,
+                                BondPotentials, AnglePotentials)):
+            sub, prefix = {k: _t(v) for k, v in tree[name].items()}, ""
         else:
             raise TypeError(f"no parameter conversion for {type(child)}")
         state.update({f"models.{name}.{prefix}{k}": v

@@ -21,6 +21,9 @@ ps = 1e-12 * second
 
 kB = _k / _e                 # Boltzmann constant in eV/K (~8.6173303e-5)
 
+m = 1e10                     # metre in Angstrom
+C = 1.0 / _e                 # Coulomb in units of the elementary charge
+
 # pressure: 1 atm in eV / Angstrom^3 (101325 Pa * 6.241509e-12 eV A^-3 /
 # Pa), for the registry's ``pressure`` metadata (atm)
 atm = 101325.0 * 6.241509074460763e-12

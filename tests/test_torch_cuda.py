@@ -739,3 +739,29 @@ def test_lj_scratch_is_ops_pair_mirror(cuda):
     assert lib.mdg_lj_scratch(4, 10, 0) == -1
     assert lib.mdg_lj_scratch(0, 0, 0) == -1
     assert lib.mdg_lj_scratch(0, 10, 2) == -1
+
+
+def test_ewald_f32_on_the_card_matches_cpu_f64(cuda):
+    """The molten salt's Ewald (216 ions, a = 6.2 A, r_cut 9.114 A, 618
+    half-space k-vectors) in float32 on the card against float64 on the
+    CPU at the same melt-like positions: U within 1e-6 of |U|, forces
+    within 1e-4 of the largest (the CPU's own float32 lies 4e-8 and 2e-6
+    away).  TF32 in the phase product misses both: at the melt of
+    ``chip_smoke.py``'s phase 4m it lies 1.5e-5 and 4.5e-3 away (H100)."""
+    from mdgrad_tpu_torch.train import fit_salt as fs
+    system = fs.rocksalt_melt(rng=np.random.default_rng(0))
+    pos = system.get_positions() + 0.6 * np.random.default_rng(1).normal(
+        size=(216, 3))
+    pattern = np.where(system.get_atomic_numbers() == 11, 1.0, -1.0)
+    out = {}
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        ew = fs.ScaledChargeEwald(system, pattern, 0.8, r_cut=9.114,
+                                  device=device).to(dtype)
+        assert ew.nvecs.shape == (618, 3)
+        x = torch.tensor(pos, dtype=dtype, device=device, requires_grad=True)
+        u = ew.energy(x, ())
+        u.backward()
+        out[dtype] = (u.item(), x.grad.double().cpu())
+    (u32, g32), (u64, g64) = out[torch.float32], out[torch.float64]
+    assert abs(u32 - u64) <= 1e-6 * abs(u64)
+    assert (g32 - g64).abs().max() <= 1e-4 * g64.abs().max()
