@@ -191,6 +191,23 @@ its phases, printing one line as each check ends:
    at 6 burn-in and 2 sampling epochs).  ``fit_mix`` at its defaults (108
    atoms, 3 epochs at tau 21, 4 target epochs of 40 steps): finite
    losses and recovered potentials.
+4n. supervised and ti -- ``scripts/run_supervised_torch.py`` at
+   ``scripts/run_supervised.py``'s defaults (lj_0.845_1.2, 108 atoms,
+   cutoff 2.5, dt 0.005; 20 burn-in epochs of 120 steps, 400 frames one
+   every 20 steps, labelled by autograd of the dense LJ; batch 16, lr
+   1e-3; SchNet 64/64, 2.5 // 0.1 = 24 Gaussians, 2 convolutions; 12
+   validation epochs of 120 steps), cut from 150 training epochs to 3: the
+   label seconds, training steps/s and seconds an epoch, the test MAEs,
+   the RDF MSE against the ground truth, peak memory; ``batched_predict``
+   on the card against the port on the CPU for one batch of 16 frames;
+   then ``TI`` with the trained weights as a ``GraphConvIntegration`` on
+   the same box, the last atom switched off over 200 steps, lambda moved
+   every 20: a finite delta_f, and dU/dlambda at one configuration against
+   the CPU's float64.  On TI's table at that configuration (N = 108, F =
+   64), K1, K2a and K2b against their plain versions and the CSR build
+   integer-equal to the plain build; TI's force -dU/dq at lambda 0.5, its
+   vjp in q, in ``aggr_wgt`` and in the weights, and dU/d(aggr_wgt),
+   through the kernels against a copy on the plain gather path.
 5. times   -- each kernel, its plain version and its library yardstick with
    CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms; K3/K4 at 50
    and 3 frames of 512 sites, at 10 of 1372, at 1 of 512 with 800
@@ -225,7 +242,7 @@ its phases, printing one line as each check ends:
    outputs in the two libraries; one JSON line ``{"pair_ab": ...}``.
 
 Launch counts are zeroed just before phases 3, 3b, 4 and 4b, each call
-of 4c, 4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l and 4m and each run of 4d, and
+of 4c, 4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m and 4n and each run of 4d, and
 read just after each: phases 3, 4, 4c, 4e, 4i, 4j's fit and 4l's angle fit must
 launch every water kernel, the CSR build included, 4d and 4k's NPT water
 fit the bf16 gather kernels in their place, 4f's water pair fits K3/K4
@@ -233,11 +250,14 @@ and K3b/K4b in every epoch, 4h's GNN fit K1, K2a, K2b and the CSR build in
 every epoch, 4k's reverse-time and replay epochs K6, K6b, K3/K4 and
 K3b/K4b, its Langevin run K6, 4m's fold K1, K2a, K2b and the CSR build
 in every trained epoch (read at each epoch's log line) and nothing else,
-4g and 4m's salt and mixture fits no kernel at all, and none may call a
-plain version.  The line before the last is a JSON object with one record per
-kernel; the last line is ``{"ok": true, "device": {...}}``.  Any failed
-check raises and the script exits non-zero.  Without a CUDA device it exits
-1 and prints no result.
+4n's validation MD and TI K1, K2a, K2b and the CSR build in every
+epoch (each validation epoch's and TI segment's log line), and nothing
+else, 4g, 4m's salt and mixture fits and 4n's label MD, trainer,
+``evaluate``, ground-truth validation and ``batched_predict`` no kernel
+at all, and none may call a plain version.  The line before the last is
+a JSON object with one record per kernel; the last line is ``{"ok":
+true, "device": {...}}``.  Any failed check raises and the script exits
+non-zero.  Without a CUDA device it exits 1 and prints no result.
 """
 
 import argparse
@@ -3365,6 +3385,287 @@ def fold_salt_mix_phase(mt, torch, dev, records, compare):
     return out
 
 
+# run_supervised.py's defaults (lj_0.845_1.2 at size 3, 108 atoms; 20
+# burn-in epochs, 400 frames every 20 steps; batch 16, lr 1e-3; SchNet
+# 64/64, 2.5 // 0.1 = 24 Gaussians, 2 convolutions, cutoff 2.5; 12
+# validation epochs)
+# cut from 150 training epochs to 3
+SUPERVISED_ARGV = ["-max_epochs", "3"]
+# TI on the trained model: the last atom switched off over 200 steps,
+# the lambda moved every 20 (10 segments), dt and T the script's
+TI_STEPS, TI_FREQ = 200, 20
+# the card's float32 against the CPU, each relative to its largest entry:
+# batched_predict against the CPU's float32 (the card's index_add adds in
+# no fixed order; an energy sums 108 atomic terms of ~5 to a shifted ~30,
+# and lay 5.3e-06 off in the first run, the forces 1.1e-06; H100, 700 W),
+# dU/dlambda against the CPU in float64 (1.3e-05)
+SUP_PREDICT_TOL = {"energy": 1e-4, "energy_grad": 1e-5}
+TI_DU_TOL = 1e-4
+
+
+def _epoch_deltas(marks, tag):
+    """The launch counts of each ``[tag] epoch i`` line's epoch: the
+    difference of the counts read at it and at the line before."""
+    out = []
+    for (_, prev), (msg, cur) in zip(marks, marks[1:]):
+        if msg.startswith(f"  [{tag}] epoch"):
+            out.append({g: {k: cur[g][k] - prev[g][k] for k in cur[g]}
+                        for g in cur})
+    return out
+
+
+def supervised_ti_phase(mt, torch, dev, records, compare):
+    """Phase 4n (see the module docstring): returns its numbers."""
+    import copy
+    import tempfile
+    import numpy as np
+    from mdgrad_tpu_torch import ops
+    from mdgrad_tpu_torch.data.dataset import Dataset
+    from mdgrad_tpu_torch.ops import gather
+    from mdgrad_tpu_torch.data.loader import DataLoader
+    from mdgrad_tpu_torch.data.registry import pair_data_dict
+    from mdgrad_tpu_torch.md.ti import TI
+    from mdgrad_tpu_torch.nn.models import GraphConvIntegration
+    from mdgrad_tpu_torch.train.builders import load_model
+    from mdgrad_tpu_torch.train.fit_rdf import get_system, registry_T_kelvin
+    from mdgrad_tpu_torch.train.supervised import batch_to_tensors
+    script = load_script("run_supervised_torch.py")
+    out = {}
+    marks = []
+
+    def log(msg):
+        torch.cuda.synchronize()
+        marks.append((msg, ops.counts()))
+        line(f"supervised: {msg}")
+
+    with tempfile.TemporaryDirectory() as logdir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        marks.append(("start", ops.counts()))
+        t0 = time.perf_counter()
+        res = script.main(["-logdir", logdir, *SUPERVISED_ARGV], log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        sec = res["seconds"]
+        msgs = [m for m, _ in marks]
+        i_data = next(i for i, m in enumerate(msgs)
+                      if m.startswith("dataset:"))
+        i_train = next(i for i, m in enumerate(msgs)
+                       if m.startswith("training:"))
+        i_test = next(i for i, m in enumerate(msgs)
+                      if m.startswith("test metrics"))
+        check_no_kernel(marks[i_data][1], "label MD and labels")
+        # the trainer and evaluate: nothing launched between the dataset
+        # line and the test metrics
+        between = {g: {k: marks[i_test][1][g][k] - marks[i_data][1][g][k]
+                       for k in marks[i_test][1][g]}
+                   for g in marks[i_test][1]}
+        check_no_kernel(between, "supervised trainer and evaluate")
+        for i, launched in enumerate(_epoch_deltas(marks, "truth")):
+            check_no_kernel(launched, f"ground-truth validation epoch {i}")
+        val = _epoch_deltas(marks, "gnn")
+        require(len(val) == 12, "12 validation MD epochs of the GNN")
+        for i, launched in enumerate(val):
+            check_no_kernel(launched, f"GNN validation epoch {i}",
+                            allowed=FOLD_KERNELS)
+            for name in FOLD_KERNELS:
+                require(launched["launches"][name] > 0,
+                        f"kernel {name} launched in GNN validation epoch {i}")
+        for name in FOLD_KERNELS:
+            records.setdefault(name, {})["launches_supervised_val"] = \
+                val[-1]["launches"][name]
+        metrics = res["test_metrics"]
+        require(all(np.isfinite(v) for d in metrics.values()
+                    for v in d.values()) and np.isfinite(
+                        res["rdf_mse_vs_truth"]),
+                "finite test metrics and RDF MSE")
+        steps_per_s = res["train_steps"] / sec["train"]
+        line(f"supervised: N = {res['n_atoms']}, {res['n_frames']} frames; "
+             f"labels {sec['labels']:.3f} s (20 burn-in and "
+             f"{-(-res['n_frames'] * 20 // 120)} sampling epochs of 120 "
+             f"steps and the labels); training {res['train_epochs']} "
+             f"epochs, {res['train_steps']} steps of 16 frames in "
+             f"{sec['train']:.3f} s ({steps_per_s:.2f} steps/s, "
+             f"{sec['train'] / res['train_epochs']:.3f} s an epoch with "
+             f"its validation); test MAE energy "
+             f"{metrics['energy']['mae']:.5f}, energy_grad "
+             f"{metrics['energy_grad']['mae']:.5f}; validation MD "
+             f"{sec['validation_md']:.3f} s for 12 epochs of 120 steps; RDF "
+             f"MSE vs truth {res['rdf_mse_vs_truth']:.5f}; the call "
+             f"{wall:.3f} s, peak {peak} B; launches a GNN validation epoch "
+             f"{ {k: val[-1]['launches'][k] for k in FOLD_KERNELS} }")
+        out.update(wall=wall, peak=peak, seconds=sec,
+                   steps_per_s=steps_per_s, metrics=metrics,
+                   rdf_mse=res["rdf_mse_vs_truth"],
+                   val_launches={k: val[-1]["launches"][k]
+                                 for k in FOLD_KERNELS})
+
+        # batched_predict on the card against the port on the CPU
+        model, mp = load_model(os.path.join(logdir, "model.pt"), device=dev)
+        ds = Dataset.load(os.path.join(logdir, "dataset.npz"))
+        batch = next(iter(DataLoader(ds, batch_size=16, shuffle=False)))
+        cpu_model = copy.deepcopy(model).cpu()
+        ops.reset_counts()
+        with torch.no_grad():
+            got = model.batched_predict(batch_to_tensors(batch, dev))
+            ref = cpu_model.batched_predict(batch_to_tensors(batch, "cpu"))
+        check_no_kernel(ops.counts(), "batched_predict on the card")
+        errs = {}
+        for key in ("energy", "energy_grad"):
+            err, rel, scale = max_errs(got[key].cpu(), ref[key])
+            errs[key] = rel
+            require(rel <= SUP_PREDICT_TOL[key],
+                    f"batched_predict {key} on the card equals the CPU's "
+                    f"({rel:.3e} of its largest entry, tol "
+                    f"{SUP_PREDICT_TOL[key]})")
+        line(f"supervised: batched_predict card vs CPU on 16 frames: energy "
+             f"{errs['energy']:.3e}, energy_grad {errs['energy_grad']:.3e} "
+             f"of the largest entry (tol {SUP_PREDICT_TOL}); no kernel")
+        out["predict_err"] = errs
+
+    # TI with the trained weights as a GraphConvIntegration on the box
+    entry = pair_data_dict["lj_0.845_1.2"]
+    T = registry_T_kelvin(entry)
+    system = get_system("lj_0.845_1.2", 3, pair_data_dict,
+                        rng=np.random.default_rng(0))
+    n = system.get_number_of_atoms()
+    gci = GraphConvIntegration(mp)
+    gci.load_state_dict(model.state_dict())
+    init, final = np.ones(n), np.ones(n)
+    final[-1] = 0.0
+    ti_marks = []
+
+    def ti_log(msg):
+        torch.cuda.synchronize()
+        ti_marks.append((time.perf_counter(), ops.counts()))
+        line(f"ti: {msg}")
+
+    ti = TI(system, gci.to(dev), init, final, T_init=T, dt=0.005,
+            cutoff=mp["cutoff"], steps=TI_STEPS,
+            nbr_list_update_freq=TI_FREQ, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    ti_marks.append((time.perf_counter(), ops.counts()))
+    ti_out = ti.run(log=ti_log)
+    require(len(ti_out["du_dlambda"]) == TI_STEPS // TI_FREQ
+            and np.isfinite(ti_out["du_dlambda"]).all()
+            and np.isfinite(ti_out["delta_f"]),
+            "TI gives a finite dU/dlambda and delta_f")
+    for i, ((_, a), (_, b)) in enumerate(zip(ti_marks, ti_marks[1:])):
+        launched = {g: {k: b[g][k] - a[g][k] for k in b[g]} for g in b}
+        check_no_kernel(launched, f"TI epoch {i}", allowed=FOLD_KERNELS)
+        for name in FOLD_KERNELS:
+            require(launched["launches"][name] > 0,
+                    f"kernel {name} launched in TI epoch {i}")
+        if i == len(ti_marks) - 2:
+            for name in FOLD_KERNELS:
+                records.setdefault(name, {})["launches_ti"] = \
+                    launched["launches"][name]
+            ti_launches = {k: launched["launches"][k] for k in FOLD_KERNELS}
+    ti_epoch = (ti_marks[-1][0] - ti_marks[1][0]) / (len(ti_marks) - 2)
+    # dU/dlambda at the final configuration: the card against the CPU in
+    # float64
+    q = ti_out["final_state"].q
+    aggr = ti.init_aggr + 0.5 * (ti.final_aggr - ti.init_aggr)
+    direction = ti.final_aggr - ti.init_aggr
+    aux = ti.interaction.aux_init(q)
+    du = float(ti.du_dlambda(q, aux, aggr, direction))
+    ti_cpu = TI(system, copy.deepcopy(gci).cpu().double(), init, final,
+                T_init=T, dt=0.005, cutoff=mp["cutoff"], steps=TI_STEPS,
+                nbr_list_update_freq=TI_FREQ, device="cpu",
+                dtype=torch.float64)
+    q64 = q.detach().cpu().double()
+    du_ref = float(ti_cpu.du_dlambda(q64, ti_cpu.interaction.aux_init(q64),
+                                     aggr.cpu().double(),
+                                     direction.cpu().double()))
+    du_err = abs(du - du_ref) / max(abs(du_ref), 1e-30)
+    require(du_err <= TI_DU_TOL,
+            f"dU/dlambda on the card equals the CPU's float64 ({du_err:.3e}"
+            f", tol {TI_DU_TOL})")
+    line(f"ti: N = {n}, {TI_STEPS} steps, lambda moved every {TI_FREQ}: "
+         f"delta_f {ti_out['delta_f']:.6f}, dU/dlambda "
+         f"{np.round(ti_out['du_dlambda'], 5).tolist()}; "
+         f"{ti_epoch:.3f} s a segment; launches a segment {ti_launches}; "
+         f"dU/dlambda at lambda 0.5 on the final state: card {du:.6f}, "
+         f"CPU f64 {du_ref:.6f} (relative {du_err:.3e}, tol {TI_DU_TOL})")
+    out["ti"] = {"delta_f": ti_out["delta_f"], "epoch_s": ti_epoch,
+                 "launches": ti_launches, "du_err": du_err}
+    out["ti"].update(ti_kernel_checks(torch, dev, compare, gather, ops,
+                                      ti.interaction, q, aux, aggr,
+                                      mp["n_filters"]))
+    return out
+
+
+def ti_kernel_checks(torch, dev, compare, gather, ops, inter, q, aux, aggr,
+                     f):
+    """Phase 4n's kernels at TI's shapes: K1, K2a and K2b against their
+    plain versions and the CSR build against the plain build on ``aux``,
+    the table at ``q``; then TI's force -dU/dq at ``aggr`` (the per-atom
+    ``aggr_wgt``), its vjp in q, in ``aggr_wgt`` and in the weights, and
+    dU/d(aggr_wgt), through the kernels against a copy of ``inter`` on
+    the plain gather path.  Returns each error relative to its largest
+    entry."""
+    import copy
+    n, k = q.shape[0], inter.k_max
+    idx = torch.where(aux.mask, aux.table, n).reshape(-1).contiguous()
+    require(bool((idx == n).any()) and not bool(aux.overflow),
+            "TI's table has sentinel entries and no overflow")
+    index = gather.TableIndex(idx, n)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    values = torch.randn(n, f, device=dev, generator=gen)
+    w = torch.randn(idx.shape[0], f, device=dev, generator=gen)
+    g_edges = torch.randn(idx.shape[0], f, device=dev, generator=gen)
+    line(f"  TI gather kernels at N={n}, K={k}, F={f}:")
+    compare("gather_mul_reduce", gather._launch_gather_mul_reduce(
+        values, w, index.idx, k), gather.gather_mul_reduce_plain(
+        values, w, index.idx, k), 1e-5)
+    compare("table_gather", gather._launch_table_gather(values, index.idx),
+            gather.table_gather_plain(values, index.idx), 0.0)
+    compare("table_scatter", gather._launch_table_scatter(g_edges, index),
+            gather.table_scatter_plain(g_edges, index.idx, n), 1e-5)
+    require(all(torch.equal(a, b) for a, b in zip(
+        gather._launch_table_index_csr(idx, n),
+        gather.table_index_csr_plain(idx, n))),
+        f"the CSR build equals the plain build at TI's table "
+        f"({gather.table_index_csr_path(idx.shape[0], n)} path)")
+    plain = copy.deepcopy(inter)
+    plain.gnn.gather_mode = "gather"
+    cot = torch.randn(q.shape, device=dev, generator=gen)
+    parts = ("force", "vjp q", "vjp aggr_wgt", "vjp weights",
+             "dU/d(aggr_wgt)")
+    got = {}
+    for label, pot in (("kernels", inter), ("plain", plain)):
+        x = q.detach().clone().requires_grad_(True)
+        a = aggr.detach().clone().requires_grad_(True)
+        ps = list(pot.parameters())
+        ops.reset_counts()
+        u = pot.energy(x, aux, aggr_wgt=a)
+        g_x, g_a = torch.autograd.grad(u, [x, a], create_graph=True)
+        grads = torch.autograd.grad((-g_x * cot).sum(), [x, a, *ps],
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        got[label] = ([-g_x.detach(), grads[0], grads[1],
+                       torch.cat([g.reshape(-1) for g in grads[2:]]),
+                       g_a.detach()], ops.counts())
+    errs = {}
+    for part, a, b in zip(parts, got["kernels"][0], got["plain"][0]):
+        err, rel, scale = max_errs(a, b)
+        line(f"ti: {part} kernels vs plain gather: max_abs_err {err:.3e} "
+             f"(tol {1e-4 * scale:.3e}, largest entry {scale:.3e})")
+        require(scale > 0 and rel <= 1e-4,
+                f"TI's {part} through the kernels equals the plain gather "
+                f"path's")
+        errs[part] = rel
+    counts = got["kernels"][1]
+    check_no_kernel(counts, "TI force and vjp", allowed=FOLD_KERNELS)
+    require(all(counts["launches"][name] > 0 for name in FOLD_KERNELS),
+            "TI's force and its vjp launch K1, K2a, K2b and the CSR build")
+    line(f"ti: force and vjp launches {counts['launches']}")
+    return {"kernel_vs_plain": errs}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--against", action="append", default=[],
@@ -3662,6 +3963,10 @@ def main():
     # ---- 4m. the fold, the molten salt and the mixture ------------------
     fsm = fold_salt_mix_phase(mt, torch, dev, records, compare)
     phase_done("fold, salt and mix")
+
+    # ---- 4n. supervised force matching and TI -----------------------------
+    sup = supervised_ti_phase(mt, torch, dev, records, compare)
+    phase_done("supervised and ti")
 
     # ---- 5. times ---------------------------------------------------------
     e_real = n_real
@@ -4002,6 +4307,12 @@ def main():
          f"epoch "
          f"{sa['epoch_s']:.3f} s (tau 60); mix {fsm['mix']['epoch_s']:.3f} s "
          f"an epoch (N = 108, tau 21)")
+    line(f"time supervised: labels {sup['seconds']['labels']:.3f} s, "
+         f"training {sup['steps_per_s']:.2f} steps/s of 16 frames "
+         f"({sup['seconds']['train']:.3f} s for 3 epochs), validation MD "
+         f"{sup['seconds']['validation_md']:.3f} s (12 x 120 steps, N = "
+         f"108), the call {sup['wall']:.3f} s, peak {sup['peak']} B; TI "
+         f"{sup['ti']['epoch_s']:.3f} s a 20-step segment")
     sp = paired["sparse"]
     line(f"time sparse prior: N = 1728, capacity {sp['capacity']}, SchNet "
          f"K = {sp['k']} (CSR {'/'.join(sp['paths'])} path); one 20-step "

@@ -395,7 +395,9 @@ class GNNPotentials(Interaction):
             return offsets * cell
         return torch.matmul(offsets, cell)
 
-    def energy(self, xyz, aux, cell=None):
+    def energy(self, xyz, aux, cell=None, aggr_wgt=None):
+        """The GNN's energy; ``aggr_wgt`` (N,), the per-atom weights of
+        thermodynamic integration, goes to the GNN (``md/ti.py``)."""
         if cell is not None and not (self.nbr_mode == "table"
                                      and not self.store_offsets):
             raise ValueError("dynamic cell override requires "
@@ -407,11 +409,12 @@ class GNNPotentials(Interaction):
                 cell_len=None if self.store_offsets else cell,
                 offsets_real=(self._real(aux.offsets, cell)
                               if self.store_offsets else None),
-                runtime_cutoff=self.cutoff if self.skin > 0 else None)
+                runtime_cutoff=self.cutoff if self.skin > 0 else None,
+                aggr_wgt=aggr_wgt)
         return self.gnn.energy(
             self.z, xyz, aux.idx, aux.mask,
             offsets_real=self._real(aux.offsets, cell), edge_format="pairs",
-            directed=self.nbr_mode == "topk")
+            directed=self.nbr_mode == "topk", aggr_wgt=aggr_wgt)
 
 
 class Electrostatics(Interaction):

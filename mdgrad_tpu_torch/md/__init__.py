@@ -1,5 +1,6 @@
 """Molecular dynamics of the port: integrators, the simulation loop, the
-fixed-grid ODE solvers and quantum isomerization."""
+fixed-grid ODE solvers, quantum isomerization, thermodynamic
+integration (``ti``) and the xyz and thermo utilities (``utils``)."""
 
 from .integrators import (Langevin, MTSNoseHooverChain, NoseHooverChain,
                           NPTBerendsenNHC, NPTMTKNHC, NPTMTKStateF,

@@ -1,7 +1,8 @@
 """Shared layers: the shifted softplus, the activations by name and the
 Gaussian basis (port of ``mdgrad_tpu/nn/layers.py``).  The Gaussian basis
 is the SchNet edge featurizer, the pair MLPs' featurizer and the soft
-histogram of the RDF."""
+histogram of the RDF.  ``pad_rows`` and ``segment_sum`` are the padded
+edge lists' gather row and sum (the JAX package's ``segment_sum``)."""
 
 import math
 
@@ -29,6 +30,19 @@ class _NarrowSoftplus(torch.autograd.Function):
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         return g * torch.exp(x - _NarrowSoftplus.apply(x))
+
+
+def pad_rows(x, fill=0.0):
+    """``x`` with one more row of ``fill``, which padded indices (== N)
+    gather."""
+    return torch.cat([x, torch.full_like(x[:1], fill)])
+
+
+def segment_sum(values, index, n):
+    """Sum of the rows of ``values`` into ``n`` segments by ``index``;
+    rows with index ``n`` (padding) are dropped."""
+    out = values.new_zeros((n + 1,) + values.shape[1:])
+    return out.index_add(0, index, values)[:-1]
 
 
 def shifted_softplus(x):

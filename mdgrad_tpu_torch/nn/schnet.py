@@ -22,6 +22,11 @@ Edge formats, as the JAX package's ``edge_format`` and ``directed``:
 length, so a list built at ``cutoff + skin`` stays exact while no atom
 moves more than skin / 2.
 
+``aggr_wgt`` (N,) scales each atom's node filter before the aggregation
+(thermodynamic integration), so on the table it reaches K1 as its
+values.  ``batched_energy`` / ``batched_predict`` take the supervised
+loader's padded batch as one disjoint graph over the edge list.
+
 ``compute_dtype``: the parameters stay in their dtype (float32); each
 dense layer casts its input, weight and bias to its compute dtype and
 computes ``(x @ W.T) + b`` in two ops, as flax's ``Dense(dtype=...)``
@@ -63,7 +68,8 @@ from torch import nn
 
 from ..ops.gather import (TableIndex, gather_mul_reduce,
                           gather_mul_reduce_plain)
-from .layers import gaussian_smearing, shifted_softplus
+from .layers import (gaussian_smearing, pad_rows, segment_sum,
+                     shifted_softplus)
 
 GATHER_MODES = ("auto", "onehot", "pallas", "gather")
 # compute_dtype -> (node-filter GEMM dtype, edge filter / aggregation /
@@ -126,10 +132,13 @@ class SchNetConv(nn.Module):
         self.update_in = _dense(n_filters, n_atom_basis, generator)
         self.update_out = _dense(n_atom_basis, n_atom_basis, generator)
 
-    def forward(self, r, e, mask, aggregate):
+    def forward(self, r, e, mask, aggregate, aggr_wgt=None):
         """r (N, n_atom_basis); e (..., 1) edge lengths and mask (...) in
         the edge layout; ``aggregate(rf, w)`` sums each atom's senders'
-        rows of ``rf`` times the edge weights ``w`` (..., F)."""
+        rows of ``rf`` times the edge weights ``w`` (..., F).
+        ``aggr_wgt`` (N,): per-atom weights on the node filter, the
+        coupling of thermodynamic integration, applied before the
+        aggregation as in the JAX package."""
         adt = self.adt
         ef = gaussian_smearing(e, self.offsets, self.widths)
         if adt is not None:
@@ -137,6 +146,8 @@ class SchNetConv(nn.Module):
         ef = linear(self.filter_out,
                     shifted_softplus(linear(self.filter_in, ef, adt)), adt)
         rf = linear(self.node_filter, r, self.fdt).to(ef.dtype)
+        if aggr_wgt is not None:
+            rf = rf * aggr_wgt[:, None]
         agg = aggregate(rf, ef * mask[..., None].to(ef.dtype))
         out = shifted_softplus(linear(self.update_in, agg.to(ef.dtype), adt))
         return linear(self.update_out, out, adt).to(r.dtype)
@@ -169,12 +180,10 @@ def _edge_aggregate(idx, n, directed):
     i, j = idx[:, 0].long(), idx[:, 1].long()
 
     def aggregate(rf, w):
-        ext = torch.cat([rf, rf.new_zeros(1, rf.shape[1])])
-        out = rf.new_zeros(n + 1, rf.shape[1])
+        ext = pad_rows(rf)
         if directed:   # (receiver, sender) rows
-            return out.index_add(0, i, ext[j] * w)[:n]
-        return (out.index_add(0, j, ext[i] * w)
-                + out.index_add(0, i, ext[j] * w))[:n]
+            return segment_sum(ext[j] * w, i, n)
+        return segment_sum(ext[i] * w, j, n) + segment_sum(ext[j] * w, i, n)
     return aggregate
 
 
@@ -220,7 +229,8 @@ class SchNet(nn.Module):
             for key in modelparams.get("readout_keys", ("energy",))})
 
     def atomwise(self, z, xyz, idx, mask, cell_len=None, offsets_real=None,
-                 edge_format="table", directed=False, runtime_cutoff=None):
+                 edge_format="table", directed=False, runtime_cutoff=None,
+                 aggr_wgt=None):
         """Per-atom readouts {key: (N,)}.
 
         ``edge_format='table'``: ``idx`` (N, K) and ``mask`` (N, K), with
@@ -228,7 +238,9 @@ class SchNet(nn.Module):
         image in ``cell_len`` (3,).  ``'pairs'``: ``idx`` (P, 2),
         ``mask`` (P,) and ``offsets_real`` (P, 3); ``directed`` for
         (receiver, sender) rows.  ``runtime_cutoff`` masks edges by their
-        current length (the Verlet skin)."""
+        current length (the Verlet skin).  ``aggr_wgt`` (N,) scales each
+        atom's node filter in every convolution (``GraphConvIntegration``,
+        ``md/ti.py``)."""
         n = xyz.shape[0]
         ext = torch.cat([xyz, xyz.new_zeros(1, 3)])
         if edge_format == "table":
@@ -254,10 +266,53 @@ class SchNet(nn.Module):
             aggregate = _edge_aggregate(idx, n, directed)
         r = self.embedding(z)
         for conv in self.convs:
-            r = r + conv(r, e, mask, aggregate)
+            r = r + conv(r, e, mask, aggregate, aggr_wgt)
         return {key: head(r) for key, head in self.readouts.items()}
 
     def energy(self, z, xyz, idx, mask, cell_len=None, **edges):
         """Total potential energy (scalar); ``edges`` as :meth:`atomwise`."""
         return self.atomwise(z, xyz, idx, mask, cell_len,
                              **edges)["energy"].sum()
+
+    # -- padded batches (the supervised training path) -----------------------
+    def batched_energy(self, batch):
+        """Per-molecule energies (B,) of a padded batch of tensors (the
+        keys of ``data/loader.py``'s ``pad_batch``: z, xyz, atom_mask,
+        nbr_idx, offsets (real space), nbr_mask).
+
+        The JAX package ``vmap``s the one-molecule model over B; here the
+        batch is one disjoint graph of B N_max atoms, atom i of molecule b
+        at row b N_max + i, so each convolution is one ``index_add`` a
+        direction for the whole batch.  A padded pair row (index N_max)
+        goes to the one dropped row B N_max, not b N_max + N_max, which is
+        the next molecule's atom 0.  Padded atoms (z = 0) have no edges
+        and ``atom_mask`` drops them from each molecule's sum."""
+        z, xyz = batch["z"], batch["xyz"]
+        b, n = z.shape
+        idx = batch["nbr_idx"].long()
+        base = torch.arange(b, device=idx.device).reshape(b, 1, 1) * n
+        idx = torch.where(idx < n, idx + base, b * n).reshape(-1, 2)
+        per_atom = self.atomwise(
+            z.reshape(-1).long(), xyz.reshape(-1, 3), idx,
+            batch["nbr_mask"].reshape(-1),
+            offsets_real=batch["offsets"].reshape(-1, 3).to(xyz.dtype),
+            edge_format="pairs")["energy"]
+        return (per_atom.reshape(b, n)
+                * batch["atom_mask"].to(per_atom.dtype)).sum(1)
+
+    def batched_predict(self, batch):
+        """{'energy': (B,), 'energy_grad': (B, N, 3)}, the supervised
+        targets; ``energy_grad`` is +dU/dxyz.  A force loss differentiates
+        ``energy_grad`` in the parameters, so its graph is kept
+        (``create_graph``) when gradients are enabled and a parameter
+        requires them; under evaluation it is not."""
+        create_graph = torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.parameters())
+        with torch.enable_grad():
+            xyz = batch["xyz"].detach().requires_grad_(True)
+            energy = self.batched_energy({**batch, "xyz": xyz})
+            (grad,) = torch.autograd.grad(energy.sum(), xyz,
+                                          create_graph=create_graph)
+        if not create_graph:
+            energy = energy.detach()
+        return {"energy": energy, "energy_grad": grad}

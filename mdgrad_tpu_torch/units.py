@@ -27,3 +27,11 @@ C = 1.0 / _e                 # Coulomb in units of the elementary charge
 # pressure: 1 atm in eV / Angstrom^3 (101325 Pa * 6.241509e-12 eV A^-3 /
 # Pa), for the registry's ``pressure`` metadata (atm)
 atm = 101325.0 * 6.241509074460763e-12
+
+# energy conversions of the supervised datasets (kcal/mol <-> atomic
+# units), as the JAX package's
+HARTREE_TO_EV = 27.211386024367243
+EV_TO_KCAL_MOL = 23.060548012069496
+AU_TO_KCAL = {"energy": 627.509, "_grad": 1.0 / 0.529177}
+KCAL_TO_AU = {"energy": 1.0 / 627.509, "_grad": 0.529177}
+BOHR_RADIUS = 0.529177
