@@ -208,6 +208,35 @@ its phases, printing one line as each check ends:
    integer-equal to the plain build; TI's force -dU/dq at lambda 0.5, its
    vjp in q, in ``aggr_wgt`` and in the weights, and dU/d(aggr_wgt),
    through the kernels against a copy on the plain gather path.
+4o. si, sharded and profile -- ``scripts/run_si_torch.py`` at its
+   defaults (``Si_2.293_100K``, 512 sites, SchNet 64/128, 3 convolutions,
+   cutoff 5.0, the anneal from 1500 K, 40-step epochs, 20 inference
+   rollouts) cut to 2 epochs, with the pallas RDF backend, its
+   configuration set to checkpoint each epoch: finite losses, K1, K2a,
+   K2b, the CSR build (cluster path), K3/K4 and K3b/K4b in every epoch;
+   K1, K2a, K2b and the CSR build against their plain versions on the
+   a-Si table (N = 512, K = 48, F = 128); K3/K4 and K3b/K4b against
+   theirs on the fit's RDF (119 bins) and the frames of one epoch of its
+   MD, K3/K4 at the inference's 800 bins;
+   ``scripts/si_transfer_torch.py`` from the checkpoint just written at
+   4096 sites on the cell list, cut to 1 anneal, 1 equilibration and 1
+   sampling epoch, the MTK chain at 500 dt (see ``SI_TRANSFER_ARGV``):
+   the 800-bin RDF, K3/K4 against its plain version on the last
+   sampling epoch's frames (1 and 25), the CSR build on the grid path
+   against the plain build, both timed.  Then, in an NCCL world of one
+   (a ``FileStore`` in a temporary directory), each sharded path
+   against its unsharded counterpart, with its launches counted:
+   ``make_sharded_fit_step`` in ``dryrun_multichip``'s configuration
+   (the loss, d/d(sigma, eps), the final positions, the updated
+   parameters; no kernel and no plain version), the row-sharded SchNet
+   epoch (``ShardedGNNPotentials``) on phase 3's water model at tau 52
+   (the loss and the SchNet's gradient), and
+   ``make_stack_multistate_train_step`` over phase 4h's three states
+   (the losses, the summed gradient, the parameters after one Adam
+   step; K1, K2a, K2b and the CSR build), each within ``SHARD_TOL`` of
+   its largest entry.  Last,
+   one ``profiling.trace`` of 40 water sampling steps: the device-busy
+   share of a step.
 5. times   -- each kernel, its plain version and its library yardstick with
    CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms; K3/K4 at 50
    and 3 frames of 512 sites, at 10 of 1372, at 1 of 512 with 800
@@ -242,7 +271,7 @@ its phases, printing one line as each check ends:
    outputs in the two libraries; one JSON line ``{"pair_ab": ...}``.
 
 Launch counts are zeroed just before phases 3, 3b, 4 and 4b, each call
-of 4c, 4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m and 4n and each run of 4d, and
+of 4c, 4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m, 4n and 4o and each run of 4d, and
 read just after each: phases 3, 4, 4c, 4e, 4i, 4j's fit and 4l's angle fit must
 launch every water kernel, the CSR build included, 4d and 4k's NPT water
 fit the bf16 gather kernels in their place, 4f's water pair fits K3/K4
@@ -252,7 +281,9 @@ K3b/K4b, its Langevin run K6, 4m's fold K1, K2a, K2b and the CSR build
 in every trained epoch (read at each epoch's log line) and nothing else,
 4n's validation MD and TI K1, K2a, K2b and the CSR build in every
 epoch (each validation epoch's and TI segment's log line), and nothing
-else, 4g, 4m's salt and mixture fits and 4n's label MD, trainer,
+else, 4o's a-Si fit every water kernel in every epoch, its 4096-site
+transfer K1, K2a, K2b, the CSR build and K3/K4, and the sharded SchNet
+epoch every water kernel, and nothing else, 4g, 4m's salt and mixture fits and 4n's label MD, trainer,
 ``evaluate``, ground-truth validation and ``batched_predict`` no kernel
 at all, and none may call a plain version.  The line before the last is
 a JSON object with one record per kernel; the last line is ``{"ok":
@@ -3090,6 +3121,37 @@ MIX = {"size": 3, "n_epochs": 3, "tau": 21, "n_target_epochs": 4,
        "target_steps": 40}
 
 
+def table_kernel_checks(torch, dev, compare, gather, tab, f, what, seed):
+    """K1, K2a and K2b against their plain versions and the CSR build
+    integer-equal to the plain build on the (N, K) table ``tab`` with
+    F = ``f`` features, random values from ``seed``; returns (N, K, the
+    CSR path)."""
+    n, k = tab.table.shape
+    idx = torch.where(tab.mask, tab.table, n).reshape(-1).contiguous()
+    require(bool((idx == n).any()) and not bool(tab.overflow),
+            f"the {what} table has sentinel entries and no overflow")
+    index = gather.TableIndex(idx, n)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    values = torch.randn(n, f, device=dev, generator=gen)
+    w = torch.randn(idx.shape[0], f, device=dev, generator=gen)
+    g_edges = torch.randn(idx.shape[0], f, device=dev, generator=gen)
+    line(f"  {what} gather kernels at N={n}, K={k}, F={f}:")
+    compare("gather_mul_reduce", gather._launch_gather_mul_reduce(
+        values, w, index.idx, k), gather.gather_mul_reduce_plain(
+        values, w, index.idx, k), 1e-5)
+    compare("table_gather", gather._launch_table_gather(values, index.idx),
+            gather.table_gather_plain(values, index.idx), 0.0)
+    compare("table_scatter", gather._launch_table_scatter(g_edges, index),
+            gather.table_scatter_plain(g_edges, index.idx, n), 1e-5)
+    path = gather.table_index_csr_path(idx.shape[0], n)
+    require(all(torch.equal(a, b) for a, b in zip(
+        gather._launch_table_index_csr(idx, n),
+        gather.table_index_csr_plain(idx, n))),
+        f"the CSR build equals the plain build at the {what} table ({path} "
+        "path)")
+    return n, k, path
+
+
 def fold_salt_mix_phase(mt, torch, dev, records, compare):
     """Phase 4m (see the module docstring): returns its numbers."""
     import copy
@@ -3157,27 +3219,8 @@ def fold_salt_mix_phase(mt, torch, dev, records, compare):
                        dtype=torch.float32, device=dev)
     xyz = xyz + 0.1 * torch.randn(xyz.shape, device=dev, generator=gen)
     tab = gnn.aux_init(xyz)
-    n, k, f = xyz.shape[0], gnn.k_max, params["n_filters"]
-    idx = torch.where(tab.mask, tab.table, n).reshape(-1).contiguous()
-    require(bool((idx == n).any()) and not bool(tab.overflow),
-            "the fold's table has sentinel entries and no overflow")
-    index = gather.TableIndex(idx, n)
-    values = torch.randn(n, f, device=dev, generator=gen)
-    w = torch.randn(idx.shape[0], f, device=dev, generator=gen)
-    g_edges = torch.randn(idx.shape[0], f, device=dev, generator=gen)
-    line(f"  fold gather kernels at N={n}, K={k}, F={f}:")
-    compare("gather_mul_reduce", gather._launch_gather_mul_reduce(
-        values, w, index.idx, k), gather.gather_mul_reduce_plain(
-        values, w, index.idx, k), 1e-5)
-    compare("table_gather", gather._launch_table_gather(values, index.idx),
-            gather.table_gather_plain(values, index.idx), 0.0)
-    compare("table_scatter", gather._launch_table_scatter(g_edges, index),
-            gather.table_scatter_plain(g_edges, index.idx, n), 1e-5)
-    require(all(torch.equal(a, b) for a, b in zip(
-        gather._launch_table_index_csr(idx, n),
-        gather.table_index_csr_plain(idx, n))),
-        f"the CSR build equals the plain build at the fold's table "
-        f"({gather.table_index_csr_path(idx.shape[0], n)} path)")
+    table_kernel_checks(torch, dev, compare, gather, tab,
+                        params["n_filters"], "fold", SEED + 19)
     # the fold SchNet's force, and its vector-Jacobian product in q and
     # the SchNet's parameters (the replay's grad-of-grad), through the
     # kernels against the plain gather path with the same weights
@@ -3217,7 +3260,7 @@ def fold_salt_mix_phase(mt, torch, dev, records, compare):
             "build")
     out["fold"]["force_err"] = f_err / f_scale
     out["fold"]["vjp_err"] = v_err / v_scale
-    del values, w, g_edges, index, gnn_plain, got, x, f_x, grads
+    del gnn_plain, got, x, f_x, grads
     # the replay adjoint against direct backprop at tau 11
     sim, integ = pieces["sim"], pieces["integrator"]
     train = list(pieces["stack"].models["gnn"].parameters())
@@ -3608,28 +3651,9 @@ def ti_kernel_checks(torch, dev, compare, gather, ops, inter, q, aux, aggr,
     the plain gather path.  Returns each error relative to its largest
     entry."""
     import copy
-    n, k = q.shape[0], inter.k_max
-    idx = torch.where(aux.mask, aux.table, n).reshape(-1).contiguous()
-    require(bool((idx == n).any()) and not bool(aux.overflow),
-            "TI's table has sentinel entries and no overflow")
-    index = gather.TableIndex(idx, n)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
-    values = torch.randn(n, f, device=dev, generator=gen)
-    w = torch.randn(idx.shape[0], f, device=dev, generator=gen)
-    g_edges = torch.randn(idx.shape[0], f, device=dev, generator=gen)
-    line(f"  TI gather kernels at N={n}, K={k}, F={f}:")
-    compare("gather_mul_reduce", gather._launch_gather_mul_reduce(
-        values, w, index.idx, k), gather.gather_mul_reduce_plain(
-        values, w, index.idx, k), 1e-5)
-    compare("table_gather", gather._launch_table_gather(values, index.idx),
-            gather.table_gather_plain(values, index.idx), 0.0)
-    compare("table_scatter", gather._launch_table_scatter(g_edges, index),
-            gather.table_scatter_plain(g_edges, index.idx, n), 1e-5)
-    require(all(torch.equal(a, b) for a, b in zip(
-        gather._launch_table_index_csr(idx, n),
-        gather.table_index_csr_plain(idx, n))),
-        f"the CSR build equals the plain build at TI's table "
-        f"({gather.table_index_csr_path(idx.shape[0], n)} path)")
+    table_kernel_checks(torch, dev, compare, gather, aux, f, "TI",
+                        SEED + 20)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
     plain = copy.deepcopy(inter)
     plain.gnn.gather_mode = "gather"
     cot = torch.randn(q.shape, device=dev, generator=gen)
@@ -3664,6 +3688,468 @@ def ti_kernel_checks(torch, dev, compare, gather, ops, inter, q, aux, aggr,
             "TI's force and its vjp launch K1, K2a, K2b and the CSR build")
     line(f"ti: force and vjp launches {counts['launches']}")
     return {"kernel_vs_plain": errs}
+
+
+# ---- the a-Si fit, its transfer, the sharded paths (phase 4o) -------------
+
+# scripts/run_si_torch.py at its defaults cut from 1000 epochs to 2, with
+# the pallas RDF backend (K3/K4 and K3b/K4b); its configuration then set
+# to write a checkpoint each epoch (the fit driver's default: every 10th)
+SI_ARGV = ["-nepochs", "2", "-rdf_backend", "pallas"]
+# scripts/si_transfer_torch.py at 4096 sites cut from 500 + 60 + 40
+# epochs to 1 + 1 + 1, its MTK chain's time constant from 50 dt to 500
+# dt: a SchNet trained for 2 epochs heats the lattice by ~1000 K in 40
+# steps, and at 50 dt the chain then diverges at 4096 sites (NaN within
+# 40-100 steps, from 1500 K or from 100 K, on the card and on the CPU,
+# in the cells and the table modes; 216 sites hold); the JAX script died
+# the same way with its trained model (scripts/diag_si4k.py); 200 and
+# 500 dt hold (H100 80GB HBM3, 700 W)
+SI_TRANSFER_ARGV = ["-anneal_epochs", "1", "-equil_epochs", "1",
+                    "-sample_epochs", "1", "-nhc_tau", "500"]
+# the sharded paths as NCCL worlds of one against their unsharded
+# counterparts, relative to each quantity's largest entry: the same
+# kernels on the same inputs, only the collectives and the row slicing
+# between them
+SHARD_TOL = 1e-5
+# the water sampling run under the profiler: 2 epochs of 20 steps (a
+# trace of 100 steps is ~66 MB)
+PROFILE_EPOCHS, PROFILE_FREQ = 2, 21
+
+
+def _deltas(marks, start):
+    """Each epoch's launch counts from the counts read at its log line
+    (``marks``) and at the line before (the first against ``start``)."""
+    out, prev = [], start
+    for _, cur in marks:
+        out.append({g: {k: cur[g][k] - prev[g][k] for k in cur[g]}
+                    for g in cur})
+        prev = cur
+    return out
+
+
+def rdf_shapes_checks(torch, dev, compare, gen, op, frames, what,
+                      backward=False):
+    """K3/K4 (and with ``backward`` K3b/K4b, for a cotangent drawn from
+    ``gen``) against their plain versions on the RDF op ``op`` and the
+    (F, N, 3) ``frames``, at 1e-4 of the largest bin (of the largest
+    |dxyz|)."""
+    from mdgrad_tpu_torch.ops import rdf as rdf_ops
+    args = (op.cell_len, op.mu, op.coeff, op.cutoff)
+    f, n = frames.shape[:2]
+    line(f"  rdf_counts {what} F={f} N={n} bins={op.mu.shape[0]}:")
+    compare("rdf_counts", rdf_ops._launch(frames, *args),
+            rdf_ops.rdf_counts_plain(frames, *args), 1e-4)
+    if backward:
+        ct = torch.randn(op.mu.shape[0], device=dev, generator=gen)
+        line(f"  rdf_counts_bwd {what} F={f} N={n}:")
+        compare("rdf_counts_bwd", rdf_ops._launch_bwd(frames, *args, ct),
+                rdf_ops.rdf_counts_bwd_plain(frames, *args, ct), 1e-4,
+                floor=0.0)
+
+
+def si_fit_and_transfer(mt, torch, dev, records, compare, tmp):
+    """Phase 4o's first half: the a-Si fit, the kernels on its table, the
+    4096-site transfer from its checkpoint."""
+    import glob
+    import numpy as np
+    from mdgrad_tpu_torch import ops, units
+    from mdgrad_tpu_torch.ops import gather, timing
+    from mdgrad_tpu_torch.train import fit_rdf
+    si = load_script("run_si_torch.py")
+    transfer = load_script("si_transfer_torch.py")
+    out = {}
+    marks = []
+
+    def log(msg):
+        if " | loss" in str(msg):
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), ops.counts()))
+        line(f"si: {msg}")
+
+    logdir = os.path.join(tmp, "si")
+    args = si.parse_args(SI_ARGV)
+    assignments, sys_params = si.fit_config(args)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    start = ops.counts()
+    t0 = time.perf_counter()
+    with CsrWidths(gather) as widths:
+        res = fit_rdf.fit_rdf(assignments, {**sys_params, "ckpt_every": 1},
+                              model_path=os.path.join(logdir, "0"), log=log,
+                              device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = ops.counts()
+    per_epoch = _deltas(marks, start)
+    losses = res["loss_log"]
+    require(not res.get("nan_bailout") and len(losses) == 2
+            and bool(np.isfinite(losses).all())
+            and np.isfinite(res["objective"]),
+            "the a-Si fit gives finite losses and a finite objective")
+    for i, c in enumerate(per_epoch):
+        for name in WATER_KERNELS:
+            require(c["launches"][name] > 0,
+                    f"kernel {name} launched in a-Si fit epoch {i}")
+    check_fit_counts(total, "a-Si fit")
+    require(widths.paths() == {"cluster"},
+            f"the a-Si fit's CSR builds take the cluster kernel "
+            f"({widths.describe()})")
+    infer = {k: total["launches"][k] - marks[-1][1]["launches"][k]
+             for k in total["launches"]}
+    for name in WATER_KERNELS:
+        rec = records.setdefault(name, {})
+        rec["launches_si_fit_per_epoch"] = per_epoch[-1]["launches"][name]
+        rec["launches_si_fit_inference"] = infer[name]
+    epochs = [b - a for a, b in zip([t0] + [t for t, _ in marks],
+                                    [t for t, _ in marks])]
+    line(f"si: 512 sites, losses {losses}, objective {res['objective']:.5f};"
+         f" epochs {[round(e, 3) for e in epochs]} s (the first from the "
+         f"call), the call {wall:.3f} s; CSR {widths.describe()}; launches "
+         f"an epoch {per_epoch[-1]['launches']}, inference {infer}")
+    out["fit"] = {"wall": wall, "epochs": epochs, "losses": losses,
+                  "objective": res["objective"]}
+
+    # K1, K2a, K2b and the CSR build on the a-Si table's own shapes: the
+    # fit's stack at the diamond lattice, perturbed
+    built = fit_rdf.build_fit(assignments, sys_params,
+                              rng=np.random.default_rng(SEED), device=dev)
+    system, sim = built["systems"][0], built["sims"][0]
+    inter = sim.integrator.model.models["nn"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    xyz = torch.tensor(system.get_positions(), dtype=torch.float32,
+                       device=dev)
+    xyz = xyz + 0.05 * torch.randn(xyz.shape, device=dev, generator=gen)
+    n, k, path = table_kernel_checks(
+        torch, dev, compare, gather, inter.aux_init(xyz),
+        inter.gnn.convs[0].node_filter.out_features, "a-Si", SEED + 21)
+    require(path == "cluster", "the a-Si table's CSR build is the cluster "
+            "kernel's")
+    out["table"] = {"n": n, "k": k}
+
+    # K3/K4 and K3b/K4b on the fit's own RDF and frames: the fit's first
+    # epoch of MD (tau steps of dt, the thermostat at the anneal's 1500 K
+    # start), every frame_skip-th frame, a seeded cotangent; K3/K4 also
+    # at the inference's 800 bins on one frame; tolerances as at the
+    # water shapes (1e-4 of the largest bin, of the largest |dxyz|)
+    tau = assignments["opt_freq"]
+    sim.integrator.update_T(assignments["start_T"])
+    traj = sim.simulate(steps=tau, dt=sys_params["dt"] * units.fs,
+                        frequency=tau)
+    frames = traj.q[::sys_params.get("frame_skip", 20)].contiguous()
+    require(bool(torch.isfinite(frames).all()), "the a-Si MD is finite")
+    op = built["observers"][0]._counts
+    _, _, op_infer = fit_rdf.get_observer(
+        system, args.data[0], 800, backend="pallas", device=dev)
+    rdf_shapes_checks(torch, dev, compare, gen, op, frames, "a-Si fit",
+                      backward=True)
+    rdf_shapes_checks(torch, dev, compare, gen, op_infer._counts,
+                      frames[-1:].contiguous(), "a-Si inference")
+    out["table"]["rdf_frames"] = frames.shape[0]
+    del built, inter, sim, traj, frames
+
+    # the 4096-site transfer from the checkpoint just written
+    ckpt = max(glob.glob(os.path.join(logdir, "0", "fit-ckpt-*.pt")),
+               key=lambda p: int(p.rsplit("-", 1)[-1].split(".")[0]))
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    tr = transfer.main(["-ckpt", ckpt, "-logdir", os.path.join(tmp, "4k"),
+                        *SI_TRANSFER_ARGV],
+                       log=lambda m: line(f"si transfer: {m}"))
+    torch.cuda.synchronize()
+    tr_wall = time.perf_counter() - t0
+    counts = ops.counts()
+    require(np.isfinite(tr["mse"]) and tr["n_atoms"] == 4096
+            and tr["frames"] == 25,
+            "the transfer samples 25 frames of the 4096-site box, finite")
+    transfer_kernels = WATER_KERNELS[:5]    # no RDF gradient
+    for name in transfer_kernels:
+        require(counts["launches"][name] > 0,
+                f"kernel {name} launched in the 4096-site transfer")
+        records.setdefault(name, {})["launches_si_transfer"] = \
+            counts["launches"][name]
+    check_no_kernel(counts, "4096-site transfer", allowed=transfer_kernels)
+    # K3/K4 on the transfer's own RDF (800 bins) and its last sampling
+    # epoch's 25 frames, as the sampling calls it (one frame) and all 25
+    frames = tr["last_frames"].contiguous()
+    op4 = tr["obs"]._counts
+    rdf_shapes_checks(torch, dev, compare, None, op4, frames[-1:],
+                      "4096-site transfer")
+    rdf_shapes_checks(torch, dev, compare, None, op4, frames,
+                      "4096-site transfer")
+    del frames
+    tab = tr["sim"].aux["nn"]
+    n4 = tab.table.shape[0]
+    idx = torch.where(tab.mask, tab.table, n4).reshape(-1).contiguous()
+    e4 = idx.shape[0]
+    path4 = gather.table_index_csr_path(e4, n4)
+    require(path4 == "grid", "the 4096-site table takes the CSR grid path")
+    require(all(torch.equal(a, b) for a, b in zip(
+        gather._launch_table_index_csr(idx, n4),
+        gather.table_index_csr_plain(idx, n4))),
+        "the CSR build equals the plain build at the 4096-site table")
+    csr_ms = timing.time_graph(
+        lambda: gather._launch_table_index_csr(idx, n4), reps=20)
+    csr_plain_ms = timing.time_graph(
+        lambda: gather.table_index_csr_plain(idx, n4), reps=20)
+    csr_bound = bound_ms(4 * (2 * e4 + n4 + 1), 0)[0]
+    sec = tr["seconds"]
+    line(f"si transfer: N = {n4}, K = {tab.table.shape[1]}, {tr['frames']} "
+         f"frames, 800-bin MSE {tr['mse']:.5f}; build {sec['build']:.3f} s, "
+         f"anneal {sec['anneal']:.3f} s, equilibration {sec['equil']:.3f} "
+         f"s, sampling {sec['sample']:.3f} s (40, 40 and 100 steps), the "
+         f"call {tr_wall:.3f} s; launches {counts['launches']}; the CSR "
+         f"build (E = {e4}, {path4} path) {csr_ms * 1e3:.2f} us, plain "
+         f"{csr_plain_ms * 1e3:.2f} us, bound {csr_bound * 1e3:.3f} us")
+    out["transfer"] = {"wall": tr_wall, "seconds": sec, "mse": tr["mse"],
+                       "k": tab.table.shape[1], "csr": {
+                           "e": e4, "path": path4, "ms": csr_ms,
+                           "plain_ms": csr_plain_ms, "bound_ms": csr_bound}}
+    records["table_index_csr"]["si_transfer_csr"] = out["transfer"]["csr"]
+    return out
+
+
+def _rel(got, ref):
+    """(largest |got - ref|, relative to the largest |ref|)."""
+    err, rel, _ = max_errs(got, ref)
+    return err, rel
+
+
+def sharded_paths(mt, torch, dev, records):
+    """Phase 4o's second half, inside an NCCL world of one: the replica
+    fit step, the row-sharded SchNet epoch and the multistate train step,
+    each against its unsharded counterpart."""
+    import copy
+    import numpy as np
+    import torch.distributed as dist
+    from mdgrad_tpu_torch import ops, units
+    from mdgrad_tpu_torch.parallel import (ShardedGNNPotentials, dryrun,
+                                           make_mesh, make_sharded_epoch,
+                                           make_sharded_fit_step,
+                                           make_stack_multistate_train_step)
+    from mdgrad_tpu_torch.parallel.mesh import all_reduce_grads
+    from mdgrad_tpu_torch.train import fit_rdf, fit_rdf_multi
+    out = {}
+    mesh = make_mesh({"dp": 1, "sp": 1})
+    require(str(dist.get_backend()) == "nccl", "the world runs NCCL")
+
+    # (a) the replica fit step in dryrun_multichip's configuration: the
+    # dense pair sum, no kernel and no plain version
+    got = {}
+    for label, m in (("sharded", mesh), ("unsharded", None)):
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        lj, cfg, system = dryrun.dryrun_config(dev)
+        _, loss_fn = make_sharded_epoch(lj, cfg, m, rdf_range=(0.75, 1.9),
+                                        nbins=32)
+        states = dryrun.dryrun_states(system, 2, dev)
+        loss, finals = loss_fn(states, system.get_masses(),
+                               torch.ones(32, device=dev))
+        loss.backward()
+        if m is not None:
+            all_reduce_grads(lj.parameters(), dist.group.WORLD)
+        grads = torch.stack([lj.sigma.grad, lj.epsilon.grad])
+        step = make_sharded_fit_step(lj, cfg, m, np.ones(32),
+                                     rdf_range=(0.75, 1.9), nbins=32,
+                                     lr=1e-4)
+        step_loss, _ = step(states, system.get_masses())
+        torch.cuda.synchronize()
+        check_no_kernel(ops.counts(), f"{label} replica fit step")
+        got[label] = (loss.detach(), grads, finals.q,
+                      torch.stack([lj.sigma, lj.epsilon]).detach())
+    errs = {part: _rel(a, b) for part, a, b in zip(
+        ("loss", "grads", "finals", "params"), got["sharded"],
+        got["unsharded"])}
+    line(f"sharded fit step (108 atoms, dp 1 x sp 1, 2 replicas, 3 steps): "
+         f"loss {got['sharded'][0].item():.6f}, d/d(sigma, eps) "
+         f"{got['sharded'][1].tolist()}; against unsharded: "
+         + ", ".join(f"{p} {e:.3e} ({r:.3e} rel)" for p, (e, r) in
+                     errs.items()) + f" (tol {SHARD_TOL})")
+    require(all(r <= SHARD_TOL for _, r in errs.values())
+            and bool(torch.isfinite(got["sharded"][2]).all()),
+            "the sharded fit step equals the unsharded one")
+    out["replica"] = {p: r for p, (_, r) in errs.items()}
+
+    # (b) the row-sharded SchNet epoch: bench.py's water SchNet (512
+    # sites, 128/128, K = 40), tau 52, the RDF loss through the replay
+    system, stack = build_water(mt, dev)
+    base = stack.models["nn"]
+    require(base.k_max == 40, "the water SchNet's table has K = 40")
+    sharded = ShardedGNNPotentials(base, mesh)
+    stack_s = mt.Stack({"nn": sharded, "prior": stack.models["prior"]})
+    train = fit_rdf.fit_parameters(stack)
+    _, g_target, obs = fit_rdf.get_observer(system, TARGET, 109,
+                                            backend="pallas", device=dev)
+    got = {}
+    # the unsharded epoch once first, untimed: this process's first water
+    # SchNet epoch pays the card's one-time costs
+    for label, stk in (("warm-up", stack), ("sharded", stack_s),
+                       ("unsharded", stack)):
+        integ = mt.NoseHooverChain(stk, system, T=298.0, Q=50.0,
+                                   num_chains=5, adjoint=True, device=dev)
+        sim = mt.Simulation(system, integ)
+        loss_fn = fit_rdf.make_epoch_loss(sim, obs, g_target, system, 52,
+                                          0.5 * units.fs, frame_skip=20)
+        for p in train:
+            p.grad = None
+        state, aux = sim.initial_state()
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(state, aux, integ.default_ctrl())
+        if stk is stack_s:
+            sharded.reduce_grads()
+        torch.cuda.synchronize()
+        got[label] = (loss.reshape(1), torch.cat([
+            (torch.zeros_like(p) if p.grad is None else p.grad).reshape(-1)
+            for p in train]), time.perf_counter() - t0, ops.counts())
+    counts = got["sharded"][3]
+    for name in WATER_KERNELS:
+        require(counts["launches"][name] > 0,
+                f"kernel {name} launched in the sharded SchNet epoch")
+        records.setdefault(name, {})["launches_sharded_schnet_epoch"] = \
+            counts["launches"][name]
+    check_no_kernel(counts, "sharded SchNet epoch", allowed=WATER_KERNELS)
+    l_err, l_rel = _rel(got["sharded"][0], got["unsharded"][0])
+    g_err, g_rel = _rel(got["sharded"][1], got["unsharded"][1])
+    line(f"sharded schnet epoch (512 sites, sp 1, K = 40, tau 52): loss "
+         f"{got['sharded'][0].item():.6f} against {got['unsharded'][0].item():.6f}"
+         f" ({l_rel:.3e} rel); gradient max_abs_err {g_err:.3e} ({g_rel:.3e}"
+         f" of the largest entry, tol {SHARD_TOL}); epoch "
+         f"{got['sharded'][2]:.3f} s against {got['unsharded'][2]:.3f} s; "
+         f"launches {counts['launches']}")
+    require(l_rel <= SHARD_TOL and g_rel <= SHARD_TOL
+            and got["sharded"][1].abs().max() > 0,
+            "the row-sharded SchNet epoch equals the unsharded one")
+    out["schnet"] = {"loss_rel": l_rel, "grad_rel": g_rel,
+                     "epoch_s": got["sharded"][2],
+                     "unsharded_s": got["unsharded"][2]}
+    for p in train:
+        p.grad = None
+    del stack, stack_s, sharded, base
+
+    # (c) the multistate train step over phase 4h's three states, the
+    # states split over the world (dp = 1) against group None
+    script = load_script("run_water_multi_torch.py")
+    assignments, sys_params, _ = script.build(MULTI_GNN_ARGV)
+    comps = fit_rdf_multi.build_multistate(
+        assignments, sys_params, rng=np.random.default_rng(SEED), device=dev)
+    init = copy.deepcopy(comps["stack"].state_dict())
+    integ = comps["integ"]
+    dt = sys_params["dt"] * fit_rdf._dt_scale(
+        comps["registry"][comps["train_list"][0]])
+    proto = integ.initial_state()
+    got = {}
+    for label, group in (("unsharded", None), ("sharded", dist.group.WORLD)):
+        comps["stack"].load_state_dict(init)
+        opt = torch.optim.Adam(comps["params"], lr=assignments["lr"])
+        step = make_stack_multistate_train_step(
+            integ, dt=dt, n_steps=assignments["opt_freq"] - 1,
+            nbins=assignments["nbins"], rdf_range=comps["rdf_range"],
+            opt=opt, group=group, frame_skip=sys_params["frame_skip"],
+            loss_type="shell")
+        kw = {"dtype": proto.q.dtype, "device": proto.q.device}
+        states = [proto._replace(q=torch.as_tensor(s.get_positions(), **kw),
+                                 v=torch.as_tensor(s.get_velocities(), **kw))
+                  for s in comps["systems"]]
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        loss, (losses, gs, finals, overflow) = step(
+            states, comps["cell_lens"], comps["kTs"], comps["targets"],
+            comps["rhos"])
+        torch.cuda.synchronize()
+        counts = ops.counts()
+        for name in FOLD_KERNELS:
+            require(counts["launches"][name] > 0,
+                    f"kernel {name} launched in the {label} multistate "
+                    "train step")
+        check_no_kernel(counts, f"{label} multistate train step",
+                        allowed=WATER_KERNELS)
+        got[label] = (losses, torch.cat([p.grad.reshape(-1)
+                                         for p in comps["params"]]),
+                      torch.cat([p.detach().reshape(-1)
+                                 for p in comps["params"]]),
+                      time.perf_counter() - t0, counts)
+    for name in FOLD_KERNELS:
+        records.setdefault(name, {})["launches_sharded_multistate"] = \
+            got["sharded"][4]["launches"][name]
+    errs = {part: _rel(a, b) for part, a, b in zip(
+        ("losses", "grads", "params"), got["sharded"][:3],
+        got["unsharded"][:3])}
+    line(f"sharded multistate train step (3 x 512 sites, tau "
+         f"{assignments['opt_freq']}, Adam): losses "
+         f"{got['sharded'][0].tolist()}; against unsharded: "
+         + ", ".join(f"{p} {e:.3e} ({r:.3e} rel)" for p, (e, r) in
+                     errs.items())
+         + f" (tol {SHARD_TOL}); step {got['sharded'][3]:.3f} s against "
+         f"{got['unsharded'][3]:.3f} s (the unsharded step ran first); "
+         f"launches {got['sharded'][4]['launches']}")
+    require(all(r <= SHARD_TOL for _, r in errs.values())
+            and bool(torch.isfinite(got["sharded"][0]).all()),
+            "the sharded multistate train step equals the unsharded one")
+    out["multistate"] = {p: r for p, (_, r) in errs.items()}
+    out["multistate"]["step_s"] = got["sharded"][3]
+    return out
+
+
+def water_profile(mt, torch, dev, tmp):
+    """One ``profiling.trace`` of the water SchNet sampling run (phase 3's
+    model): the device-busy share of its steps."""
+    from mdgrad_tpu_torch import profiling, units
+    system, stack = build_water(mt, dev)
+    integ = mt.NoseHooverChain(stack, system, T=298.0, Q=50.0, num_chains=5,
+                               device=dev)
+    sim = mt.Simulation(system, integ)
+    n_steps = PROFILE_EPOCHS * (PROFILE_FREQ - 1)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.simulate(steps=PROFILE_EPOCHS * PROFILE_FREQ,
+                     dt=0.5 * units.fs, frequency=PROFILE_FREQ)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    run()
+    wall = run()
+    with profiling.trace(os.path.join(tmp, "trace")) as prof:
+        wall_prof = run()
+    busy, n_events = profiling.busy_us(prof.events(),
+                                       torch.autograd.DeviceType.CUDA)
+    size = os.path.getsize(os.path.join(tmp, "trace", "trace.json"))
+    require(n_events > 0 and busy > 0, "the trace records the card")
+    out = {"steps": n_steps, "wall_s": wall, "profiled_wall_s": wall_prof,
+           "ms_a_step": 1e3 * wall / n_steps, "busy_s": busy * 1e-6,
+           "events_a_step": n_events / n_steps,
+           "busy_share": busy * 1e-6 / wall,
+           "busy_share_profiled": busy * 1e-6 / wall_prof}
+    line(f"profile: water sampling ({n_steps} steps, 512 sites): "
+         f"{out['ms_a_step']:.3f} ms a step, {out['events_a_step']:.1f} "
+         f"device events a step, busy {out['busy_s']:.4f} s: "
+         f"{out['busy_share']:.1%} of the unprofiled run, "
+         f"{out['busy_share_profiled']:.1%} of the profiled one; trace "
+         f"{size} B")
+    return out
+
+
+def si_sharded_phase(mt, torch, dev, records, compare):
+    """Phase 4o (see the module docstring): returns its numbers."""
+    import tempfile
+    import torch.distributed as dist
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(si_fit_and_transfer(mt, torch, dev, records, compare,
+                                       tmp))
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, device_id=dev)
+        try:
+            out["sharded"] = sharded_paths(mt, torch, dev, records)
+        finally:
+            dist.destroy_process_group()
+        out["profile"] = water_profile(mt, torch, dev, tmp)
+    return out
 
 
 def main():
@@ -3968,6 +4454,10 @@ def main():
     sup = supervised_ti_phase(mt, torch, dev, records, compare)
     phase_done("supervised and ti")
 
+    # ---- 4o. the a-Si fit and transfer, the sharded paths, a profile ------
+    si_run = si_sharded_phase(mt, torch, dev, records, compare)
+    phase_done("si, sharded and profile")
+
     # ---- 5. times ---------------------------------------------------------
     e_real = n_real
     pad_values = torch.cat([values, values.new_zeros(1, f)])
@@ -4146,7 +4636,7 @@ def main():
         "launches": rec["launches"], "max_abs_err": rec["max_abs_err"],
         "ms": main_csr["ms"], "plain_ms": main_csr["plain_ms"],
         "bound_ms": csr_b_ms, "bound_by": csr_b_by, "library_ms": None,
-        **csr})
+        "si_transfer_csr": si_run["transfer"]["csr"], **csr})
     lj_timed = lj_times(mt, torch, dev, gen)
     lj_specs = {
         "lj_energy_forces": ("mdgrad_tpu/ops/pallas_pair.py:112", 4000),
@@ -4313,6 +4803,23 @@ def main():
          f"{sup['seconds']['validation_md']:.3f} s (12 x 120 steps, N = "
          f"108), the call {sup['wall']:.3f} s, peak {sup['peak']} B; TI "
          f"{sup['ti']['epoch_s']:.3f} s a 20-step segment")
+    sf, tf, sh, pr = (si_run["fit"], si_run["transfer"], si_run["sharded"],
+                      si_run["profile"])
+    line(f"time si: the a-Si fit (512 sites, K = {si_run['table']['k']}) "
+         f"epochs {[round(e, 3) for e in sf['epochs']]} s (the first from "
+         f"the call), the call {sf['wall']:.3f} s; the 4096-site transfer "
+         f"(K = {tf['k']}) anneal {tf['seconds']['anneal']:.3f} s, "
+         f"equilibration {tf['seconds']['equil']:.3f} s, sampling "
+         f"{tf['seconds']['sample']:.3f} s, the call {tf['wall']:.3f} s; its "
+         f"CSR build (E = {tf['csr']['e']}, {tf['csr']['path']} path) "
+         f"{tf['csr']['ms'] * 1e3:.2f} us against the plain "
+         f"{tf['csr']['plain_ms'] * 1e3:.2f} us")
+    line(f"time sharded: SchNet epoch (NCCL world of one) "
+         f"{sh['schnet']['epoch_s']:.3f} s against unsharded "
+         f"{sh['schnet']['unsharded_s']:.3f} s; multistate train step "
+         f"{sh['multistate']['step_s']:.3f} s; water sampling "
+         f"{pr['ms_a_step']:.3f} ms a step, device busy "
+         f"{pr['busy_share']:.1%}")
     sp = paired["sparse"]
     line(f"time sparse prior: N = 1728, capacity {sp['capacity']}, SchNet "
          f"K = {sp['k']} (CSR {'/'.join(sp['paths'])} path); one 20-step "

@@ -30,12 +30,15 @@ def dict_to_nxyz(d):
     return np.concatenate([z[:, None], xyz], axis=1)
 
 
-def get_crystal_graph(nxyz, cell, cutoff):
+def get_crystal_graph(nxyz, cell, cutoff, device="cuda"):
     """Periodic neighbor graph of a crystal: the padded (i < j)
-    ``NeighborList`` within ``cutoff`` (float32, on the CPU), its capacity
-    the estimate of ``topology.estimate_capacity``."""
+    ``NeighborList`` within ``cutoff`` (float32, on ``device``: the card
+    unless the caller asks for the CPU; no card raises), its capacity the
+    estimate of ``topology.estimate_capacity``."""
     from .. import topology
-    xyz = torch.as_tensor(np.asarray(nxyz)[:, 1:4], dtype=torch.float32)
-    cell = torch.as_tensor(np.asarray(cell), dtype=torch.float32)
+    from .._device import resolve_device
+    kw = {"dtype": torch.float32, "device": resolve_device(device)}
+    xyz = torch.as_tensor(np.asarray(nxyz)[:, 1:4], **kw)
+    cell = torch.as_tensor(np.asarray(cell), **kw)
     cap = topology.estimate_capacity(xyz, cutoff, cell)
     return topology.generate_nbr_list(xyz, cutoff, cell, cap)

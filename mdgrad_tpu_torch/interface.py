@@ -395,9 +395,12 @@ class GNNPotentials(Interaction):
             return offsets * cell
         return torch.matmul(offsets, cell)
 
-    def energy(self, xyz, aux, cell=None, aggr_wgt=None):
+    def energy(self, xyz, aux, cell=None, aggr_wgt=None, rows=None,
+               senders=None):
         """The GNN's energy; ``aggr_wgt`` (N,), the per-atom weights of
-        thermodynamic integration, goes to the GNN (``md/ti.py``)."""
+        thermodynamic integration, goes to the GNN (``md/ti.py``).
+        ``rows`` and ``senders`` (table and cells modes): the energy of
+        those atoms alone, as ``SchNet.atomwise`` takes them."""
         if cell is not None and not (self.nbr_mode == "table"
                                      and not self.store_offsets):
             raise ValueError("dynamic cell override requires "
@@ -410,7 +413,9 @@ class GNNPotentials(Interaction):
                 offsets_real=(self._real(aux.offsets, cell)
                               if self.store_offsets else None),
                 runtime_cutoff=self.cutoff if self.skin > 0 else None,
-                aggr_wgt=aggr_wgt)
+                aggr_wgt=aggr_wgt, rows=rows, senders=senders)
+        if rows is not None:
+            raise ValueError("rows needs nbr_mode 'table' or 'cells'")
         return self.gnn.energy(
             self.z, xyz, aux.idx, aux.mask,
             offsets_real=self._real(aux.offsets, cell), edge_format="pairs",

@@ -230,7 +230,7 @@ class SchNet(nn.Module):
 
     def atomwise(self, z, xyz, idx, mask, cell_len=None, offsets_real=None,
                  edge_format="table", directed=False, runtime_cutoff=None,
-                 aggr_wgt=None):
+                 aggr_wgt=None, rows=None, senders=None):
         """Per-atom readouts {key: (N,)}.
 
         ``edge_format='table'``: ``idx`` (N, K) and ``mask`` (N, K), with
@@ -240,11 +240,27 @@ class SchNet(nn.Module):
         (receiver, sender) rows.  ``runtime_cutoff`` masks edges by their
         current length (the Verlet skin).  ``aggr_wgt`` (N,) scales each
         atom's node filter in every convolution (``GraphConvIntegration``,
-        ``md/ti.py``)."""
+        ``md/ti.py``).
+
+        ``rows`` (a slice, table format only) computes the readouts of
+        those atoms alone, over their table rows; ``senders(rf)`` then
+        turns those rows of each node filter into all N rows before the
+        aggregation (the row-sharded SchNet of
+        ``parallel/spatial_gnn.py`` all-gathers them)."""
         n = xyz.shape[0]
         ext = torch.cat([xyz, xyz.new_zeros(1, 3)])
+        receivers = xyz
+        if rows is not None:
+            if edge_format != "table":
+                raise ValueError("rows needs edge_format='table'")
+            receivers, z = xyz[rows], z[rows]
+            idx, mask = idx[rows], mask[rows]
+            if offsets_real is not None:
+                offsets_real = offsets_real[rows]
+            if aggr_wgt is not None:
+                aggr_wgt = aggr_wgt[rows]
         if edge_format == "table":
-            d = xyz[:, None, :] - ext[idx.long()]
+            d = receivers[:, None, :] - ext[idx.long()]
             if offsets_real is None:
                 # the offset choice is piecewise constant: detached, so
                 # forces stay exact away from the L/2 boundary
@@ -264,6 +280,11 @@ class SchNet(nn.Module):
                                          self.gather_mode == "gather")
         else:
             aggregate = _edge_aggregate(idx, n, directed)
+        if senders is not None:
+            local = aggregate
+
+            def aggregate(rf, w):
+                return local(senders(rf), w)
         r = self.embedding(z)
         for conv in self.convs:
             r = r + conv(r, e, mask, aggregate, aggr_wgt)

@@ -79,12 +79,14 @@ def grid_geometry(cell_len, cutoff, density, slack=1.6):
             np.stack(nbrs, axis=1).astype(np.int64))
 
 
-def make_cell_grid(cell_len, cutoff, density, slack=1.6, device="cpu"):
+def make_cell_grid(cell_len, cutoff, density, slack=1.6, device="cuda"):
     """:class:`CellGrid` of a diagonal box (:func:`grid_geometry`), its
-    neighbor table on ``device``."""
+    neighbor table on ``device`` (the card unless the caller asks for
+    the CPU; no card raises)."""
     dims, widths, M, nbrs = grid_geometry(cell_len, cutoff, density, slack)
     return CellGrid(dims=dims, widths=widths, M=M,
-                    nbr_cells=torch.as_tensor(nbrs, device=device))
+                    nbr_cells=torch.as_tensor(
+                        nbrs, device=resolve_device(device)))
 
 
 def build_cell_list(xyz, cell_len, grid):

@@ -4,8 +4,9 @@ Port of ``mdgrad_tpu/parallel/multistate.py``.  Each state point has its
 own box, temperature and target g(r); one loss sums theirs, and its
 gradient is the sum of the per-state gradients.  The JAX package ``vmap``s
 the states and shards them over a mesh; here they run one after another
-in one process (``torch.distributed`` is ROADMAP Queue 1, Slice H1, and
-one launch per kernel for all states is Queue 2 work).  Each state's loss
+in one process, and :func:`make_stack_multistate_train_step` splits them
+over the ranks of a ``torch.distributed`` group (dp), each rank running
+its share in turn.  Each state's loss
 is backpropagated as soon as its epoch ends (the replay adjoint re-runs
 that state's steps with its own kT and cell), so ``.grad`` holds the
 summed gradient: what the JAX ``dp = 1`` program computes.
@@ -35,6 +36,7 @@ from ..md.integrators import NoseHooverChain, NVTState
 from ..observables import generate_vol_bins
 from ..system import System
 from ..train.loss import compute_D
+from .mesh import _rank, _size, all_gather_rows, all_reduce_grads
 
 
 class MultiStateConfig(typing.NamedTuple):
@@ -277,3 +279,63 @@ def make_stack_multistate_fit(integ, dt, n_steps, nbins, rdf_range,
         return losses.sum(), (losses, torch.stack(gs), finals, overflow)
 
     return loss_fn
+
+
+def make_stack_multistate_train_step(integ, dt, n_steps, nbins, rdf_range,
+                                     opt, group=None, frame_skip=1,
+                                     loss_type="shell", dim=3, set_kT=None):
+    """``train_step(states, cell_lens, kTs, targets, rhos) -> (loss,
+    (losses, gs, finals, overflow))``: one multi-state epoch of
+    :func:`make_stack_multistate_fit` and one step of ``opt`` (a
+    ``torch.optim.Optimizer`` over the model's trainable parameters) on
+    the summed gradients; a parameter without a gradient gets zeros, as
+    the JAX package's optax update sees them.
+
+    With ``group`` (a ``torch.distributed`` process group, dp), rank k
+    runs the k-th of its equal blocks of the S states, the gradients are
+    summed over the group before the step (the same step on every rank,
+    so the parameters stay equal), and ``losses``, ``gs``, ``overflow``
+    and ``finals`` are gathered back to all S states on every rank.
+    ``loss`` is the sum over the S states.  Every returned tensor is
+    detached.
+    """
+    loss_fn = make_stack_multistate_fit(integ, dt, n_steps, nbins,
+                                        rdf_range, frame_skip, loss_type,
+                                        dim, set_kT)
+    params = [p for p in integ.model.parameters() if p.requires_grad]
+
+    def gather(x):
+        return x if group is None else all_gather_rows(x, group)
+
+    def train_step(states, cell_lens, kTs, targets, rhos):
+        S, size = len(states), _size(group)
+        if S % size:
+            raise ValueError(f"{S} states do not split into {size} equal "
+                             "blocks")
+        b = S // size
+        sl = slice(_rank(group) * b, (_rank(group) + 1) * b)
+        for p in params:
+            p.grad = None
+        _, (losses, gs, finals, overflow) = loss_fn(
+            list(states)[sl], cell_lens[sl], kTs[sl], targets[sl],
+            rhos[sl])
+        all_reduce_grads(params, group)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        opt.step()
+        with torch.no_grad():
+            losses, gs = gather(losses), gather(gs)
+            overflow = gather(torch.tensor(overflow,
+                                           device=losses.device)).tolist()
+            if group is not None:
+                cols = {k: gather(torch.stack([getattr(f, k) for f in
+                                               finals]))
+                        for k in finals[0]._fields
+                        if torch.is_tensor(getattr(finals[0], k))}
+                finals = [finals[0]._replace(**{k: v[j] for k, v in
+                                                cols.items()})
+                          for j in range(S)]
+        return losses.sum(), (losses, gs, finals, overflow)
+
+    return train_step

@@ -1,5 +1,5 @@
-"""Plots of the fitting drivers (port of ``plot_rdfs``, ``plot_pair`` and
-``plot_loss`` from ``mdgrad_tpu/train/plots.py``): headless matplotlib, and nothing at
+"""Plots of the fitting drivers (port of ``plot_rdfs``, ``plot_pair``,
+``plot_vacf`` and ``plot_loss`` from ``mdgrad_tpu/train/plots.py``): headless matplotlib, and nothing at
 all where matplotlib is not installed."""
 
 import numpy as np
@@ -48,6 +48,25 @@ def plot_pair(r_grid, u_fit, u_target, fname, path, ylim=(-2, 4)):
     plt.ylabel("u(r)")
     plt.legend()
     plt.savefig(f"{path}/potential_{fname}.jpg", bbox_inches="tight")
+    plt.close()
+
+
+def plot_vacf(vacf_sim, vacf_target, fname, path, dt=0.01):
+    """``path/vacf_fname.jpg``: the simulated velocity autocorrelation
+    over the target's, against t = step * ``dt``."""
+    plt = _plt()
+    if plt is None:
+        return
+    plt.figure()
+    t = np.arange(len(np.asarray(vacf_sim))) * dt
+    plt.plot(t, np.asarray(vacf_sim), label="sim.", linewidth=4, alpha=0.6)
+    if vacf_target is not None:
+        plt.plot(t[:len(np.asarray(vacf_target))], np.asarray(vacf_target),
+                 label="target", linewidth=2, linestyle="--", c="black")
+    plt.xlabel("t")
+    plt.ylabel("VACF")
+    plt.legend()
+    plt.savefig(f"{path}/vacf_{fname}.jpg", bbox_inches="tight")
     plt.close()
 
 

@@ -386,13 +386,16 @@ class Trainer:
 
     ``model``: an ``nn.Module`` on its device whose
     ``batched_predict(batch)`` gives the predictions the loss keys name.
+    ``optimizer``: a factory ``params -> torch.optim.Optimizer`` over the
+    trainable parameters (those ``frozen_prefixes`` leave); by default
+    Adam at ``lr``, the JAX ``Trainer``'s default optax transformation.
     A checkpoint under ``model_path`` is restored at construction, so a
     new trainer at the same path resumes.
     """
 
     def __init__(self, model_path, model, loss_fn, train_loader, val_loader,
                  lr=1e-3, hooks=None, checkpoint_interval=1,
-                 keep_n_checkpoints=3, frozen_prefixes=()):
+                 keep_n_checkpoints=3, frozen_prefixes=(), optimizer=None):
         self.model_path = model_path
         self.model = model
         self.loss_fn = loss_fn
@@ -408,8 +411,11 @@ class Trainer:
             if any(name == f or name.startswith(f + ".") for f in prefixes):
                 p.requires_grad_(False)
         self.params = [p for p in model.parameters() if p.requires_grad]
-        self.optimizer = torch.optim.Adam(self.params, lr=lr,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        if optimizer is None:
+            def optimizer(params):
+                return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999),
+                                        eps=1e-8)
+        self.optimizer = optimizer(self.params)
         self.epoch = 0
         self.step = 0
         self.stop = False

@@ -23,23 +23,11 @@ STEPS = 1000
 OUT = os.path.join("chiprun_out", "profile_isom.txt")
 
 
-def busy_us(events, device_type):
-    """Length of the union of the device events' intervals, and their
-    count."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == device_type)
-    total, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total, len(spans)
-
-
 def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
     from mdgrad_tpu_torch._device import resolve_device
+    from mdgrad_tpu_torch.profiling import busy_us
     from mdgrad_tpu_torch.train.isom import fit_isomerization
 
     resolve_device("cuda")      # raises without a card

@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """Device-busy share of the supervised workload's four loops on the card.
 
-The workload itself, through ``scripts/run_supervised_torch.py``'s own
-functions at its defaults (lj_0.845_1.2, 108 atoms, cutoff 2.5, dt
+The workload itself, through the functions that
+``scripts/run_supervised_torch.py`` runs (``train/supervised_workload.py``)
+at its defaults (lj_0.845_1.2, 108 atoms, cutoff 2.5, dt
 0.005; the 400 labelled frames after 20 burn-in epochs; SchNet 64/64,
 2.5 // 0.1 = 24 Gaussians, 2 convolutions, its seeded weights): one
 label-MD epoch (120 dense-LJ Nose-Hoover steps), one training epoch (the
@@ -27,7 +28,6 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-sys.path.insert(0, os.path.dirname(__file__))
 
 OUT = os.path.join("chiprun_out", "profile_supervised.txt")
 TI_STEPS = 20
@@ -36,14 +36,14 @@ TI_STEPS = 20
 def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from profile_isom_torch import busy_us
-    import run_supervised_torch as workload
     from mdgrad_tpu_torch._device import resolve_device
     from mdgrad_tpu_torch.data.dataset import Dataset
     from mdgrad_tpu_torch.interface import GNNPotentials
     from mdgrad_tpu_torch.md import NoseHooverChain, Simulation
     from mdgrad_tpu_torch.md.ti import TI
     from mdgrad_tpu_torch.nn.models import GraphConvIntegration
+    from mdgrad_tpu_torch.profiling import busy_us
+    from mdgrad_tpu_torch.train import supervised_workload as workload
     from mdgrad_tpu_torch.train.builders import get_model
 
     dev = resolve_device("cuda")      # raises without a card

@@ -74,7 +74,7 @@ def test_grid_and_cell_list_match_jax(systems):
     cell_len = np.diag(s.get_cell())
     density = 500 / float(np.prod(cell_len))
     gj = cells_j.make_cell_grid(cell_len, CUT, density)
-    g = cells.make_cell_grid(cell_len, CUT, density)
+    g = cells.make_cell_grid(cell_len, CUT, density, device="cpu")
     assert (g.dims, g.widths, g.M) == (gj.dims, gj.widths, gj.M)
     np.testing.assert_array_equal(g.nbr_cells.numpy(), np.asarray(
         gj.nbr_cells))
@@ -90,7 +90,8 @@ def test_grid_and_cell_list_match_jax(systems):
     real = np.where(slots < 500, slots, 10 ** 6)
     assert (np.diff(real, axis=1) >= 0).all()     # atom order in a cell
     tiny_j = cells_j.make_cell_grid(cell_len, CUT, density=0.01, slack=1.0)
-    tiny = cells.make_cell_grid(cell_len, CUT, density=0.01, slack=1.0)
+    tiny = cells.make_cell_grid(cell_len, CUT, density=0.01, slack=1.0,
+                                 device="cpu")
     assert bool(cells_j.build_cell_list(jnp.asarray(xyz), cell_len,
                                         tiny_j).overflow)
     assert bool(cells.build_cell_list(torch.tensor(xyz), torch.tensor(
@@ -389,3 +390,14 @@ def test_fit_rdf_cells_one_epoch_matches_table_mode(tmp_path):
     assert len(loss_c) == 1 and np.isfinite(loss_c[0])
     np.testing.assert_allclose(loss_c, loss_t, rtol=1e-5)
     assert np.isfinite(out["cells"]["objective"])
+
+
+def test_make_cell_grid_defaults_to_the_card():
+    """Without ``device`` the grid's neighbor table goes to the card; with
+    no card the call raises rather than fall back to the CPU."""
+    cell_len = np.full(3, 8.395)
+    if torch.cuda.is_available():
+        assert cells.make_cell_grid(cell_len, CUT, 0.1).nbr_cells.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cells.make_cell_grid(cell_len, CUT, 0.1)

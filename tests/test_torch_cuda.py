@@ -765,3 +765,69 @@ def test_ewald_f32_on_the_card_matches_cpu_f64(cuda):
     (u32, g32), (u64, g64) = out[torch.float32], out[torch.float64]
     assert abs(u32 - u64) <= 1e-6 * abs(u64)
     assert (g32 - g64).abs().max() <= 1e-4 * g64.abs().max()
+
+
+def test_profiling_trace_records_the_card(cuda, tmp_path):
+    """``profiling.trace`` records the card's kernels and ``busy_us``
+    reads their busy time; ``time_fn`` synchronizes on a card output."""
+    from mdgrad_tpu_torch import profiling
+    x = torch.randn(1 << 20, device=cuda)
+    with profiling.trace(str(tmp_path)) as prof:
+        for _ in range(3):
+            x = x * 1.0001
+        torch.cuda.synchronize()
+    busy, n = profiling.busy_us(prof.events(),
+                                torch.autograd.DeviceType.CUDA)
+    assert n >= 3 and busy > 0
+    assert (tmp_path / "trace.json").stat().st_size > 0
+    assert profiling.time_fn(lambda: x * 2.0, iters=3) > 0
+
+
+def test_sharded_schnet_nccl_world_of_one(cuda, tmp_path):
+    """A 32-atom SchNet epoch through ``ShardedGNNPotentials`` in an NCCL
+    world of one equals the unsharded epoch (loss and parameter
+    gradients to 1e-5 of the largest), and launches K1, K2a, K2b and the
+    CSR build."""
+    import torch.distributed as dist
+    from mdgrad_tpu_torch.parallel import ShardedGNNPotentials, make_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh({"sp": 1})
+        got = {}
+        for sharded in (True, False):
+            s = mt.System.from_lattice("fcc", 2, 1.76)
+            s.set_temperature(1.0 / mt.units.kB,
+                              rng=np.random.default_rng(0))
+            gnn = mt.SchNet({"n_atom_basis": 16, "n_filters": 16,
+                             "n_gaussians": 8, "n_convolutions": 2,
+                             "cutoff": 1.6})
+            inter = mt.GNNPotentials(s, gnn, cutoff=1.6, nbr_mode="table",
+                                     k_max=16, device=cuda)
+            if sharded:
+                inter = ShardedGNNPotentials(inter, mesh)
+            integ = mt.NoseHooverChain(inter, s, T=1.0 / mt.units.kB,
+                                       num_chains=3, Q=50.0, adjoint=True,
+                                       device=cuda)
+            sim = mt.Simulation(s, integ)
+            state, aux = sim.initial_state()
+            ops.reset_counts()
+            traj, _ = sim.epoch_fn(dt=0.005, frequency=5)(
+                state, aux, integ.default_ctrl())
+            loss = (traj.q[-1] ** 2).sum()
+            loss.backward()
+            if sharded:
+                inter.reduce_grads()
+            got[sharded] = (loss.detach(), torch.cat([
+                (torch.zeros_like(p) if p.grad is None else p.grad)
+                .reshape(-1) for p in gnn.parameters()]), ops.counts())
+        for name in ("gather_mul_reduce", "table_gather", "table_scatter",
+                     "table_index_csr"):
+            assert got[True][2]["launches"][name] > 0, name
+        assert abs(got[True][0] - got[False][0]) <= 1e-5 * abs(got[False][0])
+        scale = got[False][1].abs().max()
+        assert scale > 0
+        assert (got[True][1] - got[False][1]).abs().max() <= 1e-5 * scale
+    finally:
+        dist.destroy_process_group()

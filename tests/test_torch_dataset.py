@@ -270,7 +270,7 @@ def test_crystal_graph_matches_jax():
     np.testing.assert_array_equal(nxyz, crystals_j.dict_to_nxyz(
         {"numbers": np.full(len(xyz), 18), "positions": xyz}))
     assert nxyz.shape == (32, 4)
-    nbrs = crystals.get_crystal_graph(nxyz, cell, 1.6)
+    nbrs = crystals.get_crystal_graph(nxyz, cell, 1.6, device="cpu")
     nbrs_j = crystals_j.get_crystal_graph(nxyz, cell_j, 1.6)
     assert int(nbrs.count) == int(nbrs_j.count) > 0
     got = {tuple(p) for p in nbrs.idx[nbrs.mask].tolist()}
@@ -279,3 +279,16 @@ def test_crystal_graph_matches_jax():
     assert got == ref
     with pytest.raises(ImportError):
         crystals.structure_to_nxyz(None)
+
+
+def test_crystal_graph_defaults_to_the_card():
+    """Without ``device`` the crystal's graph is built on the card; with no
+    card the call raises rather than fall back to the CPU."""
+    xyz, cell = cubic_lattice("fcc", 2, 1.679)
+    nxyz = crystals.dict_to_nxyz({"numbers": np.full(len(xyz), 18),
+                                  "positions": xyz})
+    if torch.cuda.is_available():
+        assert crystals.get_crystal_graph(nxyz, cell, 1.6).idx.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            crystals.get_crystal_graph(nxyz, cell, 1.6)

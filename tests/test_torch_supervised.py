@@ -506,3 +506,51 @@ def test_logging_hooks_write_what_jax_writes(tmp_path):
         if tag == "port":
             port = (files, lines, rows)
     assert port == (files, lines, rows)
+
+
+def test_trainer_takes_an_optimizer_and_matches_jax_f64(tmp_path,
+                                                        widened_smearing):
+    """``Trainer(optimizer=...)``: SGD with momentum 0.9 (a factory over
+    the trainable parameters, the embedding frozen) for 2 epochs from the
+    same weights and loaders equals the JAX ``Trainer`` given
+    ``optax.sgd(lr, momentum=0.9)`` with its ``Embed_0`` frozen: the loss
+    history to rtol 1e-6, the final parameters to 1e-6 of each tensor's
+    largest entry (the JAX model's float32 convolution outputs set that),
+    the frozen embedding unchanged."""
+    import optax
+    coef = {"energy": 0.1, "energy_grad": 1.0}
+    lr = 1e-5
+    with jax.enable_x64(True):
+        model_j, params, model = _models(f64=True)
+        train_j, val_j = _data(DatasetJ, DataLoaderJ, split_j)
+        hist_j = _History()
+        trainer_j = sup_j.Trainer(
+            str(tmp_path / "jax"),
+            lambda p, b: model_j.batched_predict(p, _f64_batch(b)), params,
+            sup_j.build_mse_loss(coef), train_j, val_j,
+            optimizer=optax.inject_hyperparams(optax.sgd)(
+                learning_rate=lr, momentum=0.9),
+            hooks=[hist_j], frozen_prefixes=("Embed_0",))
+        trainer_j.train(n_epochs=2)
+        final_j = schnet_params_from_numpy(
+            jax.tree_util.tree_map(np.asarray, trainer_j.params))
+    train, val = _data(Dataset, DataLoader, split_train_validation_test)
+    hist = _History()
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = sup.Trainer(
+        str(tmp_path / "port"), model, sup.build_mse_loss(coef), train, val,
+        optimizer=lambda ps: torch.optim.SGD(ps, lr=lr, momentum=0.9),
+        hooks=[hist], frozen_prefixes=("embedding",))
+    assert isinstance(trainer.optimizer, torch.optim.SGD)
+    trainer.train(n_epochs=2)
+    assert trainer.step == trainer_j.step and trainer.epoch == 2
+    rows, rows_j = np.array(hist.rows), np.array(hist_j.rows)
+    assert rows.shape == rows_j.shape == (2, 4)
+    np.testing.assert_allclose(rows, rows_j, rtol=1e-6)
+    for name, p in model.state_dict().items():
+        ref = final_j[name].numpy()
+        np.testing.assert_allclose(p.numpy(), ref, rtol=0,
+                                   atol=1e-6 * max(np.abs(ref).max(), 1e-30),
+                                   err_msg=name)
+        frozen = name.startswith("embedding.")
+        assert torch.equal(p, start[name]) == frozen, name
