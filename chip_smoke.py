@@ -16,9 +16,11 @@ its phases, printing one line as each check ends:
    against the plain gather path, and the force's vector-Jacobian product
    (its grad-of-grad) likewise; K2b's CSR build (the cluster path, and the
    grid path forced) integer-equal to the plain build, twice, on the main
-   path's index, on edge cases, on water tables at K = 16-72 and on each
-   side of the cluster build's capacity, and K2b bit-equal through either
-   CSR;
+   path's index, on edge cases, on water tables at K = 16-72, on each
+   side of the cluster build's capacity and on the grid build's shapes
+   (the 4096-row water and a-Si tables, 1728 and 48668 rows, one key of
+   more than 65536 edges, each side of a digit, more than 256 tiles), and
+   K2b bit-equal through either CSR;
    then the LJ pair kernels (K5 energy and forces, K6 force, K6b its vjp,
    K7 force and parameter sums, the four modes of one i < j walk) on
    perturbed FCC boxes of 108, 100 (the bounds mask), 1372 and 4000 atoms,
@@ -245,7 +247,9 @@ its phases, printing one line as each check ends:
    with bounds that count the exponentials inside the reach on these
    frames at the SFU's rate; K2b's CSR
    build at every water table width (K = 16-72) with the path it takes,
-   against the grid path and the plain build, K2b beside each at K = 40;
+   against the grid path and the plain build, K2b beside each at K = 40,
+   and on the grid build at the 4096-row water and a-Si tables and the
+   1728-row one (``time_gather.CSR_GRID_CASES``) against the plain build;
    K1, K2a and K2b warm,
    their inputs in the L2 as on the MD path, and cold, cycling over input
    sets larger than the L2, with the cold share of the bound, in f32 and
@@ -260,9 +264,13 @@ its phases, printing one line as each check ends:
    this, the others in reverse (A B B A for one other) -- ``ROUNDS``
    times.  Gather: K1, K2a and K2b warm, cold and on one row, in f32 and
    bf16, the medians and the cold share of the bound; K2b's CSR build at
-   E = 20480 and 36864 (each library's own path, and the grid forced) and
-   with K2b after it; the largest difference between the libraries'
+   E = 20480 and 36864 and at phase 5's grid tables (E = 196608, 360448
+   and 82944; each library's own path, and the grid forced) and with K2b
+   after it, and each launch of the grid build apart
+   (``torch.profiler``); the largest difference between the libraries'
    outputs (the CSR integer-equal); one JSON line ``{"gather_ab": ...}``.
+   An older ``gather.cu`` without ``mdg_table_index_csr_scratch`` gets
+   the scratch of its own rule (n + 1 ints) or more.
    RDF: K3/K4 and K3b/K4b at phase 5's shapes, an older ``rdf.cu`` called
    through its own C interface (``ops/time_rdf.py``), one JSON line
    ``{"rdf_ab": ...}``.  Pair: K5, K6, K6b and K7 at N = 1372 and 4000, an
@@ -515,8 +523,8 @@ FIT_SYS_PARAMS = {
     "init_pkl": None, "test_nbins": 800, "ckpt_every": 1}
 # the regrow call: a table of K = 16 (slack 0.5 of the lattice's 28
 # neighbors) overflows at once and regrows to K = 72 (36864 edges), which
-# the CSR build's cluster path holds (the grid path takes over only past
-# 65536 edges)
+# the CSR build's cluster path holds (the grid build, a radix sort over
+# the grid, takes over only past 65536 edges or 2047 rows)
 FIT_REGROW = {"n_epochs": 2, "n_sim": 0, "capacity_slack": 0.5,
               "overflow_policy": "regrow", "regrow_factor": 4.5}
 WATER_KERNELS = ("gather_mul_reduce", "table_gather", "table_scatter",
@@ -1801,7 +1809,7 @@ def gather_ab(torch, _build, gather, time_gather, sources, sets, k, bounds,
                  + "  ".join(f"{name} {err:.3e}"
                              for name, err in errs.items()))
         for e, (idx, n) in csr_inputs.items():
-            bufs = time_gather.csr_outputs(e, n, idx.device)
+            bufs = time_gather.csr_outputs(e, n, idx.device, libs.values())
             time_gather.csr_call(lib, idx, n, bufs)()
             outs[tag, f"csr@{e}"] = bufs[:2]
             ref = gather.table_index_csr_plain(idx, n)
@@ -1832,7 +1840,7 @@ def gather_ab(torch, _build, gather, time_gather, sources, sets, k, bounds,
         r = {dtype: time_gather.warm_cold(libs[tag], dsets, k)
              for dtype, dsets in sets.items()}
         r["csr"] = time_gather.csr_times(libs[tag], csr_inputs,
-                                         sets["f32"][0], k)
+                                         sets["f32"][0], k, libs.values())
         runs[tag].append(r)
         line(f"gather a/b turn {i} {tag}: " + "  ".join(
             f"{name}.{dtype} warm {r[dtype][name]['ms'] * 1e3:.2f} us cold "
@@ -1879,8 +1887,19 @@ def gather_ab(torch, _build, gather, time_gather, sources, sets, k, bounds,
                    for e, (_, n) in csr_inputs.items()}
              for tag, lib in libs.items()}
     line(f"gather a/b CSR paths: {paths}")
+    # each launch of the grid build apart (torch.profiler's card events)
+    launches = {tag: {} for tag in libs}
+    for e, (idx, n) in csr_inputs.items():
+        bufs = time_gather.csr_outputs(e, n, idx.device, libs.values())
+        for tag, lib in libs.items():
+            launches[tag][f"csr_grid@{e}"] = times = \
+                time_gather.csr_launch_times(lib, idx, n, bufs, cluster=False)
+            line(f"gather a/b CSR grid build launches {tag} E={e}: "
+                 + "  ".join(f"{name} {t * 1e3:.2f} us"
+                             for name, t in times.items())
+                 + f"  sum {sum(times.values()) * 1e3:.2f} us")
     line(json.dumps({"gather_ab": {
-        "sources": names, "csr_paths": paths,
+        "sources": names, "csr_paths": paths, "csr_launches": launches,
         "rounds": ROUNDS, "sets": len(sets["f32"]), "bound_ms": bounds,
         "median": median, "runs": runs, "card": smi}}))
 
@@ -2082,10 +2101,11 @@ def csr_phase(torch, dev, gather, time_gather, index, g_edges, records):
     """K2b's CSR build against the plain build, integer-equal and the same
     integers twice, through the path the build takes and through the grid
     build forced, on the main path's index and ``time_gather``'s cases:
-    the edge cases, the water tables at K = 16 to 72 and each side of the
-    cluster build's capacity; the library's path equal to
-    ``table_index_csr_path``'s; K2b bit-equal through the kernel's and the
-    plain CSR."""
+    the edge cases, the water tables at K = 16 to 72, each side of the
+    cluster build's capacity and the grid build's shapes; the library's
+    path equal to ``table_index_csr_path``'s; K2b bit-equal through the
+    kernel's and the plain CSR on the main path's index and on the grid
+    build's tables (``time_gather.CSR_GRID_CASES``, F = 128)."""
     from mdgrad_tpu_torch.ops import _build
     lib = _build.library()
     cases = [("main path", index.idx.cpu().numpy(), index.n),
@@ -2116,16 +2136,26 @@ def csr_phase(torch, dev, gather, time_gather, index, g_edges, records):
         require(gather.table_index_csr_path(512 * k_w, 512) == "cluster",
                 f"the water table at K = {k_w} takes the cluster build")
     records.setdefault("table_index_csr", {})["max_abs_err"] = 0.0
-    outs = []
-    for csr in (gather._launch_table_index_csr(index.idx, index.n),
-                gather.table_index_csr_plain(index.idx, index.n)):
-        with_csr = gather.TableIndex(index.idx, index.n)
-        with_csr._csr = csr
-        outs.append(gather._launch_table_scatter(g_edges, with_csr))
-    require(torch.equal(outs[0], outs[1]),
-            "K2b gives the same bits through the kernel's and the plain CSR")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    k2b_inputs = [("main path", index.idx, index.n, g_edges)] + [
+        (name, torch.tensor(idx_np, device=dev), n,
+         torch.randn(idx_np.size, 128, device=dev, generator=gen))
+        for name, idx_np, n in time_gather.csr_index_cases()
+        if name in time_gather.CSR_GRID_CASES]
+    for name, idx, n, g in k2b_inputs:
+        outs = []
+        for csr in (gather._launch_table_index_csr(idx, n),
+                    gather.table_index_csr_plain(idx, n)):
+            with_csr = gather.TableIndex(idx, n)
+            with_csr._csr = csr
+            outs.append(gather._launch_table_scatter(g, with_csr))
+        require(torch.equal(outs[0], outs[1]),
+                f"K2b gives the same bits through the kernel's and the "
+                f"plain CSR ({name})")
     line("kernel table_scatter: bit-equal through the CSR kernel's and the "
-         "plain build's inverse")
+         "plain build's inverse on " + ", ".join(
+             f"{name} (E={idx.numel()}, n={n})"
+             for name, idx, n, _ in k2b_inputs))
 
 
 # ---- the LJ slice --------------------------------------------------------
@@ -4606,6 +4636,23 @@ def main():
             "plain_ms": timing.time_graph(lambda: csr_plain(idx_w, n),
                                           reps=20),
             "bound_ms": bound_ms(4 * (2 * e_w + n + 1), 0)[0]}
+    # the grid build (past the cluster's capacity) at the tables of the
+    # paths that take it, from time_gather's cases
+    grid_by_e = {}
+    for name, idx_np, n_g in time_gather.csr_index_cases():
+        if name not in time_gather.CSR_GRID_CASES:
+            continue
+        e_g = idx_np.size
+        idx_g = torch.tensor(idx_np, device=dev)
+        require(gather.table_index_csr_path(e_g, n_g) == "grid",
+                f"the {name} table takes the CSR grid build")
+        csr_idx[e_g] = (idx_g, n_g)
+        grid_by_e[str(e_g)] = {
+            "case": name, "n": n_g,
+            "ms": timing.time_graph(lambda: csr_kernel(idx_g, n_g), reps=20),
+            "plain_ms": timing.time_graph(lambda: csr_plain(idx_g, n_g),
+                                          reps=20),
+            "bound_ms": bound_ms(4 * (2 * e_g + n_g + 1), 0)[0]}
     csr_b_ms, csr_b_by = bound_ms(4 * (2 * n_edges + n + 1), 0)
     main_csr = by_e[str(n_edges)]
     csr = {
@@ -4624,7 +4671,7 @@ def main():
             records["table_index_csr"]["launches_fit_per_epoch"],
         "launches_fit_inference":
             records["table_index_csr"]["launches_fit_inference"],
-        "by_e": by_e}
+        "by_e": by_e, "grid_by_e": grid_by_e}
     k2b = next(r for r in kernels_json if r["name"] == "table_scatter")
     k2b["with_csr_ms"] = csr["with_scatter_ms"]
     rec = records["table_index_csr"]
@@ -4678,6 +4725,10 @@ def main():
                      f"{r['plain_ms'] * 1e3:.2f}, bound "
                      f"{r['bound_ms'] * 1e3:.3f})"
                      for e, r in by_e.items()))
+    line("time table_index_csr on the grid build: " + "  ".join(
+        f"{r['case']} E={e} n={r['n']} {r['ms'] * 1e3:.2f} us (plain "
+        f"{r['plain_ms'] * 1e3:.2f}, bound {r['bound_ms'] * 1e3:.3f})"
+        for e, r in grid_by_e.items()))
     # K3/K4 and K3b/K4b at every shape a path launches them
     rdf_inputs = {"50x512": (frames.contiguous(), op),
                   "3x512": (frames[-3:].contiguous(), op),
@@ -4846,7 +4897,8 @@ def main():
                            for name, b in gather_bytes.items()},
                    "bf16": {name: bound_ms(b, 0)[0]
                             for name, b in bytes16.items()}},
-                  {e: csr_idx[e] for e in (n * 40, n * 72)}, smi)
+                  {e: csr_idx[e] for e in (n * 40, n * 72,
+                                           *map(int, grid_by_e))}, smi)
     if against["rdf"]:
         rdf_ab(torch, _build, rdf_ops, time_rdf, timing, against["rdf"],
                rdf_inputs, gen, smi)

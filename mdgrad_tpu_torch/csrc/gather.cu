@@ -64,13 +64,19 @@
 // the blocks read each other's totals through distributed shared memory
 // after one cluster barrier, and each warp fills its slice in edge order.
 // Its capacity: 65536 edges and 2048 keys (n <= 2047), 72 (n + 1) + 12
-// bytes of shared memory a block; past it (no water table comes near) the
-// grid path takes over: count with integer atomics (exact in any order), scan,
-// drop each edge into its row with an atomic cursor, then sort each row's
-// segment by edge id (a bitonic network whose compare-exchanges all put
-// the smaller value at the lower index, so the padding past the segment
-// never moves), which undoes the atomics' run-to-run order.  It stays for
-// any index and any row count, many times slower (PERF.md).
+// bytes of shared memory a block.  Past it -- the 4096-site water and a-Si
+// tables (196608 and 360448 edges), the 1728-site 'sparse' prior (82944),
+// any n up to 2^31 - 2 and E into the millions -- the grid build takes
+// over.  It replaces no TPU kernel either (K2b's own inverse).  Its bound
+// is the same bytes (0.5-0.9 us at 4096 rows), all of it resident in the
+// 50 MB L2, so what it pays is launches and dependent chains: it is the
+// cluster build's stable counting sort with global memory where that uses
+// distributed shared memory, as an LSD radix sort over 8-bit digits (2
+// passes up to n = 65535): one counting launch, one scattering launch a
+// pass and one for rowptr, each over the SMs (at most 256 blocks of 512
+// threads; 4 launches at 4096 rows), with no sort pass and no atomics on
+// any slot (the digit counts add integers, exact in any order), so every
+// call gives the same integers.
 //
 // bf16 (the JAX package's split=False, mdg_*_bf16): the same three kernels
 // instantiated over bf16 rows: K1 and K2b 4 to an 8-byte lane (uint2) where
@@ -90,6 +96,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -421,8 +428,6 @@ constexpr int kCsrSteps = 16;         // edges a lane holds
 constexpr int kCsrMaxEdges = kCsrSlices * 32 * kCsrSteps;   // 65536
 constexpr int kCsrMaxKeys = 2048;     // n + 1 (the sentinel is key n)
 static_assert(4 * kCsrThreads >= kCsrMaxKeys, "4 keys a thread at most");
-constexpr int kCsrGridThreads = 256;  // the grid build's count, fill, sort
-constexpr int kCsrScanThreads = 1024; // the grid build's one-block scan
 
 __device__ __forceinline__ int csr_key(int j, int n) {
   return static_cast<unsigned>(j) < static_cast<unsigned>(n) ? j : n;
@@ -582,97 +587,320 @@ __global__ void __cluster_dims__(kCsrCluster, 1, 1)
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-// Exclusive scan of a[0, m) in place by one block (blockDim a multiple of
-// 32); every thread returns the total.
-__device__ int block_exclusive_scan(int* a, int m) {
-  __shared__ int warp_sums[32];
-  __shared__ int carry;
+// ---- the grid build: a stable LSD radix sort spread over the grid ----
+// Each pass sorts the (key, edge) pairs stably by one 8-bit digit of the
+// key, the lowest first, so that after ceil(bits(n) / 8) passes (2 at n =
+// 4096 or 48668) they are in key order and, within a key, in edge order.
+// Every launch runs the same blocks, block b owning the contiguous tiles
+// [b t, b t + t) of 4096 edges (t = 1 up to 256 tiles, then more), and
+// needs each block's count of each digit of its pass:
+//   count (the first pass only): each warp's lanes of one digit found by
+//     __match_any_sync, the lowest adding their number to the block's
+//     shared count (integer adds, exact in any order); it also zeroes the
+//     later passes' counts;
+//   scatter (one a pass): each block sums the blocks' counts (8 groups of
+//     64 threads, a thread reading 4 digits of every 8th block in one
+//     16-byte load) into the digit's total and the lower blocks' share,
+//     takes one exclusive scan of the 256 totals (the digits' first
+//     slots), then walks its tiles in order as the cluster build walks
+//     its slice: each warp counts its lanes' digits into its own row (a
+//     place for each edge among its warp's edges of its digit),
+//     one thread a digit turns the 16 rows into the lower warps' counts
+//     and a scan of the tile's counts gives each digit's first place in
+//     the tile; the pairs are staged in shared memory in digit order and
+//     stored from there, each digit's run to consecutive slots (the
+//     digit's first slot + the lower blocks' + the block's earlier tiles'
+//     + its place in the tile's run).  As it stores, it adds the next
+//     pass's digits into the counts of the blocks that will read them
+//     (integer atomics, one for each warp's lanes of one block and digit),
+//     so no count launch stands between two passes;
+//   rowptr: position q of the sorted keys writes q into rowptr[k] for
+//     every key k in (key[q - 1], key[q]], and position e fills the keys
+//     past the last.
+// Blocks in order, tiles in order, warps in order and lanes in edge order
+// keep equal digits in input order: each pass is stable, and no slot is
+// written through an atomic, so every call gives the same integers.
+constexpr int kCsrRadixBits = 8;                   // a digit of the key
+constexpr int kCsrDigits = 1 << kCsrRadixBits;     // 256
+constexpr int kCsrTileSteps = 8;                   // edges a lane holds
+constexpr int kCsrTile = kCsrThreads * kCsrTileSteps;   // 4096 edges
+constexpr int kCsrMaxBlocks = 256;                 // blocks of a launch
+constexpr int kCsrRowptrThreads = 256;
+static_assert(kCsrThreads >= kCsrDigits, "a thread a digit");
+constexpr int kCsrCountSplit = kCsrThreads / (kCsrDigits / 4);   // 8
+static_assert(2 * kCsrTile >= (kCsrWarps + 2 * kCsrCountSplit) * kCsrDigits,
+              "the scatter's counts fit where its tile is staged");
+
+// The key of edge p of a pass's input (the index, sentinel-mapped, in the
+// first pass; the last pass's keys after it), or -1 past the edges
+template <bool kFirst>
+__device__ __forceinline__ int csr_pass_key(const int* src, long long p,
+                                            int e, int n) {
+  if (p >= e) return -1;
+  return kFirst ? csr_key(__ldg(src + p), n) : __ldg(src + p);
+}
+
+__device__ __forceinline__ int csr_digit(int key, int shift) {
+  return key < 0 ? -1 : (key >> shift) & (kCsrDigits - 1);
+}
+
+// Block blockIdx.x's edges [first, end) of e, `tiles` tiles of kCsrTile
+__device__ __forceinline__ long long csr_block_first(int tiles) {
+  return static_cast<long long>(blockIdx.x) * tiles * kCsrTile;
+}
+__device__ __forceinline__ long long csr_block_end(int e, int tiles) {
+  return min(static_cast<long long>(e),
+             csr_block_first(tiles) + static_cast<long long>(tiles) *
+                                          kCsrTile);
+}
+
+// counts[0] (blocks, 256): the block's count of each digit of the index's
+// keys; counts[1, passes) zeroed for the scatters to add into
+__global__ void __launch_bounds__(kCsrThreads) csr_radix_count_kernel(
+    const int* __restrict__ idx, int e, int n, int tiles, int passes,
+    int* __restrict__ counts) {
+  __shared__ int hist[kCsrDigits];
+  const int lane = threadIdx.x & 31;
+  const unsigned lower = (1u << lane) - 1u;
+  const long long rows = static_cast<long long>(gridDim.x) * kCsrDigits;
+  for (int d = threadIdx.x; d < kCsrDigits; d += kCsrThreads) {
+    hist[d] = 0;
+    for (int p = 1; p < passes; ++p) {
+      counts[p * rows + static_cast<long long>(blockIdx.x) * kCsrDigits +
+             d] = 0;
+    }
+  }
+  __syncthreads();
+  const long long end = csr_block_end(e, tiles);
+  for (long long t0 = csr_block_first(tiles); t0 < end; t0 += kCsrTile) {
+    const long long p0 = t0 + (threadIdx.x >> 5) * (32 * kCsrTileSteps) +
+                         lane;
+    int dig[kCsrTileSteps];
+#pragma unroll
+    for (int s = 0; s < kCsrTileSteps; ++s) {
+      dig[s] = csr_digit(csr_pass_key<true>(idx, p0 + s * 32, e, n), 0);
+    }
+#pragma unroll
+    for (int s = 0; s < kCsrTileSteps; ++s) {
+      const unsigned peers = __match_any_sync(0xffffffffu, dig[s]);
+      if (dig[s] >= 0 && (peers & lower) == 0) {
+        atomicAdd(hist + dig[s], __popc(peers));
+      }
+    }
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < kCsrDigits; d += kCsrThreads) {
+    counts[static_cast<long long>(blockIdx.x) * kCsrDigits + d] = hist[d];
+  }
+}
+
+// One pass: src/src_ids (the index and the edge positions in the first
+// pass) sorted by the digit at shift into dst/dst_ids, reading counts
+// (blocks, 256) of that digit and adding the digit at shift + 8 into
+// next_counts (nullptr in the last pass).
+template <bool kFirst>
+__global__ void __launch_bounds__(kCsrThreads) csr_radix_scatter_kernel(
+    const int* __restrict__ src, const int* __restrict__ src_ids, int e,
+    int n, int shift, int tiles, const int* __restrict__ counts,
+    int* __restrict__ next_counts, int* __restrict__ dst,
+    int* __restrict__ dst_ids) {
+  // the warps' counts, then offsets (hist), and the blocks' sums (part)
+  // share stage, which then holds the tile's pairs in digit order
+  __shared__ __align__(16) int stage[2 * kCsrTile];
+  __shared__ int base[kCsrDigits];   // where the next tile's digit begins
+  __shared__ int tile_first[kCsrDigits];   // the digit's first place
+  __shared__ int warp_sums[kCsrWarps];
+  int (*hist)[kCsrDigits] = reinterpret_cast<int (*)[kCsrDigits]>(stage);
+  int4 (*part)[2][kCsrDigits / 4] =
+      reinterpret_cast<int4 (*)[2][kCsrDigits / 4]>(stage +
+                                                   kCsrWarps * kCsrDigits);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < m; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int v = i < m ? a[i] : 0;
-    int x = v;   // inclusive scan within the warp
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
+  const unsigned lower = (1u << lane) - 1u;
+  const int d = threadIdx.x & (kCsrDigits - 1);
+  const bool digit_thread = threadIdx.x < kCsrDigits;
+  const long long span = static_cast<long long>(tiles) * kCsrTile;
+  const long long first = csr_block_first(tiles);
+  const long long end = csr_block_end(e, tiles);
+  int* own = hist[warp];
+  for (long long t0 = first; t0 < end; t0 += kCsrTile) {
+    const long long w0 = t0 + warp * (32 * kCsrTileSteps);   // warp-uniform
+    int key[kCsrTileSteps], id[kCsrTileSteps], place[kCsrTileSteps];
+#pragma unroll
+    for (int s = 0; s < kCsrTileSteps; ++s) {
+      const long long p = w0 + s * 32 + lane;
+      key[s] = csr_pass_key<kFirst>(src, p, e, n);
+      id[s] = kFirst ? static_cast<int>(p)
+                     : (p < e ? __ldg(src_ids + p) : -1);
     }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      int w = lane < n_warps ? warp_sums[lane] : 0;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, w, o);
-        if (lane >= o) w += y;
+    if (t0 == first) {   // block-uniform; the tile's loads in flight
+      // thread (r, c) sums digits 4c to 4c + 3 of the blocks r, r + 8, ...
+      const int c = threadIdx.x % (kCsrDigits / 4);
+      const int r = threadIdx.x / (kCsrDigits / 4);
+      int4 total = make_int4(0, 0, 0, 0);
+      int4 below = make_int4(0, 0, 0, 0);
+#pragma unroll 4
+      for (int b = r; b < static_cast<int>(gridDim.x); b += kCsrCountSplit) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(
+                                 counts + static_cast<long long>(b) *
+                                              kCsrDigits) + c);
+        add4(total, v);
+        if (b < static_cast<int>(blockIdx.x)) add4(below, v);
       }
-      warp_sums[lane] = w;
-    }
-    __syncthreads();
-    const int excl = carry + (warp > 0 ? warp_sums[warp - 1] : 0) + x - v;
-    if (i < m) a[i] = excl;
-    __syncthreads();
-    if (threadIdx.x == blockDim.x - 1) carry = excl + v;
-    __syncthreads();
-  }
-  return carry;
-}
-
-// Ascending sort of seg[0, len) by the whole block: a bitonic network over
-// the next power of two in which every compare-exchange puts the smaller
-// value at the lower index, so the virtual +inf padding never moves.
-__device__ void block_sort(int* seg, int len) {
-  int p = 1;
-  while (p < len) p <<= 1;
-  for (int k = 2; k <= p; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int q = threadIdx.x; q < (p >> 1); q += blockDim.x) {
-        const int lo = ((q & ~(j - 1)) << 1) | (q & (j - 1));
-        const int hi = j == (k >> 1) ? lo ^ (k - 1) : lo ^ j;
-        if (hi < len) {
-          const int a = seg[lo];
-          const int b = seg[hi];
-          if (a > b) {
-            seg[lo] = b;
-            seg[hi] = a;
-          }
+      part[r][0][c] = total;
+      part[r][1][c] = below;
+      __syncthreads();
+      int whole = 0;
+      int lower_blocks = 0;
+      if (digit_thread) {
+        const int* flat = reinterpret_cast<const int*>(part);
+#pragma unroll
+        for (int q = 0; q < kCsrCountSplit; ++q) {
+          whole += flat[(2 * q) * kCsrDigits + d];
+          lower_blocks += flat[(2 * q + 1) * kCsrDigits + d];
         }
       }
-      __syncthreads();
+      const int start = block_exclusive_sum(whole, warp_sums);
+      if (digit_thread) base[d] = start + lower_blocks;
     }
+    for (int k = threadIdx.x; k < kCsrWarps * kCsrDigits; k += kCsrThreads) {
+      (&hist[0][0])[k] = 0;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < kCsrTileSteps; ++s) {
+      if (w0 + s * 32 >= end) break;   // warp-uniform
+      const int k = csr_digit(key[s], shift);
+      const unsigned peers = __match_any_sync(0xffffffffu, k);
+      const int before = k >= 0 ? own[k] : 0;
+      place[s] = before + __popc(peers & lower);
+      __syncwarp();
+      if (k >= 0 && (peers & lower) == 0) own[k] = before + __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+    int tile_count = 0;
+    if (digit_thread) {
+#pragma unroll
+      for (int w = 0; w < kCsrWarps; ++w) {
+        const int c = hist[w][d];
+        hist[w][d] = tile_count;
+        tile_count += c;
+      }
+    }
+    const int t_first = block_exclusive_sum(tile_count, warp_sums);
+    if (digit_thread) tile_first[d] = t_first;
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < kCsrTileSteps; ++s) {   // past the edges: -1
+      const int k = csr_digit(key[s], shift);
+      place[s] = k >= 0 ? tile_first[k] + own[k] + place[s] : -1;
+    }
+    __syncthreads();   // hist read: stage may take its place
+#pragma unroll
+    for (int s = 0; s < kCsrTileSteps; ++s) {
+      if (place[s] >= 0) {
+        stage[place[s]] = key[s];
+        stage[kCsrTile + place[s]] = id[s];
+      }
+    }
+    __syncthreads();
+    const int count = static_cast<int>(min(static_cast<long long>(kCsrTile),
+                                           end - t0));
+    for (int j0 = 0; j0 < count; j0 += kCsrThreads) {   // block-uniform
+      const int j = j0 + threadIdx.x;
+      int next = -1;   // the next pass's (block, digit), or -1
+      if (j < count) {
+        const int k_full = stage[j];
+        const int k = csr_digit(k_full, shift);
+        const int q = base[k] + j - tile_first[k];
+        dst[q] = k_full;
+        dst_ids[q] = stage[kCsrTile + j];
+        if (next_counts != nullptr) {
+          next = static_cast<int>(q / span) * kCsrDigits +
+                 csr_digit(k_full, shift + kCsrRadixBits);
+        }
+      }
+      if (next_counts != nullptr) {   // block-uniform
+        const unsigned peers = __match_any_sync(0xffffffffu, next);
+        if (next >= 0 && (peers & lower) == 0) {
+          atomicAdd(next_counts + next, __popc(peers));
+        }
+      }
+    }
+    __syncthreads();   // every read of base, tile_first and stage done
+    if (digit_thread) base[d] += tile_count;
   }
 }
 
-// The grid build, past the cluster build's capacity: counts into rowptr
-// (zeroed by the caller), one block's scan, the fill, one block per row's
-// sort.
-__global__ void csr_count_kernel(const int* __restrict__ idx, int e, int n,
-                                 int* __restrict__ counts) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p < e) atomicAdd(counts + csr_key(__ldg(idx + p), n), 1);
+__global__ void __launch_bounds__(kCsrRowptrThreads) csr_rowptr_kernel(
+    const int* __restrict__ keys, int e, int n, int* __restrict__ rowptr) {
+  const long long q = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (q > e) return;
+  const int a = q > 0 ? __ldg(keys + q - 1) : -1;
+  const int b = q < e ? __ldg(keys + q) : n;
+  for (int k = a + 1; k <= b; ++k) rowptr[k] = static_cast<int>(q);
 }
 
-__global__ void __launch_bounds__(kCsrScanThreads) csr_scan_kernel(
-    int* __restrict__ rowptr, int* __restrict__ cursor, int n) {
-  block_exclusive_scan(rowptr, n + 1);
-  for (int r = threadIdx.x; r <= n; r += blockDim.x) cursor[r] = rowptr[r];
+// The passes the grid build takes over keys 0..n: one a digit of n
+int csr_radix_passes(int n) {
+  int bits = 1;
+  while (bits < 31 && (n >> bits) != 0) ++bits;
+  return (bits + kCsrRadixBits - 1) / kCsrRadixBits;
 }
 
-__global__ void csr_fill_kernel(const int* __restrict__ idx, int e, int n,
-                                int* __restrict__ cursor,
-                                int* __restrict__ order) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p < e) order[atomicAdd(cursor + csr_key(__ldg(idx + p), n), 1)] = p;
+// The grid build's blocks for e > 0 edges and the tiles each owns
+struct CsrGrid {
+  int blocks;
+  int tiles;
+};
+
+CsrGrid csr_grid(int e) {
+  const long long tiles = (e + kCsrTile - 1LL) / kCsrTile;
+  const long long per = (tiles + kCsrMaxBlocks - 1) / kCsrMaxBlocks;
+  return {static_cast<int>((tiles + per - 1) / per), static_cast<int>(per)};
 }
 
-__global__ void csr_sort_kernel(const int* __restrict__ rowptr, int e, int n,
-                                int* __restrict__ order) {
-  const int r = blockIdx.x;
-  const int s = rowptr[r];
-  const int len = (r < n ? rowptr[r + 1] : e) - s;
-  if (len > 1) block_sort(order + s, len);
+// The grid build's scratch in ints: each pass's blocks' digit counts
+// (first, for 16-byte reads), keys twice and edge ids once (e each)
+long long csr_grid_scratch(int e, int n) {
+  if (e <= 0) return 0;
+  return 3LL * e + static_cast<long long>(csr_radix_passes(n)) *
+                       csr_grid(e).blocks * kCsrDigits;
+}
+
+cudaError_t csr_grid_build(const int* idx, int e, int n, int* order,
+                           int* rowptr, int* scratch, cudaStream_t s) {
+  const int passes = csr_radix_passes(n);
+  const CsrGrid g = csr_grid(e);
+  const long long rows = static_cast<long long>(g.blocks) * kCsrDigits;
+  int* counts = scratch;
+  int* keys[2] = {scratch + passes * rows, scratch + passes * rows + e};
+  // the last pass writes order, the one before it ids[0], ...
+  int* ids[2] = {scratch + passes * rows + 2LL * e, order};
+  csr_radix_count_kernel<<<g.blocks, kCsrThreads, 0, s>>>(idx, e, n, g.tiles,
+                                                          passes, counts);
+  for (int p = 0; p < passes; ++p) {
+    const int shift = p * kCsrRadixBits;
+    int* next = p + 1 < passes ? counts + (p + 1) * rows : nullptr;
+    int* dst = keys[p & 1];
+    int* dst_ids = ids[(passes - 1 - p) % 2 == 0];
+    if (p == 0) {
+      csr_radix_scatter_kernel<true><<<g.blocks, kCsrThreads, 0, s>>>(
+          idx, nullptr, e, n, shift, g.tiles, counts, next, dst, dst_ids);
+    } else {
+      csr_radix_scatter_kernel<false><<<g.blocks, kCsrThreads, 0, s>>>(
+          keys[(p - 1) & 1], ids[(passes - p) % 2 == 0], e, n, shift,
+          g.tiles, counts + p * rows, next, dst, dst_ids);
+    }
+  }
+  const long long threads = e + 1LL;
+  csr_rowptr_kernel<<<static_cast<int>((threads + kCsrRowptrThreads - 1) /
+                                       kCsrRowptrThreads),
+                      kCsrRowptrThreads, 0, s>>>(keys[(passes - 1) & 1], e,
+                                                 n, rowptr);
+  return cudaGetLastError();
 }
 
 // The cluster build's shared memory past the default 48 KB, granted once
@@ -823,18 +1051,20 @@ int mdg_table_scatter_bf16(const bf16_bits* g, const int* order,
 }
 
 // K2b's CSR inverse of idx (e,) over n rows: order (e,) and rowptr
-// (n + 1,), both int32; scratch: n + 1 ints.  The cluster build when e <=
-// 65536, n <= 2047 and its shared memory, 72 (n + 1) + 12 bytes, fits in
-// max_shared bytes (0 forces the grid build); the grid path otherwise;
-// both give the same integers.
+// (n + 1,), both int32; scratch: mdg_table_index_csr_scratch(e, n) ints.
+// The cluster build when e <= 65536, n <= 2047 and its shared memory,
+// 72 (n + 1) + 12 bytes, fits in max_shared bytes (0 forces the grid
+// build); the grid build otherwise; both give the same integers.
 int mdg_table_index_csr(const int* idx, int e, int n, int* order,
                         int* rowptr, int* scratch, int max_shared,
                         void* stream) {
-  if (e < 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (e < 0 || n < 0 || n == INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (e == 0) {
     return static_cast<int>(
-        cudaMemsetAsync(rowptr, 0, sizeof(int) * (n + 1), s));
+        cudaMemsetAsync(rowptr, 0, sizeof(int) * (n + 1LL), s));
   }
   if (csr_cluster(e, n, max_shared)) {
     const cudaError_t err = csr_cluster_grant();
@@ -844,16 +1074,14 @@ int mdg_table_index_csr(const int* idx, int e, int n, int* order,
         idx, e, n, order, rowptr);
     return static_cast<int>(cudaGetLastError());
   }
-  const int blocks = (e + kCsrGridThreads - 1) / kCsrGridThreads;
-  const cudaError_t err = cudaMemsetAsync(rowptr, 0, sizeof(int) * (n + 1),
-                                          s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  csr_count_kernel<<<blocks, kCsrGridThreads, 0, s>>>(idx, e, n, rowptr);
-  csr_scan_kernel<<<1, kCsrScanThreads, 0, s>>>(rowptr, scratch, n);
-  csr_fill_kernel<<<blocks, kCsrGridThreads, 0, s>>>(idx, e, n, scratch,
-                                                     order);
-  csr_sort_kernel<<<n + 1, kCsrGridThreads, 0, s>>>(rowptr, e, n, order);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(csr_grid_build(idx, e, n, order, rowptr, scratch,
+                                         s));
+}
+
+// The scratch mdg_table_index_csr needs for e edges over n rows, in ints
+// (the grid build's; the cluster build takes none)
+long long mdg_table_index_csr_scratch(int e, int n) {
+  return csr_grid_scratch(e, n);
 }
 
 // Which build mdg_table_index_csr takes for e edges over n rows when its

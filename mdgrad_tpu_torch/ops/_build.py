@@ -41,6 +41,7 @@ SIGNATURES = {
     "mdg_table_scatter_bf16": (_P, _P, _P, _P, _I, _I, _P),
     "mdg_table_index_csr": (_P, _I, _I, _P, _P, _P, _I, _P),
     "mdg_table_index_csr_cluster": (_I, _I),
+    "mdg_table_index_csr_scratch": (_I, _I),
     "mdg_rdf_scratch": (_I, _I, _I, _I),
     "mdg_rdf_reach_arg": (),
     "mdg_rdf_counts": (_P, _I, _I, *(_F,) * 10, _P, _P, _I, _P, _P, _P),
@@ -55,6 +56,7 @@ SIGNATURES = {
 
 # entry points that return another type than int
 RESTYPES = {"mdg_rdf_scratch": ctypes.c_longlong,
+            "mdg_table_index_csr_scratch": ctypes.c_longlong,
             "mdg_lj_scratch": ctypes.c_longlong,
             "mdg_rdf_reach_arg": ctypes.c_float}
 

@@ -38,8 +38,9 @@ CSR inverse moves 4E bytes in and 4E + 4(n + 1) out (0.05 us) and is
 bound by latency: one launch of a thread block cluster builds it as a
 stable counting sort over 8 SMs (``csrc/gather.cu``), for up to
 :data:`CSR_CLUSTER_MAX_EDGES` edges over up to :data:`CSR_CLUSTER_MAX_ROWS`
-rows; past that a grid of four launches and a per-row sort takes over
-(:func:`table_index_csr_path`).  The TPU
+rows; past that (the 4096-site tables) the same stable counting sort runs
+over the grid as an LSD radix sort of 8-bit digits, one launch a digit
+and two more, 4 at 4096 rows (:func:`table_index_csr_path`).  The TPU
 kernels turn the gather into a one-hot matmul for the MXU; here the
 gather is a direct indexed load in exact f32, and the K-sum of K1 stays
 on chip so the gathered (E, F) tensor never reaches memory.  The scatter
@@ -245,8 +246,8 @@ def _launch_table_gather(values, idx, split=True):
 _CSR_ANY_SHARED, _CSR_GRID = 2 ** 31 - 1, 0
 # the cluster build's capacity (csrc/gather.cu kCsrMaxEdges, kCsrMaxKeys -
 # 1): 8 blocks x 512 threads x 16 edges a lane, and 2048 keys (~144 KB of
-# shared memory a block); the water tables (K <= 72, 36864 edges at n =
-# 512) are well inside, the grid build takes any index
+# shared memory a block); the 512-site water tables (K <= 72, 36864 edges)
+# are well inside, the grid build takes any index
 CSR_CLUSTER_MAX_EDGES = 65536
 CSR_CLUSTER_MAX_ROWS = 2047
 
@@ -258,10 +259,12 @@ def _launch_table_index_csr(idx, n, cluster=True):
     dev = idx.device
     _check(idx, "idx", dev, torch.int32, 1)
     e = idx.shape[0]
+    lib = _build.library()
     order = torch.empty(e, device=dev, dtype=torch.int32)
     rowptr = torch.empty(n + 1, device=dev, dtype=torch.int32)
-    scratch = torch.empty(n + 1, device=dev, dtype=torch.int32)
-    code = _build.library().mdg_table_index_csr(
+    scratch = torch.empty(lib.mdg_table_index_csr_scratch(e, n), device=dev,
+                          dtype=torch.int32)
+    code = lib.mdg_table_index_csr(
         idx.data_ptr(), e, n, order.data_ptr(), rowptr.data_ptr(),
         scratch.data_ptr(), _CSR_ANY_SHARED if cluster else _CSR_GRID,
         _build.stream_of(idx))
@@ -274,8 +277,8 @@ def table_index_csr_path(e, n):
     """The build the CSR kernel takes on the card for ``e`` edges over
     ``n`` rows: "cluster" (one launch of 8 blocks) up to
     ``CSR_CLUSTER_MAX_EDGES`` edges and ``CSR_CLUSTER_MAX_ROWS`` rows, else
-    "grid" (four launches and a sort of each row, ~10x slower), which
-    stays for larger indices.  The library's own answer,
+    "grid" (a radix sort over the grid: one launch for each 8-bit digit
+    of ``n`` and two more, 4 at 4096 rows).  The library's own answer,
     ``mdg_table_index_csr_cluster``, is checked against this one on the
     card."""
     fits = e <= CSR_CLUSTER_MAX_EDGES and n <= CSR_CLUSTER_MAX_ROWS

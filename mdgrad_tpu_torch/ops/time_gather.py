@@ -15,6 +15,8 @@ kernels, bfloat16 for their bf16 instantiations (``split=False``: bf16
 in, K1 and K2a bf16 out, K2b f32 out).
 """
 
+import re
+
 import numpy as np
 import torch
 
@@ -29,6 +31,13 @@ GATHER_F = (1, 3, 40, 128, 130, 132)
 GATHER_K = (1, 12, 40)            # 1, 3 and 10 warps a row in K1
 GATHER_LAYOUTS = ("suffix", "interleaved", "negative", "whole_rows")
 CSR_WATER_K = (16, 40, 48, 56, 72)   # every table width a water path runs
+# the CSR grid build's digit and tile (csrc/gather.cu kCsrRadixBits,
+# kCsrTile = kCsrThreads x kCsrTileSteps), which the cases straddle
+CSR_RADIX_BITS = 8
+CSR_GRID_TILE = 4096
+# csr_index_cases' tables of the paths that take the grid build: the
+# 4096-site cells fit, the a-Si transfer and the 1728-site 'sparse' prior
+CSR_GRID_CASES = ("water_4096_k48", "si_4096_k88", "water_1728_k48")
 
 
 def gather_index(rng, layout, n, n_out, k):
@@ -64,9 +73,14 @@ def csr_index_cases():
     """[(name, idx (E,) int32, n)]: the CSR build's edge cases, the water
     shape (512 x 40 slots, ~30% sentinels), the water tables at K = 16, 48,
     56 and 72 (a regrow's start, the fit's width, the skin's and a
-    regrow's end), and each side of the cluster build's capacity in edges
-    and in rows, from a numpy seed (shared by ``chip_smoke.py`` and
-    ``tests/test_torch_cuda.py``)."""
+    regrow's end), each side of the cluster build's capacity in edges and
+    in rows, and the grid build's shapes: the 4096-site water (K = 48, ~42%
+    sentinels) and a-Si (K = 88, ~68%) tables, the 1728-site one (K = 48),
+    one key holding more than 65536 edges, 48668 rows (``CellLJPair``'s
+    atoms) at K = 16, n + 1 keys on each side of a digit's 2^8 and 2^16,
+    an E that is no multiple of the grid's tile and one of more than 256
+    tiles (blocks owning two), from a numpy seed (shared by
+    ``chip_smoke.py`` and ``tests/test_torch_cuda.py``)."""
     rng = np.random.default_rng(3)
     water = rng.integers(0, 512, size=512 * 40)
     water[rng.random(water.size) < 0.3] = 512
@@ -74,7 +88,7 @@ def csr_index_cases():
     cases = [
         ("sentinels", rng.integers(-3, 12, size=50), 9),   # < 0, == n, > n
         ("empty_rows", rng.choice([2, 5, 11], size=40), 20),
-        ("one_row", np.full(300, 3), 5),   # longer than one thread sorts
+        ("one_row", np.full(300, 3), 5),   # every edge on one key
         ("all_sentinel", np.full(70, -1), 4),
         ("no_edges", np.zeros(0), 6),
         ("water", water, 512),
@@ -87,6 +101,25 @@ def csr_index_cases():
         ("rows_at_capacity", rng.integers(-1, max_n + 2, size=8192), max_n),
         ("rows_past_capacity", rng.integers(-1, max_n + 3, size=8192),
          max_n + 1),
+    ]
+    one_key = np.full(80000, 5)
+    hole = rng.random(one_key.size) < 0.1
+    one_key[hole] = rng.integers(-2, 20, size=int(hole.sum()))
+    tile = CSR_GRID_TILE
+    many_tiles = np.full(257 * tile + 13 * tile + 77, 3000)
+    real = rng.random(many_tiles.size) < 0.01
+    many_tiles[real] = rng.integers(0, 3000, size=int(real.sum()))
+    cases += [
+        ("water_4096_k48", water_table(rng, 48, 4096), 4096),
+        ("si_4096_k88", water_table(rng, 88, 4096), 4096),
+        ("water_1728_k48", water_table(rng, 48, 1728), 1728),
+        ("one_key_past_65536", one_key, 16),
+        ("cells_48668_k16", water_table(rng, 16, 48668), 48668),
+        *((f"keys_{m}", rng.integers(-1, m + 1, size=5000), m - 1)
+          for m in (2 ** CSR_RADIX_BITS, 2 ** CSR_RADIX_BITS + 1,
+                    2 ** (2 * CSR_RADIX_BITS), 2 ** (2 * CSR_RADIX_BITS) + 1)),
+        ("ragged_tail", rng.integers(0, 3001, size=3 * tile + 1234), 3000),
+        ("many_tiles", many_tiles, 3000),
     ]
     return [(name, idx.astype(np.int32), n) for name, idx, n in cases]
 
@@ -174,11 +207,21 @@ def warm_cold(lib, sets, k):
     return out
 
 
-def csr_outputs(e, n, dev):
-    """(order (e,), rowptr (n + 1,), scratch (n + 1,)) int32 for
-    :func:`csr_call`."""
+def csr_scratch(lib, e, n):
+    """The scratch ``lib``'s CSR build takes, in ints: its own
+    ``mdg_table_index_csr_scratch``, or n + 1 for a library from before
+    the radix grid build."""
+    if hasattr(lib, "mdg_table_index_csr_scratch"):
+        return lib.mdg_table_index_csr_scratch(e, n)
+    return n + 1
+
+
+def csr_outputs(e, n, dev, libs):
+    """(order (e,), rowptr (n + 1,), scratch) int32 for :func:`csr_call`,
+    the scratch as large as any of ``libs`` takes."""
+    scratch = max(csr_scratch(lib, e, n) for lib in libs)
     return tuple(torch.empty(size, dtype=torch.int32, device=dev)
-                 for size in (e, n + 1, n + 1))
+                 for size in (e, n + 1, scratch))
 
 
 def csr_call(lib, idx, n, out, cluster=True):
@@ -197,20 +240,46 @@ def csr_call(lib, idx, n, out, cluster=True):
     return fn
 
 
-def csr_times(lib, csr_inputs, s, k):
+def csr_launch_times(lib, idx, n, out, cluster=True, calls=10):
+    """{launch: device ms a build} of ``lib``'s CSR build of ``idx`` over
+    ``n`` rows into ``out`` (:func:`csr_call`), each kernel and memset
+    apart, from the card's events in ``torch.profiler`` over ``calls``
+    eager builds."""
+    from torch.profiler import ProfilerActivity, profile
+    fn = csr_call(lib, idx, n, out, cluster)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.sub(r"^void |\(anonymous namespace\)::|\(.*", "",
+                          ev.name).strip()
+            span = ev.time_range.end - ev.time_range.start
+            times[name] = times.get(name, 0.0) + span / calls / 1e3
+    return times
+
+
+def csr_times(lib, csr_inputs, s, k, libs):
     """{label: warm ms} of ``lib``'s CSR build: at each ``{e: (idx, n)}``
     of ``csr_inputs`` on the path the library picks ("csr@e") and on the
     grid build forced ("csr_grid@e"); and, at set ``s``'s index, the build
-    followed by K2b on ``s`` reading it ("csr+k2b")."""
+    followed by K2b on ``s`` reading it ("csr+k2b").  The scratch is sized
+    for every library of ``libs``, so each is timed on the same buffers'
+    sizes."""
     out = {}
     for e, (idx, n) in csr_inputs.items():
-        bufs = csr_outputs(e, n, idx.device)
+        bufs = csr_outputs(e, n, idx.device, libs)
         out[f"csr@{e}"] = timing.time_graph(csr_call(lib, idx, n, bufs),
                                             reps=20)
         out[f"csr_grid@{e}"] = timing.time_graph(
             csr_call(lib, idx, n, bufs, cluster=False), reps=20)
     n = s["values"].shape[0]
-    bufs = csr_outputs(s["idx"].shape[0], n, s["idx"].device)
+    bufs = csr_outputs(s["idx"].shape[0], n, s["idx"].device, libs)
     build = csr_call(lib, s["idx"], n, bufs)
     scatter = kernel_calls(lib, dict(s, order=bufs[0], rowptr=bufs[1]),
                            k)["table_scatter"]

@@ -529,9 +529,10 @@ def test_pallas_lj_pair_launches_force_and_vjp(cuda):
 @pytest.mark.parametrize("case", csr_index_cases(), ids=lambda c: c[0])
 def test_table_index_csr_kernel_matches_plain(cuda, case, cluster):
     """The CSR kernel, its cluster build (where the case fits it; the
-    grid build past its capacity) and its grid build forced, is
-    integer-equal to the plain build and gives the same integers twice;
-    K2b gives the same bits through either CSR."""
+    grid build past its capacity: the 4096-row tables, 48668 rows, a key
+    of more than 65536 edges, each side of a digit) and its grid build
+    forced, is integer-equal to the plain build and gives the same
+    integers twice; K2b gives the same bits through either CSR."""
     _, idx_np, n = case
     idx = torch.tensor(idx_np, device=cuda)
     ops.reset_counts()
@@ -551,8 +552,22 @@ def test_table_index_csr_kernel_matches_plain(cuda, case, cluster):
     assert torch.equal(out[0], out[1])
 
 
+def test_table_index_csr_four_digits(cuda):
+    """Past 2^24 rows the grid build takes four 8-bit passes (the cases
+    above reach three): integer-equal to the plain build, twice."""
+    n = 2 ** 24 + 5
+    idx = torch.tensor(np.random.default_rng(10).integers(
+        -1, n + 2, size=20000), dtype=torch.int32, device=cuda)
+    ref = tg.table_index_csr_plain(idx, n)
+    for _ in range(2):
+        got = tg._launch_table_index_csr(idx, n)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
 def test_table_index_builds_its_csr_on_the_card(cuda):
-    idx = torch.tensor(csr_index_cases()[-1][1], device=cuda)
+    idx = torch.tensor(dict((name, idx) for name, idx, _
+                            in csr_index_cases())["rows_past_capacity"],
+                       device=cuda)
     ops.reset_counts()
     order, rowptr = tg.TableIndex(idx, 512).csr()
     counts = ops.counts()

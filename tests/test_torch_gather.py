@@ -10,6 +10,8 @@ the card by tests/test_torch_cuda.py.
 """
 
 import itertools
+import pathlib
+import re
 
 import numpy as np
 import jax
@@ -20,7 +22,8 @@ import torch
 from mdgrad_tpu.ops.pallas_gather import (gather_mul_reduce, table_gather,
                                           table_scatter)
 from mdgrad_tpu_torch.ops import counts, gather as tg, reset_counts
-from mdgrad_tpu_torch.ops.time_gather import (GATHER_F, GATHER_K,
+from mdgrad_tpu_torch.ops.time_gather import (CSR_GRID_TILE, CSR_RADIX_BITS,
+                                             GATHER_F, GATHER_K,
                                              GATHER_LAYOUTS, gather_index)
 from test_torch_cuda import csr_index_cases
 
@@ -240,51 +243,175 @@ def test_table_index_csr_path(e, n, path):
     assert tg.table_index_csr_path(e, n) == path
 
 
+def _gather_cu_const(name):
+    """The value of ``constexpr int name = ...;`` in csrc/gather.cu."""
+    src = (pathlib.Path(tg.__file__).parent.parent / "csrc"
+           / "gather.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+
 def test_csr_capacity_is_the_kernels():
     """ops/gather.py's capacity of the cluster build is csrc/gather.cu's:
     blocks x threads x edges a lane, and keys less the sentinel's."""
-    import pathlib
-    import re
-    src = (pathlib.Path(tg.__file__).parent.parent / "csrc"
-           / "gather.cu").read_text()
-
-    def const(name):
-        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
-
-    assert tg.CSR_CLUSTER_MAX_EDGES == (const("kCsrCluster")
-                                        * const("kCsrThreads")
-                                        * const("kCsrSteps"))
-    assert tg.CSR_CLUSTER_MAX_ROWS == const("kCsrMaxKeys") - 1
+    assert tg.CSR_CLUSTER_MAX_EDGES == (_gather_cu_const("kCsrCluster")
+                                        * _gather_cu_const("kCsrThreads")
+                                        * _gather_cu_const("kCsrSteps"))
+    assert tg.CSR_CLUSTER_MAX_ROWS == _gather_cu_const("kCsrMaxKeys") - 1
 
 
-def _scatter_csr_order(g, order, rowptr):
+def test_csr_grid_layout_is_the_kernels():
+    """The digit width and tile that ``csr_index_cases`` straddles are
+    csrc/gather.cu's grid build's: kCsrRadixBits, and kCsrThreads x
+    kCsrTileSteps edges a tile."""
+    assert CSR_RADIX_BITS == _gather_cu_const("kCsrRadixBits")
+    assert CSR_GRID_TILE == (_gather_cu_const("kCsrThreads")
+                             * _gather_cu_const("kCsrTileSteps"))
+
+
+def _csr_grid_model(idx, n):
+    """numpy model of csrc/gather.cu's grid build, with its digit width,
+    tile, warps and blocks read from the source: LSD passes over the
+    digits of the sentinel-mapped key, each placing edge p at the digit's
+    first slot + the lower blocks' count of the digit + the block's
+    earlier tiles' + the tile's lower warps' + its place among its warp's
+    edges of the digit (edge order); then rowptr from the sorted keys'
+    boundaries, position q writing q for the keys in (key[q - 1], key[q]]
+    and position e for the keys past the last.  Every slot must be written
+    once in each pass."""
+    bits = _gather_cu_const("kCsrRadixBits")
+    threads = _gather_cu_const("kCsrThreads")
+    tile = threads * _gather_cu_const("kCsrTileSteps")
+    warps, slice_ = threads // 32, tile // (threads // 32)
+    max_blocks = _gather_cu_const("kCsrMaxBlocks")
+    e, digits = idx.size, 1 << bits
+    key = np.where((idx >= 0) & (idx < n), idx, n).astype(np.int64)
+    if e == 0:   # the entry point's memset
+        return np.zeros(0, np.int64), np.zeros(n + 1, np.int64)
+    passes = -(-max(int(n).bit_length(), 1) // bits)
+    tiles = -(-e // tile)
+    per = -(-tiles // max_blocks)
+    p = np.arange(e)
+    t = p // tile
+    b = t // per
+    w = t * warps + (p % tile) // slice_
+    ids = p
+    for pass_ in range(passes):
+        d = (key >> (bits * pass_)) & (digits - 1)
+        # each block's count of each digit (the count launch's in the
+        # first pass, the previous scatter's atomics after it)
+        block_counts = np.bincount(b * digits + d, minlength=(b[-1] + 1)
+                                   * digits).reshape(-1, digits)
+        first = np.cumsum(block_counts.sum(0)) - block_counts.sum(0)
+        lower_blocks = np.cumsum(block_counts, 0) - block_counts
+        tile_counts = np.bincount(t * digits + d, minlength=tiles
+                                  * digits).reshape(tiles, digits)
+        before_tile = np.cumsum(tile_counts, 0) - tile_counts
+        earlier_tiles = before_tile - before_tile[(np.arange(tiles) // per)
+                                                  * per]
+        warp_counts = np.bincount(w * digits + d, minlength=tiles * warps
+                                  * digits).reshape(tiles, warps, digits)
+        lower_warps = (np.cumsum(warp_counts, 1) - warp_counts).reshape(
+            -1, digits)
+        group = w * digits + d
+        by_group = np.argsort(group, kind="stable")
+        place = np.empty(e, np.int64)
+        place[by_group] = p - np.searchsorted(group[by_group],
+                                              group[by_group])
+        q = (first[d] + lower_blocks[b, d] + earlier_tiles[t, d]
+             + lower_warps[w, d] + place)
+        assert np.array_equal(np.bincount(q, minlength=e), np.ones(e))
+        key_out, ids_out = np.empty_like(key), np.empty_like(ids)
+        key_out[q], ids_out[q] = key, ids
+        key, ids = key_out, ids_out
+    before = np.concatenate([[-1], key])
+    after = np.concatenate([key, [n]])
+    return ids, np.repeat(np.arange(e + 1), after - before)
+
+
+@pytest.mark.parametrize("case", csr_index_cases(), ids=lambda c: c[0])
+def test_csr_grid_model_matches_plain(case):
+    """The grid build's passes, modelled in numpy, give the plain build's
+    order and rowptr on every case: its algorithm's guard off the card."""
+    _, idx, n = case
+    order, rowptr = _csr_grid_model(idx, n)
+    ref_order, ref_rowptr = tg.table_index_csr_plain(torch.tensor(idx), n)
+    np.testing.assert_array_equal(order, ref_order.numpy())
+    np.testing.assert_array_equal(rowptr, ref_rowptr.numpy())
+
+
+def _scatter_csr_order(g, order, rowptr, long_row=512):
     """out[i] = g[order[rowptr[i]]] + g[order[rowptr[i] + 1]] + ... in
-    float32, in the order of the CSR kernel's walk (csrc/gather.cu)."""
+    float32, in the order of the CSR kernel's walk (csrc/gather.cu); a row
+    of more than ``long_row`` edges by numpy's cumsum, which also adds one
+    at a time in float32."""
     n = rowptr.shape[0] - 1
     starts = rowptr.long()
     lens = starts[1:] - starts[:-1]
     starts = starts[:-1]
     out = g.new_zeros(n, g.shape[1])
-    for s in range(int(lens.max()) if n else 0):
+    for s in range(min(int(lens.max()), long_row) if n else 0):
         rows = torch.nonzero(lens > s).flatten()
         out[rows] += g[order[starts[rows] + s].long()]
+    for i in torch.nonzero(lens > long_row).flatten().tolist():
+        edges = order[starts[i]:starts[i] + lens[i]].long()
+        out[i] = torch.from_numpy(np.cumsum(g[edges].numpy(), axis=0)[-1])
+    return out
+
+
+# the JAX scatter's one-hot has E x n slots; past this many it runs on
+# blocks of rows (the 4096-row and 48668-row cases)
+JAX_ONE_HOT_SLOTS = 2 ** 26
+JAX_ROW_BLOCK = 128
+
+
+def _jax_table_scatter(g, idx, n):
+    """The JAX table_scatter of ``g`` over ``idx`` (interpret mode).  Its
+    one-hot costs E x n multiply-adds, minutes at 4096 rows on the CPU, so
+    past ``JAX_ONE_HOT_SLOTS`` it runs once for each block of
+    ``JAX_ROW_BLOCK`` consecutive rows that some edge lands on: the block's
+    edges in edge order, renumbered into the block and padded with its
+    sentinel to one length; every row sums the same edges as in one call."""
+    if idx.size * n <= JAX_ONE_HOT_SLOTS:
+        return np.asarray(table_scatter(jnp.asarray(g), jnp.asarray(idx), n,
+                                        True, True))
+    key = np.where((idx >= 0) & (idx < n), idx, n)
+    rows = np.unique(key[key < n])
+    block = np.full(n + 1, -1)
+    block[rows] = np.arange(rows.size) // JAX_ROW_BLOCK
+    local = np.full(n + 1, JAX_ROW_BLOCK)
+    local[rows] = np.arange(rows.size) % JAX_ROW_BLOCK
+    of_edge = block[key]
+    n_blocks = -(-rows.size // JAX_ROW_BLOCK)
+    length = np.bincount(of_edge[of_edge >= 0], minlength=n_blocks).max()
+    length = -(-length // 512) * 512
+    out = np.zeros((n, g.shape[1]), np.float32)
+    for i in range(n_blocks):
+        sel = np.flatnonzero(of_edge == i)
+        g_i = np.zeros((length, g.shape[1]), np.float32)
+        g_i[:sel.size] = g[sel]
+        idx_i = np.full(length, JAX_ROW_BLOCK, np.int32)
+        idx_i[:sel.size] = local[key[sel]]
+        rows_i = rows[i * JAX_ROW_BLOCK:(i + 1) * JAX_ROW_BLOCK]
+        out[rows_i] = np.asarray(table_scatter(
+            jnp.asarray(g_i), jnp.asarray(idx_i), JAX_ROW_BLOCK, True,
+            True))[:rows_i.size]
     return out
 
 
 @pytest.mark.parametrize("case", csr_index_cases(), ids=lambda c: c[0])
 def test_scatter_in_csr_order_matches_jax(case):
     """K2b's sum in the CSR's order, from the plain CSR, against the JAX
-    table_scatter (interpret mode) to 1e-6 of the largest |out| in f32.
-    g is rounded to bfloat16, which the JAX kernel's hi/lo split carries
-    exactly, so both sides sum the same values and differ only in order."""
+    table_scatter (interpret mode; by blocks of rows on the large cases)
+    to 1e-6 of the largest |out| in f32.  g is rounded to bfloat16, which
+    the JAX kernel's hi/lo split carries exactly, so both sides sum the
+    same values and differ only in order."""
     _, idx, n = case
     rng = np.random.default_rng(8)
     g = rng.normal(size=(idx.shape[0], 24)).astype(np.float32)
     g = np.asarray(jnp.asarray(g).astype(jnp.bfloat16).astype(jnp.float32))
     order, rowptr = tg.table_index_csr_plain(torch.tensor(idx), n)
     got = _scatter_csr_order(torch.tensor(g), order, rowptr)
-    ref = np.asarray(table_scatter(jnp.asarray(g), jnp.asarray(idx), n,
-                                   True, True))
+    ref = _jax_table_scatter(g, idx, n)
     assert got.shape == ref.shape == (n, 24)
     scale = max(np.abs(ref).max(initial=0.0), 1e-30)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6 * scale)
