@@ -239,6 +239,21 @@ its phases, printing one line as each check ends:
    its largest entry.  Last,
    one ``profiling.trace`` of 40 water sampling steps: the device-busy
    share of a step.
+4p. trained si -- the JAX package's trained a-Si SchNet
+   (``results/si_r2/0/fit-ckpt-5699.pkl``, read by
+   ``train/checkpoint.py::read_jax_pickle``) in ``run_si_torch.py``'s
+   512-site stack: K1, K2a, K2b and the CSR build against their plain
+   versions on its table, its energy, force and the force's vjp through
+   the kernels against the plain gather path; then
+   ``scripts/diag_si4k_torch.py`` at the JAX run's settings (4096 sites
+   on the cell list, 1500 K, hot start, the MTK chain at 50 dt, 30 chunks
+   of 10 steps), every chunk's line printed: every position finite, no
+   table overflow, T_kin over steps 210-300 within 1350-1650 K (the
+   reference's band), the CSR build on the grid path, integer-equal to
+   the plain build on the diagnostic's last table and timed; last
+   ``scripts/si_transfer_torch.py`` from the trained model at its own tau
+   50 dt, cut to 1 + 1 + 1 epochs, at 1728 sites, its 800-bin MSE held
+   to the JAX script's (see ``SI_TRAINED_TRANSFER_ARGV``).
 5. times   -- each kernel, its plain version and its library yardstick with
    CUDA events (the LJ kernels at 1372, 4000 and 8788 atoms; K3/K4 at 50
    and 3 frames of 512 sites, at 10 of 1372, at 1 of 512 with 800
@@ -279,7 +294,8 @@ its phases, printing one line as each check ends:
    outputs in the two libraries; one JSON line ``{"pair_ab": ...}``.
 
 Launch counts are zeroed just before phases 3, 3b, 4 and 4b, each call
-of 4c, 4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m, 4n and 4o and each run of 4d, and
+of 4c, 4e, 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m, 4n, 4o and 4p and each run of
+4d, and
 read just after each: phases 3, 4, 4c, 4e, 4i, 4j's fit and 4l's angle fit must
 launch every water kernel, the CSR build included, 4d and 4k's NPT water
 fit the bf16 gather kernels in their place, 4f's water pair fits K3/K4
@@ -291,7 +307,9 @@ in every trained epoch (read at each epoch's log line) and nothing else,
 epoch (each validation epoch's and TI segment's log line), and nothing
 else, 4o's a-Si fit every water kernel in every epoch, its 4096-site
 transfer K1, K2a, K2b, the CSR build and K3/K4, and the sharded SchNet
-epoch every water kernel, and nothing else, 4g, 4m's salt and mixture fits and 4n's label MD, trainer,
+epoch every water kernel, and nothing else, 4p's trained SchNet checks
+and its 4096-site diagnostic K1, K2a, K2b and the CSR build, and its
+transfer those and K3/K4, and nothing else, 4g, 4m's salt and mixture fits and 4n's label MD, trainer,
 ``evaluate``, ground-truth validation and ``batched_predict`` no kernel
 at all, and none may call a plain version.  The line before the last is
 a JSON object with one record per kernel; the last line is ``{"ok":
@@ -533,13 +551,15 @@ GATHER_KERNELS = WATER_KERNELS[:3]    # K1, K2a, K2b: f32 and bf16
 
 
 class CsrWidths:
-    """Records the (edges, rows) of every CSR build while it is entered:
-    wraps ``gather._launch_table_index_csr``, which ``TableIndex.csr``
-    calls, and puts it back on exit."""
+    """Records the (edges, rows) of every CSR build while it is entered,
+    and the last build's (index, rows) as ``last``: wraps
+    ``gather._launch_table_index_csr``, which ``TableIndex.csr`` calls,
+    and puts it back on exit."""
 
     def __init__(self, gather):
         self.gather = gather
         self.seen = {}
+        self.last = None
 
     def __enter__(self):
         self.real = self.gather._launch_table_index_csr
@@ -547,6 +567,7 @@ class CsrWidths:
         def record(idx, n, cluster=True):
             key = (idx.shape[0], n)
             self.seen[key] = self.seen.get(key, 0) + 1
+            self.last = (idx, n)
             return self.real(idx, n, cluster)
 
         self.gather._launch_table_index_csr = record
@@ -3726,14 +3747,21 @@ def ti_kernel_checks(torch, dev, compare, gather, ops, inter, q, aux, aggr,
 # the pallas RDF backend (K3/K4 and K3b/K4b); its configuration then set
 # to write a checkpoint each epoch (the fit driver's default: every 10th)
 SI_ARGV = ["-nepochs", "2", "-rdf_backend", "pallas"]
-# scripts/si_transfer_torch.py at 4096 sites cut from 500 + 60 + 40
-# epochs to 1 + 1 + 1, its MTK chain's time constant from 50 dt to 500
-# dt: a SchNet trained for 2 epochs heats the lattice by ~1000 K in 40
-# steps, and at 50 dt the chain then diverges at 4096 sites (NaN within
-# 40-100 steps, from 1500 K or from 100 K, on the card and on the CPU,
-# in the cells and the table modes; 216 sites hold); the JAX script died
-# the same way with its trained model (scripts/diag_si4k.py); 200 and
-# 500 dt hold (H100 80GB HBM3, 700 W)
+# scripts/si_transfer_torch.py at 4096 sites from the checkpoint of the
+# 2-epoch fit above, cut from 500 + 60 + 40 epochs to 1 + 1 + 1, its MTK
+# chain's time constant from 50 dt to 500 dt: a SchNet trained for 2
+# epochs heats the lattice by ~1000 K in 40 steps, and at 50 dt the chain
+# then diverges at 4096 sites (NaN within 40-100 steps, from 1500 K or
+# from 100 K, on the card and on the CPU, in the cells and the table
+# modes; 216 sites hold); 200 and 500 dt hold (H100 80GB HBM3, 700 W).
+# The cut is this model's alone: from the trained model the JAX
+# diagnostic held at 50 dt (results/r3_logs/diag_si4k.log, a TPU run of
+# scripts/diag_si4k.py: every position finite through 300 steps, T_kin
+# 1469.8-1523.7 K over steps 210-300), and from that model phase 4p's
+# melt held at 50 dt on the card (T_kin 1472.8-1522.9 K over steps
+# 210-300; H100 80GB HBM3, 700 W); the 1 + 1 + 1 cut's one-epoch quench
+# from 1500 K diverges at 4096 sites from the trained model too, in the
+# JAX package as in the port (see SI_TRAINED_TRANSFER_ARGV)
 SI_TRANSFER_ARGV = ["-anneal_epochs", "1", "-equil_epochs", "1",
                     "-sample_epochs", "1", "-nhc_tau", "500"]
 # the sharded paths as NCCL worlds of one against their unsharded
@@ -4182,6 +4210,213 @@ def si_sharded_phase(mt, torch, dev, records, compare):
     return out
 
 
+# ---- the trained a-Si model: kernels, the melt, the transfer (4p) ---------
+
+# the JAX package's trained a-Si SchNet (scripts/run_si.py; 64/128, 3
+# convolutions, 40 Gaussians, epoch 5699), read by read_jax_pickle
+SI_TRAINED = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "results", "si_r2", "0", "fit-ckpt-5699.pkl")
+# scripts/diag_si4k_torch.py at the JAX run's settings, its defaults (size
+# 8: 4096 sites on the cell list, 1500 K, hot start, the MTK chain at 50
+# dt) with its chunking stated: 30 chunks of 10 steps, an epoch of 9
+# steps each (results/r3_logs/diag_si4k.log)
+SI_DIAG_ARGV = ["-ckpt", SI_TRAINED, "-chunk", "10", "-nchunks", "30"]
+# the reference's band: on the TPU every chunk of steps 210-300 read
+# 1469.8-1523.7 K; the port must hold 1350-1650 K there, every position
+# finite, no table overflow
+SI_DIAG_BAND, SI_DIAG_BAND_FROM = (1350.0, 1650.0), 210
+# scripts/si_transfer_torch.py from the trained model at its own tau 50
+# dt, cut from 500 + 60 + 40 epochs to 1 + 1 + 1 as phase 4o cuts it: a
+# quench from 1500 K to 100 K in one 40-step epoch.  At 4096 sites that
+# cut quench diverges in the JAX package too: scripts/si_transfer.py on
+# the CPU overflows its neighbor table and goes NaN in its first sampling
+# epoch, as the port does there and on the card (logs/si_transfer_cut/:
+# jax_size8.log, torch_size8.log; the JAX script's full 500-epoch anneal
+# held on a TPU, results/si_4k_r3/transfer.json).  So the smoke runs the
+# cut quench at 1728 sites (-size 6, the cell list, the CSR cluster
+# build), where both packages hold on the CPU with the same 800-bin MSE
+# (jax_size6.log, torch_size6.log), and holds the card's MSE to the JAX
+# script's within SI_TRAINED_TRANSFER_TOL: trajectories part
+# chaotically, the MSE of 25 frames' g(r) is a statistic of them
+SI_TRAINED_TRANSFER_ARGV = ["-ckpt", SI_TRAINED, "-size", "6",
+                            "-anneal_epochs", "1", "-equil_epochs", "1",
+                            "-sample_epochs", "1"]
+SI_TRAINED_TRANSFER_MSE, SI_TRAINED_TRANSFER_TOL = 0.14040, 0.02
+
+
+def trained_si_kernel_checks(torch, dev, compare, gather, ops, fit_rdf):
+    """Phase 4p (a): the trained SchNet in ``run_si_torch.py``'s 512-site
+    stack, the lattice displaced by 0.05 A (a seeded draw): K1, K2a, K2b
+    and the CSR build against their plain versions on its table; the
+    energy (to 1e-5 of |U|), the force and the force's vjp in q and the
+    SchNet's weights (to 1e-4 of the largest entry) through the kernels
+    against a copy on the plain gather path.  Returns the errors."""
+    import copy
+    import numpy as np
+    si = load_script("run_si_torch.py")
+    assignments, sys_params = si.fit_config(si.parse_args([]))
+    built = fit_rdf.build_fit(assignments, sys_params,
+                              rng=np.random.default_rng(SEED), device=dev)
+    from mdgrad_tpu_torch.train.checkpoint import load_schnet_checkpoint
+    epoch = load_schnet_checkpoint(built["net"], SI_TRAINED)
+    require(epoch == 5699, "the trained a-Si checkpoint is epoch 5699")
+    stack = built["sims"][0].integrator.model
+    inter = stack.models["nn"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    xyz = torch.tensor(built["systems"][0].get_positions(),
+                       dtype=torch.float32, device=dev)
+    xyz = xyz + 0.05 * torch.randn(xyz.shape, device=dev, generator=gen)
+    n, k, path = table_kernel_checks(
+        torch, dev, compare, gather, inter.aux_init(xyz),
+        inter.gnn.convs[0].node_filter.out_features, "trained a-Si",
+        SEED + 25)
+    require(path == "cluster", "the 512-site table's CSR build is the "
+            "cluster kernel's")
+    plain = copy.deepcopy(stack)
+    plain.models["nn"].gnn.gather_mode = "gather"
+    cot = torch.randn(xyz.shape, device=dev, generator=gen)
+    got = {}
+    for label, stk in (("kernels", stack), ("plain", plain)):
+        x = xyz.clone().requires_grad_(True)
+        ps = list(stk.models["nn"].parameters())
+        ops.reset_counts()
+        u = stk.energy(x, stk.aux_init(xyz))
+        (g,) = torch.autograd.grad(u, x, create_graph=True)
+        grads = torch.autograd.grad((-g * cot).sum(), [x, *ps],
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        got[label] = ([u.detach().reshape(1), -g.detach(), grads[0],
+                       torch.cat([gr.reshape(-1) for gr in grads[1:]])],
+                      ops.counts())
+    errs = {}
+    for part, a, b, tol in zip(("energy", "force", "vjp q", "vjp weights"),
+                               got["kernels"][0], got["plain"][0],
+                               (1e-5, 1e-4, 1e-4, 1e-4)):
+        err, rel, scale = max_errs(a, b)
+        line(f"trained si: {part} kernels vs plain gather: max_abs_err "
+             f"{err:.3e} (tol {tol * scale:.3e}, largest entry "
+             f"{scale:.3e})")
+        require(scale > 0 and rel <= tol and bool(torch.isfinite(a).all()),
+                f"the trained a-Si {part} through the kernels equals the "
+                f"plain gather path's")
+        errs[part] = rel
+    counts = got["kernels"][1]
+    check_no_kernel(counts, "trained a-Si energy, force and vjp",
+                    allowed=FOLD_KERNELS)
+    require(all(counts["launches"][name] > 0 for name in FOLD_KERNELS),
+            "the trained a-Si energy, force and vjp launch K1, K2a, K2b "
+            "and the CSR build")
+    energy = got["kernels"][0][0].item()
+    line(f"trained si: N = {n}, K = {k}; energy {energy:.6f} eV; launches "
+         f"{counts['launches']}")
+    return {"n": n, "k": k, "kernel_vs_plain": errs}
+
+
+def si_trained_phase(mt, torch, dev, records, compare):
+    """Phase 4p (see the module docstring): returns its numbers."""
+    import tempfile
+    import numpy as np
+    from mdgrad_tpu_torch import ops
+    from mdgrad_tpu_torch.ops import gather, timing
+    from mdgrad_tpu_torch.train import fit_rdf
+    require(os.path.exists(SI_TRAINED), f"{SI_TRAINED} is in the checkout")
+    diag = load_script("diag_si4k_torch.py")
+    transfer = load_script("si_transfer_torch.py")
+    out = {"table": trained_si_kernel_checks(torch, dev, compare, gather,
+                                             ops, fit_rdf)}
+
+    # (b) the 4096-site melt from the trained model, as the JAX run
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    with CsrWidths(gather) as widths:
+        recs = diag.main(SI_DIAG_ARGV, log=lambda m: line(f"si diag: {m}"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.counts()
+    dargs = diag.parse_args(SI_DIAG_ARGV)
+    last = dargs.chunk * dargs.nchunks
+    require(len(recs) == dargs.nchunks and all(r["finite"] for r in recs),
+            f"the 4096-site melt keeps every position finite through "
+            f"{dargs.nchunks} chunks")
+    require(not any(r["overflow"] for r in recs),
+            "no neighbor table of the melt overflows")
+    band = [r["T_kin"] for r in recs if r["step"] >= SI_DIAG_BAND_FROM]
+    lo, hi = SI_DIAG_BAND
+    n_band = (last - SI_DIAG_BAND_FROM) // dargs.chunk + 1
+    require(len(band) == n_band and all(lo <= t <= hi for t in band),
+            f"T_kin over steps {SI_DIAG_BAND_FROM}-{last} stays in "
+            f"{lo}-{hi} K (got {min(band):.1f}-{max(band):.1f} K)")
+    check_no_kernel(counts, "a-Si diagnostic", allowed=FOLD_KERNELS)
+    for name in FOLD_KERNELS:
+        require(counts["launches"][name] > 0,
+                f"kernel {name} launched in the a-Si diagnostic")
+        records.setdefault(name, {})["launches_si_diag"] = \
+            counts["launches"][name]
+    require(widths.paths() == {"grid"},
+            f"the diagnostic's CSR builds take the grid path "
+            f"({widths.describe()})")
+    idx, n4 = widths.last
+    require(all(torch.equal(a, b) for a, b in zip(
+        gather._launch_table_index_csr(idx, n4),
+        gather.table_index_csr_plain(idx, n4))),
+        "the CSR build equals the plain build at the diagnostic's table")
+    csr_ms = timing.time_graph(
+        lambda: gather._launch_table_index_csr(idx, n4), reps=20)
+    csr_plain_ms = timing.time_graph(
+        lambda: gather.table_index_csr_plain(idx, n4), reps=20)
+    steps = [r["seconds"] for r in recs[1:]]
+    ms_step = 1e3 * statistics.median(steps) / (dargs.chunk - 1)
+    line(f"si diag: 4096 sites, {len(recs)} chunks of {dargs.chunk - 1} "
+         f"steps in {wall:.3f} s (the first chunk {recs[0]['seconds']:.3f} "
+         f"s); {ms_step:.3f} ms a step (median chunk); T_kin "
+         f"{min(band):.1f}-{max(band):.1f} K over steps "
+         f"{SI_DIAG_BAND_FROM}-{last}; CSR {widths.describe()}; "
+         f"launches {counts['launches']}; the CSR build (E = {idx.shape[0]},"
+         f" grid path) {csr_ms * 1e3:.2f} us, plain {csr_plain_ms * 1e3:.2f}"
+         f" us")
+    out["diag"] = {"wall": wall, "ms_a_step": ms_step, "last": last,
+                   "T_band": (min(band), max(band)),
+                   "T_min": min(r["T_kin"] for r in recs),
+                   "csr": {"e": idx.shape[0], "path": "grid", "ms": csr_ms,
+                           "plain_ms": csr_plain_ms, "bound_ms": bound_ms(
+                               4 * (2 * idx.shape[0] + n4 + 1), 0)[0]}}
+
+    # (c) the cut quench from the trained model at tau 50 dt, 1728 sites
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        tr = transfer.main(SI_TRAINED_TRANSFER_ARGV + ["-logdir", tmp],
+                           log=lambda m: line(f"trained si transfer: {m}"))
+        torch.cuda.synchronize()
+        tr_wall = time.perf_counter() - t0
+    counts = ops.counts()
+    ref, tol = SI_TRAINED_TRANSFER_MSE, SI_TRAINED_TRANSFER_TOL
+    require(tr["n_atoms"] == 1728 and tr["frames"] == 25,
+            "the trained transfer samples 25 frames of the 1728-site box")
+    require(np.isfinite(tr["mse"]) and abs(tr["mse"] - ref) <= tol * ref,
+            f"the trained transfer's 800-bin MSE {tr['mse']:.5f} is the "
+            f"JAX script's {ref} within {tol:.0%}")
+    transfer_kernels = WATER_KERNELS[:5]    # no RDF gradient
+    for name in transfer_kernels:
+        require(counts["launches"][name] > 0,
+                f"kernel {name} launched in the trained 1728-site transfer")
+        records.setdefault(name, {})["launches_si_trained_transfer"] = \
+            counts["launches"][name]
+    check_no_kernel(counts, "trained 1728-site transfer",
+                    allowed=transfer_kernels)
+    sec = tr["seconds"]
+    line(f"trained si transfer: 1728 sites, tau 50 dt, 1500 K -> 100 K, "
+         f"800-bin MSE {tr['mse']:.5f} (JAX {ref}, relative "
+         f"{abs(tr['mse'] - ref) / ref:.2e}); "
+         f"build {sec['build']:.3f} s, anneal {sec['anneal']:.3f} s, "
+         f"equilibration {sec['equil']:.3f} s, sampling {sec['sample']:.3f}"
+         f" s, the call {tr_wall:.3f} s; launches {counts['launches']}")
+    out["transfer"] = {"wall": tr_wall, "seconds": sec, "mse": tr["mse"]}
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--against", action="append", default=[],
@@ -4488,6 +4723,10 @@ def main():
     si_run = si_sharded_phase(mt, torch, dev, records, compare)
     phase_done("si, sharded and profile")
 
+    # ---- 4p. the trained a-Si model: its kernels, the melt, the transfer --
+    si_trained = si_trained_phase(mt, torch, dev, records, compare)
+    phase_done("trained si")
+
     # ---- 5. times ---------------------------------------------------------
     e_real = n_real
     pad_values = torch.cat([values, values.new_zeros(1, f)])
@@ -4683,7 +4922,8 @@ def main():
         "launches": rec["launches"], "max_abs_err": rec["max_abs_err"],
         "ms": main_csr["ms"], "plain_ms": main_csr["plain_ms"],
         "bound_ms": csr_b_ms, "bound_by": csr_b_by, "library_ms": None,
-        "si_transfer_csr": si_run["transfer"]["csr"], **csr})
+        "si_transfer_csr": si_run["transfer"]["csr"],
+        "si_diag_csr": si_trained["diag"]["csr"], **csr})
     lj_timed = lj_times(mt, torch, dev, gen)
     lj_specs = {
         "lj_energy_forces": ("mdgrad_tpu/ops/pallas_pair.py:112", 4000),
@@ -4865,6 +5105,18 @@ def main():
          f"CSR build (E = {tf['csr']['e']}, {tf['csr']['path']} path) "
          f"{tf['csr']['ms'] * 1e3:.2f} us against the plain "
          f"{tf['csr']['plain_ms'] * 1e3:.2f} us")
+    tt, td, ttr = (si_trained["table"], si_trained["diag"],
+                   si_trained["transfer"])
+    line(f"time trained si: kernels vs plain on its 512-site table (K = "
+         f"{tt['k']}) {tt['kernel_vs_plain']}; the 4096-site melt "
+         f"{td['ms_a_step']:.3f} ms a step, the call {td['wall']:.3f} s, "
+         f"T_kin {td['T_band'][0]:.1f}-{td['T_band'][1]:.1f} K over steps "
+         f"{SI_DIAG_BAND_FROM}-{td['last']} (lowest {td['T_min']:.1f} K), "
+         f"its CSR build (E = {td['csr']['e']}) "
+         f"{td['csr']['ms'] * 1e3:.2f} us "
+         f"against the plain {td['csr']['plain_ms'] * 1e3:.2f} us; the "
+         f"1728-site quench at tau 50 dt MSE {ttr['mse']:.5f}, the call "
+         f"{ttr['wall']:.3f} s")
     line(f"time sharded: SchNet epoch (NCCL world of one) "
          f"{sh['schnet']['epoch_s']:.3f} s against unsharded "
          f"{sh['schnet']['unsharded_s']:.3f} s; multistate train step "

@@ -7,8 +7,8 @@ printing and the CSV log).  The port's model files are ``.pt``:
 ``torch.save`` of ``{'model_type', 'model_params', 'state_dict'}``, read
 with ``torch.load(weights_only=True)``.  ``load_model`` also reads the
 JAX package's ``model.pkl`` (its ``save_model``: the model type, its
-dict and the flax tree, numpy arrays and builtins only) through the
-restricted unpickler of ``train/fit_rdf.py``, and a bare
+dict and the flax tree) through ``train/checkpoint.py::read_jax_pickle``,
+and a bare
 ``best_model.pt`` state_dict.
 """
 
@@ -65,9 +65,8 @@ def load_model(path, device="cuda"):
     device = resolve_device(device)
     if str(path).endswith(".pkl"):
         from ..nn.convert import schnet_params_from_numpy
-        from .fit_rdf import _NumpyUnpickler
-        with open(path, "rb") as f:
-            blob = _NumpyUnpickler(f).load()
+        from .checkpoint import read_jax_pickle
+        blob = read_jax_pickle(path)
         if blob.get("model_type") != "SchNet":
             raise ValueError(f"{path}: no SchNet model file")
         state = schnet_params_from_numpy(blob["params"])

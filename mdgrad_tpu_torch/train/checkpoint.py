@@ -10,14 +10,132 @@ fit resumes with the same bits.  The format is the port's own:
 ``torch.save`` of plain dicts, lists, tuples, numbers and tensors, which
 ``torch.load(weights_only=True)`` reads back.  The integrators' NamedTuple
 states are stored as dicts of their fields (:func:`to_plain`) and rebuilt
-on a template of the same structure (:func:`from_plain`).  The JAX
-package's pickles, which hold optax classes, are not read.
+on a template of the same structure (:func:`from_plain`).
+
+The JAX package's own pickles (its ``fit-ckpt-<epoch>.pkl``,
+``best.pkl``, ``best_eval.pkl`` and ``model.pkl``) are read by
+:func:`read_jax_pickle` and :func:`jax_params` (with
+:func:`pair_mlp_state` and :func:`load_schnet_checkpoint` over them), and
+by nothing else.
 """
 
 import glob
 import os
+import pickle
 
 import torch
+
+# the globals a JAX pickle may name besides its classes: numpy's arrays,
+# dtypes and scalars
+_NUMPY = frozenset({"_reconstruct", "ndarray", "dtype", "scalar",
+                    "_frombuffer"})
+# the top-level modules whose classes become inert records
+_JAX_STACK = frozenset({"optax", "mdgrad_tpu", "jax", "jaxlib", "flax"})
+
+
+class JaxRecord:
+    """A class of the JAX stack read as data.  Built with any arguments,
+    it keeps them (``args``, ``kwargs``) and the state pickle hands it
+    (``state``), and does nothing else: it imports nothing and calls
+    nothing.  A NamedTuple of the JAX package (an optax state,
+    ``NVTStateF``, ``NeighborTable``) arrives as its fields in order in
+    ``args``.  ``jax_global`` names the class it stands for."""
+
+    jax_global = None
+
+    def __new__(cls, *args, **kwargs):
+        rec = object.__new__(cls)
+        rec.args, rec.kwargs, rec.state = args, kwargs, None
+        return rec
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        self.state = state
+
+    def __repr__(self):
+        return f"<record of {self.jax_global}: {len(self.args)} args>"
+
+
+_RECORDS = {}
+
+
+def _record_class(module, name):
+    key = f"{module}.{name}"
+    if key not in _RECORDS:
+        _RECORDS[key] = type(key, (JaxRecord,), {"jax_global": key})
+    return _RECORDS[key]
+
+
+class _JaxUnpickler(pickle.Unpickler):
+    """numpy's array globals as they are, each class of the JAX stack as
+    a :class:`JaxRecord`, every other global refused."""
+
+    def find_class(self, module, name):
+        top = module.split(".")[0]
+        if top == "numpy" and name in _NUMPY:
+            return super().find_class(module, name)
+        if top in _JAX_STACK:
+            return _record_class(module, name)
+        raise pickle.UnpicklingError(
+            f"{module}.{name}: a JAX pickle holds numpy arrays and classes "
+            f"of {', '.join(sorted(_JAX_STACK))}; no other global is read")
+
+
+def read_jax_pickle(path):
+    """The blob the JAX package pickled to ``path``, as its
+    ``pickle.load`` gives it, with two differences: each
+    class of optax, ``mdgrad_tpu``, jax, jaxlib or flax is a
+    :class:`JaxRecord` that holds its fields and runs no code, and any
+    other global but numpy's arrays raises ``pickle.UnpicklingError``
+    naming it.  Parameters (dicts of numpy arrays) are the same bits as
+    JAX's.
+
+    A fit checkpoint's optimizer state (``opt_state``: optax records) and
+    MD states (``md_states``: ``NVTStateF`` and ``NeighborTable``
+    records) are carried but read by nothing: resuming a JAX run's
+    optimizer or MD state in the port is out of scope; the port resumes
+    only from its own ``fit-ckpt-<epoch>.pt``."""
+    with open(path, "rb") as f:
+        return _JaxUnpickler(f).load()
+
+
+def jax_params(path, key=None):
+    """The parameters of a JAX pickle, as every JAX reader takes them:
+    ``blob['params']`` when the blob has it, else the blob; with ``key``
+    its ``key`` subtree (``'nn'``, ``'pairnn'``)."""
+    blob = read_jax_pickle(path)
+    params = blob["params"] if isinstance(blob, dict) and \
+        "params" in blob else blob
+    return params if key is None else params[key]
+
+
+def pair_mlp_state(path):
+    """The PairMLP ``state_dict`` of a warm start: the port's own
+    best-model file (``best.pt`` / ``best_eval.pt``), or any JAX pickle
+    whose parameters hold ``'pairnn'`` (``best_eval.pkl``, a fit
+    checkpoint), read by :func:`jax_params`."""
+    if str(path).endswith(".pt"):
+        return torch.load(path, map_location="cpu",
+                          weights_only=True)["params"]
+    from ..nn.convert import pair_mlp_params_from_numpy
+    return pair_mlp_params_from_numpy(jax_params(path, "pairnn"))
+
+
+def load_schnet_checkpoint(net, path):
+    """Load the SchNet ``net`` from a fit checkpoint: the port's
+    ``fit-ckpt-<epoch>.pt`` (its ``params``) or the JAX package's
+    ``.pkl`` (its ``params['nn']`` flax tree, read by
+    :func:`read_jax_pickle`); returns the checkpoint's epoch."""
+    if str(path).endswith(".pkl"):
+        from ..nn.convert import schnet_params_from_numpy
+        blob = read_jax_pickle(path)
+        net.load_state_dict(schnet_params_from_numpy(blob["params"]["nn"]))
+    else:
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        net.load_state_dict(blob["params"])
+    return blob.get("epoch")
 
 
 def to_plain(tree):

@@ -18,7 +18,8 @@ and a step scale (:class:`FitUpdate`).  Around that: temperature
 annealing, NaN recovery (restore the last good snapshot, rethermalize,
 halve the step scale), a backtrack to an older snapshot when failures
 persist, the ``overflow_policy`` branches ('warn', 'skip', 'regrow'),
-checkpoints and resume (:mod:`.checkpoint`), an ``init_pkl`` warm start,
+checkpoints and resume (:mod:`.checkpoint`), an ``init_pkl`` warm start
+(any JAX pickle, :func:`.checkpoint.jax_params`),
 for the pair families Boltzmann-inversion pretraining (skipped on resume
 and on ``init_pkl``) and the well-depth guard ``u_reg_weight``, and the
 inference phase: ``n_sim`` rollouts of 100 steps and the
@@ -54,7 +55,6 @@ there).
 
 import json
 import os
-import pickle
 
 import numpy as np
 import torch
@@ -71,7 +71,7 @@ from ..nn import PairMLP, SchNet, TPairMLP
 from ..nn.convert import pair_mlp_params_from_numpy, schnet_params_from_numpy
 from ..observables import angle_distribution, rdf
 from ..system import System
-from .checkpoint import FitCheckpointer, from_plain
+from .checkpoint import FitCheckpointer, from_plain, jax_params
 from .loss import JS_rdf, compute_D
 from .optim import FitUpdate, ReduceOnPlateau
 from .pretrain import boltzmann_inversion_pretrain
@@ -339,32 +339,6 @@ def fit_parameters(stack, key="nn"):
     return train
 
 
-class _NumpyUnpickler(pickle.Unpickler):
-    """Reads containers and numpy arrays, nothing else: an ``init_pkl``
-    holds parameters only, and unpickling a class could run any code."""
-
-    _NUMPY = {"_reconstruct", "ndarray", "dtype", "scalar", "_frombuffer"}
-
-    def find_class(self, module, name):
-        if module.split(".")[0] == "numpy" and name in self._NUMPY:
-            return super().find_class(module, name)
-        raise pickle.UnpicklingError(
-            f"init_pkl holds {module}.{name}: only dicts, lists and numpy "
-            "arrays are read")
-
-
-def _load_init_pkl(path, key="nn"):
-    """The ``key`` subtree of the parameters in ``path``: a pickle of
-    ``{'params': {key: ...}}`` (or of the parameter dict itself) whose
-    flax tree holds dicts and numpy arrays, as the JAX package's
-    checkpointer writes them."""
-    with open(path, "rb") as f:
-        blob = _NumpyUnpickler(f).load()
-    params = blob["params"] if isinstance(blob, dict) and \
-        "params" in blob else blob
-    return params[key]
-
-
 def _net_state_from_numpy(net, tree):
     """The state_dict of ``net`` from the JAX package's tree of its
     counterpart (a ``TPairPotentials``' tree holds the model under
@@ -484,8 +458,8 @@ def fit_rdf(assignments, sys_params, model_path=None, log=print,
     # parameters-only warm start: the optimizer and MD states start fresh
     init_pkl = sys_params.get("init_pkl")
     if resume is None and init_pkl:
-        net.load_state_dict(_net_state_from_numpy(net,
-                                                  _load_init_pkl(init_pkl)))
+        net.load_state_dict(_net_state_from_numpy(
+            net, jax_params(init_pkl, "nn")))
         log(f"warm start (nn subtree) from {init_pkl}")
 
     # Boltzmann-inversion pretraining of the pair families; a resumed or

@@ -39,10 +39,9 @@ from ..data.registry import get_exp_rdf, load_target, pair_data_dict
 from ..interface import PairPotentials, Stack
 from ..md import NoseHooverChain, Simulation
 from ..nn import PairMLP
-from ..nn.convert import pair_mlp_params_from_numpy
 from ..observables import rdf as rdf_obs_cls, vacf as vacf_obs_cls
-from .checkpoint import FitCheckpointer, from_plain
-from .fit_rdf import _load_init_pkl, get_system, registry_T_kelvin
+from .checkpoint import FitCheckpointer, from_plain, pair_mlp_state
+from .fit_rdf import get_system, registry_T_kelvin
 from .optim import FitUpdate, ReduceOnPlateau
 from .pretrain import boltzmann_inversion_pretrain
 
@@ -294,16 +293,6 @@ def _obs_numpy(obs_log):
                   for k, v in d.items()} for tag, d in obs_log.items()}
 
 
-def _load_warm_start(path):
-    """The PairMLP state_dict of a warm start: the port's own best-model
-    file (``best.pt`` / ``best_eval.pt``), or a pickle of numpy arrays
-    holding the JAX package's ``{'params': {'pairnn': tree}}``."""
-    if str(path).endswith(".pt"):
-        blob = torch.load(path, map_location="cpu", weights_only=True)
-        return blob["params"]
-    return pair_mlp_params_from_numpy(_load_init_pkl(path, "pairnn"))
-
-
 def fit_lj(assignments, sys_params, model_path=None, log=print,
            registry=None, rng=None, device="cuda"):
     """Train a PairMLP plus a frozen prior against target RDFs (and VACFs
@@ -338,7 +327,7 @@ def fit_lj(assignments, sys_params, model_path=None, log=print,
     # a warm start replaces the pretraining
     init_pkl = sys_params.get("init_pkl")
     if resume is None and init_pkl:
-        net.load_state_dict(_load_warm_start(init_pkl))
+        net.load_state_dict(pair_mlp_state(init_pkl))
         log(f"warm start from {init_pkl}")
 
     prior_kind = assignments.get("prior", "ljfamily")

@@ -7,9 +7,12 @@ without a card).
 The model and targets of ``scripts/run_lj_torch.py`` (a PairMLP of 25
 Gaussians, width 128, 3 layers, SELU, on the (N, K) table over the
 LJ-family prior; lj_0.7_1 at size 5, 500 atoms), warm-started by
-Boltzmann-inversion pretraining (``-pretrain``) or ``-init_pt``, a
-``best.pt`` / ``last.pt`` this script wrote.  The gradients come from
-``train/difftre.py``: within an outer iteration the frames are fixed, so
+Boltzmann-inversion pretraining (``-pretrain``), ``-init_pt``, a
+``best.pt`` / ``last.pt`` this script wrote, or the JAX script's
+``-init_pkl``, a JAX pickle whose parameters hold ``'pairnn'`` (its
+``best.pkl``, ``fit_lj``'s ``best_eval.pkl`` or fit checkpoints), of
+which the MLP takes ``params['pairnn']`` as the JAX script grafts it.
+The gradients come from ``train/difftre.py``: within an outer iteration the frames are fixed, so
 the inner Adam steps on the MLP (the prior frozen) are deterministic.
 Writes ``paramset.json``, ``last.pt`` (each outer), ``best.pt`` (the
 outer entry of the lowest fresh-frame loss), ``history.json`` and the
@@ -29,8 +32,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 
 
+def load_init_pkl(net, path):
+    """Load the PairMLP ``net`` from the ``'pairnn'`` subtree of the
+    parameters in the JAX pickle ``path``."""
+    from mdgrad_tpu_torch.train.checkpoint import pair_mlp_state
+    net.load_state_dict(pair_mlp_state(path))
+
+
 def main(argv=None):
-    """Run the fit; ``argv`` the flags (default ``sys.argv[1:]``)."""
+    """Run the fit; ``argv`` the flags (default ``sys.argv[1:]``).
+    Returns the history (one dict an outer)."""
     p = argparse.ArgumentParser()
     p.add_argument("-logdir", type=str, default="outputs/difftre")
     p.add_argument("-data", type=str, nargs="+", default=["lj_0.7_1"])
@@ -47,9 +58,13 @@ def main(argv=None):
     p.add_argument("-pressure_weight", type=float, default=0.0)
     p.add_argument("-target_nsim", type=int, default=30)
     p.add_argument("-pretrain", type=int, default=2000)
-    p.add_argument("-init_pt", type=str, default=None,
-                   help="warm start from a best.pt / last.pt of this "
-                        "script; replaces the BI pretrain")
+    warm = p.add_mutually_exclusive_group()
+    warm.add_argument("-init_pt", type=str, default=None,
+                      help="warm start from a best.pt / last.pt of this "
+                           "script; replaces the BI pretrain")
+    warm.add_argument("-init_pkl", type=str, default=None,
+                      help="warm start from a JAX pickle's "
+                           "params['pairnn']; replaces the BI pretrain")
     p.add_argument("-capacity_slack", type=float, default=2.5)
     p.add_argument("-device", type=str, default="cuda",
                    help="'cuda' (the kernels) or 'cpu' (their plain "
@@ -136,6 +151,9 @@ def main(argv=None):
         stack.load_state_dict(torch.load(args.init_pt, map_location=device,
                                          weights_only=True))
         print(f"warm start from {args.init_pt}", flush=True)
+    elif args.init_pkl:
+        load_init_pkl(net, args.init_pkl)
+        print(f"warm start from {args.init_pkl}", flush=True)
     elif args.pretrain:
         T_list = [registry_T_kelvin(pair_data_dict[t]) for t in args.data]
         r_lo = min(pair_data_dict[t].get("start", 0.75) for t in args.data)
@@ -189,6 +207,7 @@ def main(argv=None):
             else "no completed outers (best.pt = entry params); ")
     print(last + f"recovered depth {float(u.min()):.4f} "
           f"@ r={r_grid[int(u.argmin())]:.3f}", flush=True)
+    return history
 
 
 if __name__ == "__main__":

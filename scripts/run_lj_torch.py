@@ -75,9 +75,8 @@ def main():
     p.add_argument("-eval_sample_epochs", type=int, default=8)
     p.add_argument("-init_pkl", type=str, default=None,
                    help="warm-start params from a saved best.pt / "
-                        "best_eval.pt, or a numpy pickle of the JAX "
-                        "package's {'params': {'pairnn': ...}} (replaces "
-                        "the BI pretrain)")
+                        "best_eval.pt, or a JAX pickle whose params "
+                        "hold 'pairnn' (replaces the BI pretrain)")
     p.add_argument("--dry_run", action="store_true")
     p.add_argument("-device", type=str, default="cuda",
                    help="'cuda' or 'cpu'")

@@ -19,9 +19,12 @@ whole barostatted epoch (the replay adjoint).
 * Water tags (``H20_298K_redd``): P0 the registry's pressure in atm;
   Stack{SchNet (128/128, 30 Gaussians, 2 convolutions, cutoff 6.0, bf16)
   on the (N, K) table, ExcludedVolume prior}; the SchNet trains.  Weights
-  come from a seeded init (``-seed``) or ``-init_pt``, a ``best.pt`` this
-  script wrote (a state dict of the whole model; the JAX package's
-  pickles need JAX to read).
+  come from a seeded init (``-seed``), ``-init_pt``, a ``best.pt`` this
+  script wrote (a state dict of the whole model), or the JAX script's
+  ``-init_pkl``: a JAX pickle whose parameters are the whole model's tree
+  (in water mode a water fit's checkpoint, ``{'nn', 'pair'}``; in
+  reduced mode the LJ pair's ``{'sigma', 'epsilon'}``), taken whole as
+  the JAX script takes it.
 
 Selection rides a window mean of the last ``-sel_window`` epochs' density
 and RDF error; the best parameters are evaluated over ``-eval_epochs``
@@ -43,8 +46,23 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 
 
+def load_init_pkl(model, path):
+    """Load ``model`` (the water ``Stack`` or the reduced mode's LJ
+    ``PairPotentials``) from the whole parameter tree of the JAX pickle
+    ``path``."""
+    from mdgrad_tpu_torch.interface import Stack
+    from mdgrad_tpu_torch.nn.convert import (pair_params_from_numpy,
+                                             stack_params_from_numpy)
+    from mdgrad_tpu_torch.train.checkpoint import jax_params
+    tree = jax_params(path)
+    convert = (stack_params_from_numpy if isinstance(model, Stack)
+               else pair_params_from_numpy)
+    model.load_state_dict(convert(tree, model))
+
+
 def main(argv=None):
-    """Run the fit; ``argv`` the flags (default ``sys.argv[1:]``)."""
+    """Run the fit; ``argv`` the flags (default ``sys.argv[1:]``).
+    Returns what ``result.json`` holds."""
     p = argparse.ArgumentParser()
     p.add_argument("-logdir", type=str, default="outputs/npt_fit")
     p.add_argument("-data", type=str, default="lj_0.845_1.2")
@@ -57,8 +75,12 @@ def main(argv=None):
                         "40*dt)")
     p.add_argument("-tau_p", type=float, default=None,
                    help="barostat time constant (default 100*dt)")
-    p.add_argument("-init_pt", type=str, default=None,
-                   help="warm start: a best.pt this script wrote")
+    warm = p.add_mutually_exclusive_group()
+    warm.add_argument("-init_pt", type=str, default=None,
+                      help="warm start: a best.pt this script wrote")
+    warm.add_argument("-init_pkl", type=str, default=None,
+                      help="warm start: a JAX pickle of the whole "
+                           "model's parameters")
     p.add_argument("-eps0", type=float, default=0.7)
     p.add_argument("-sigma0", type=float, default=0.92)
     p.add_argument("-rdf_weight", type=float, default=1.0,
@@ -173,6 +195,9 @@ def main(argv=None):
                                              map_location=device,
                                              weights_only=True))
         print(f"warm start from {args.init_pt}", flush=True)
+    elif args.init_pkl:
+        load_init_pkl(model_int, args.init_pkl)
+        print(f"warm start from {args.init_pkl}", flush=True)
 
     tau = args.opt_freq
     ode = sim.epoch_fn(dt, tau)
@@ -300,6 +325,7 @@ def main(argv=None):
           f"{best['epoch']}) vs target {rho_target:.4f} "
           f"({out['rho_err_pct']:.2f}%); last-epochs mean {final_rho:.4f}",
           flush=True)
+    return out
 
 
 if __name__ == "__main__":

@@ -82,8 +82,8 @@ def main():
                         "(grow capacity, restore the epoch entry state)")
     p.add_argument("-regrow_factor", type=float, default=1.5)
     p.add_argument("-init_pkl", type=str, default=None,
-                   help="parameters-only warm start from a pickle whose "
-                        "params['nn'] holds dicts and numpy arrays")
+                   help="parameters-only warm start from a JAX pickle "
+                        "(a fit checkpoint) whose params hold 'nn'")
     p.add_argument("-nbr_mode", type=str, default="table")
     p.add_argument("--share_prior_aux", action="store_true")
     p.add_argument("-gnn_skin", type=float, default=0.0)

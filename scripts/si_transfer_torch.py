@@ -15,8 +15,11 @@ over the sampling epochs' frames and scored against the experimental
 target.
 
 ``-ckpt`` is a ``fit-ckpt-<epoch>.pt`` that ``scripts/run_si_torch.py``
-wrote (read with ``torch.load(weights_only=True)``).  A JAX checkpoint
-(``.pkl``) holds optax state classes and is refused.  ``--dry_run``:
+wrote (read with ``torch.load(weights_only=True)``) or a JAX fit
+checkpoint (``.pkl``, its ``params['nn']`` read by
+``train/checkpoint.py::read_jax_pickle``); the default is the JAX
+script's, the trained a-Si SchNet ``results/si_r2/0/fit-ckpt-5699.pkl``
+(a path relative to the working directory, as there).  ``--dry_run``:
 size 2 (64 sites) on the ``table`` path (a size-2 box holds fewer than 3
 cells of the cutoff's width a side), 4 anneal, 2 equilibration and 2
 sampling epochs, 100 bins.
@@ -24,8 +27,9 @@ sampling epochs, 100 bins.
 Writes ``rdf_<tag>_<N>.csv``, ``transfer.json`` and the RDF plot under
 ``-logdir``.
 
+    python scripts/si_transfer_torch.py           # the trained JAX model
     python scripts/si_transfer_torch.py -ckpt outputs/si/0/fit-ckpt-999.pt
-    python scripts/si_transfer_torch.py --dry_run -device cpu -ckpt ...
+    python scripts/si_transfer_torch.py --dry_run -device cpu
 """
 
 import argparse
@@ -42,8 +46,9 @@ import numpy as np
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("-ckpt", type=str,
-                   default="outputs/si/0/fit-ckpt-999.pt",
-                   help="a fit-ckpt-<epoch>.pt of scripts/run_si_torch.py")
+                   default="results/si_r2/0/fit-ckpt-5699.pkl",
+                   help="a fit-ckpt-<epoch>.pt of scripts/run_si_torch.py "
+                        "or a JAX fit checkpoint (.pkl)")
     p.add_argument("-data", type=str, default="Si_2.293_100K")
     p.add_argument("-size", type=int, default=8)
     p.add_argument("-nbr_mode", type=str, default="cells")
@@ -101,19 +106,6 @@ def transfer_config(args):
     return assignments, sys_params
 
 
-def load_checkpoint(net, path):
-    """Load a ``fit-ckpt-<epoch>.pt``'s parameters into ``net``; returns
-    its epoch."""
-    import torch
-    if not str(path).endswith(".pt"):
-        raise ValueError(
-            f"{path}: not a .pt checkpoint of scripts/run_si_torch.py (a "
-            "JAX .pkl checkpoint holds optax state and is not read)")
-    blob = torch.load(path, map_location="cpu", weights_only=True)
-    net.load_state_dict(blob["params"])
-    return blob.get("epoch")
-
-
 def main(argv=None, log=print):
     """Run the transfer; ``argv`` the flags (default ``sys.argv[1:]``),
     ``log`` takes each progress line.  Returns a dict: ``mse``,
@@ -126,6 +118,7 @@ def main(argv=None, log=print):
     from mdgrad_tpu_torch import units
     from mdgrad_tpu_torch.data.registry import exp_rdf_data_dict
     from mdgrad_tpu_torch.topology import aux_overflow
+    from mdgrad_tpu_torch.train.checkpoint import load_schnet_checkpoint
     from mdgrad_tpu_torch.train.fit_rdf import (build_fit, get_temp,
                                                 registry_T_kelvin)
     from mdgrad_tpu_torch.train.plots import plot_rdfs
@@ -144,7 +137,7 @@ def main(argv=None, log=print):
                      built["r_axes"][0])
     n_atoms = system.get_number_of_atoms()
     log(f"system: {n_atoms} atoms, cell {np.diag(system.get_cell())}")
-    epoch = load_checkpoint(built["net"], args.ckpt)
+    epoch = load_schnet_checkpoint(built["net"], args.ckpt)
     log(f"loaded {args.ckpt} (epoch {epoch})")
     seconds["build"] = time.perf_counter() - t0
 

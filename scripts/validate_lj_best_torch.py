@@ -15,9 +15,9 @@ The configuration (state tags, box size, model widths, capacity slack,
 VACF) is read from the run's ``paramset.json``, so any ``fit_lj``
 output directory serves.  A candidate is a file under ``-run`` (or a
 path relative to it): the port's ``best.pt`` / ``best_eval.pt`` (the
-PairMLP's state dict) or a JAX ``best.pkl`` of numpy arrays
-(``{'params': {'pairnn': ..., 'pair': ...}}``, read through the fit
-driver's restricted unpickler); or the literal ``pretrain`` (the lr = 0
+PairMLP's state dict) or a JAX ``best.pkl``
+(``{'params': {'pairnn': ..., 'pair': ...}}``, read by
+``train/checkpoint.py::read_jax_pickle``); or the literal ``pretrain`` (the lr = 0
 Boltzmann-inversion control) or ``truth`` (the registry's ground-truth
 potential under the same protocol).
 
@@ -84,15 +84,14 @@ def get_pretrain_params(cfg, device):
 
 def load_candidate(path):
     """(params, description) of a candidate file: ``{'net': state dict}``
-    of a ``.pt``, or ``{'tree': JAX params tree}`` of a numpy pickle."""
+    of a ``.pt``, or ``{'tree': JAX params tree}`` of a JAX pickle."""
     import torch
     if str(path).endswith(".pt"):
         blob = torch.load(path, map_location="cpu", weights_only=True)
         params = {"net": blob["params"]}
     else:
-        from mdgrad_tpu_torch.train.fit_rdf import _NumpyUnpickler
-        with open(path, "rb") as f:
-            blob = _NumpyUnpickler(f).load()
+        from mdgrad_tpu_torch.train.checkpoint import read_jax_pickle
+        blob = read_jax_pickle(path)
         params = {"tree": blob["params"]}
     sel = (f"selection loss {blob['loss']:.4f}" if "loss" in blob
            else f"engine {blob.get('engine', '?')}")

@@ -32,6 +32,7 @@ import mdgrad_tpu_torch as mt
 from mdgrad_tpu_torch.data import registry
 from mdgrad_tpu_torch.md import rethermalize
 from mdgrad_tpu_torch.nn.convert import schnet_params_from_numpy
+from mdgrad_tpu_torch.train.checkpoint import jax_params
 from mdgrad_tpu_torch.train import fit_rdf
 
 # the modules, not the functions the train package exports under their names
@@ -124,7 +125,7 @@ def _first_epoch(reg, pkl):
                               rng=np.random.default_rng(1), device="cpu")
     net = comps["net"]
     net.load_state_dict(schnet_params_from_numpy(
-        fit_rdf._load_init_pkl(pkl)))
+        jax_params(pkl, "nn")))
     sim = comps["sims"][0]
     loss_fn = fit_rdf.make_epoch_loss(
         sim, comps["observers"][0], comps["targets"][0], comps["systems"][0],

@@ -431,16 +431,17 @@ def test_ported_branches_run(lj_registry, captured, assignments, sys_params):
 
 
 def test_init_pkl_reads_numpy_only(tmp_path):
-    """init_pkl reads dicts and numpy arrays and refuses any other class."""
+    """init_pkl reads dicts and numpy arrays and refuses any class outside
+    the JAX stack (read_jax_pickle)."""
     import pickle
     good, bad = tmp_path / "good.pkl", tmp_path / "bad.pkl"
     with open(good, "wb") as f:
         pickle.dump({"params": {"nn": {"a": np.arange(3.0)}}}, f)
-    assert fit_rdf._load_init_pkl(good)["a"].tolist() == [0.0, 1.0, 2.0]
+    assert checkpoint.jax_params(good, "nn")["a"].tolist() == [0.0, 1.0, 2.0]
     with open(bad, "wb") as f:
         pickle.dump({"params": {"nn": {"a": pathlib.Path("x")}}}, f)
     with pytest.raises(pickle.UnpicklingError, match="pathlib"):
-        fit_rdf._load_init_pkl(bad)
+        checkpoint.jax_params(bad, "nn")
 
 
 def test_run_water_torch_dry_run(tmp_path):

@@ -103,7 +103,7 @@ def test_run_si_then_si_transfer_dry_run(tmp_path, monkeypatch):
     """The a-Si fit's dry run (64 sites, 2 epochs), its configuration
     set to write a checkpoint each epoch (the fit driver's default is
     every 10th); the transfer's dry run loads the last and samples its
-    RDF; a JAX ``.pkl`` checkpoint is refused."""
+    RDF; a JAX ``.pkl`` checkpoint loads into the same SchNet."""
     si = load_script("run_si_torch.py")
     config = si.fit_config
 
@@ -130,16 +130,19 @@ def test_run_si_then_si_transfer_dry_run(tmp_path, monkeypatch):
     net = res["sim"].integrator.model.models["nn"].gnn
     saved = torch.load(ckpt, weights_only=True)["params"]
     assert all(torch.equal(v, saved[k]) for k, v in net.state_dict().items())
-    with pytest.raises(ValueError, match="not a .pt checkpoint"):
-        transfer.main(["--dry_run", "-device", "cpu", "-ckpt",
-                       os.path.join(REPO, "results", "si_r2", "0",
-                                    "fit-ckpt-5699.pkl"),
-                       "-logdir", str(tmp_path / "4k")], log=lambda m: None)
+    # a JAX fit checkpoint (.pkl) loads its params['nn'] into the SchNet
+    from mdgrad_tpu_torch.nn.convert import schnet_params_from_numpy
+    from mdgrad_tpu_torch.train.checkpoint import (load_schnet_checkpoint,
+                                                   read_jax_pickle)
+    pkl = os.path.join(REPO, "results", "si_r2", "0", "fit-ckpt-5699.pkl")
+    assert load_schnet_checkpoint(net, pkl) == 5699
+    ref = schnet_params_from_numpy(read_jax_pickle(pkl)["params"]["nn"])
+    assert all(torch.equal(v, ref[k]) for k, v in net.state_dict().items())
 
 
 def test_validate_lj_best_dry_run(tmp_path):
-    """The dry run scores the JAX run's ``best.pkl`` (read through the
-    restricted unpickler) and the pretraining control on the first state
+    """The dry run scores the JAX run's ``best.pkl`` (read through
+    ``read_jax_pickle``) and the pretraining control on the first state
     point, and writes ``validation.json`` where it is told."""
     lines = []
     out, scores = load_script("validate_lj_best_torch.py").main(
